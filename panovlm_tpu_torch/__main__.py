@@ -1,0 +1,51 @@
+"""CLI of the port — the verbs of the reference executable (main.cpp:41-89):
+
+    python -m panovlm_tpu_torch <stage> <config.txt> [--device cuda|cpu]
+
+Ported: init_lidar_pose. The other stages (init_camera_pose,
+joint_optimization, colorize_lidar_map, joint_mvs) exit non-zero: they run
+only in the JAX package (`python -m panovlm_tpu`) until their slices land.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+NOT_PORTED = ("init_camera_pose", "joint_optimization", "colorize_lidar_map",
+              "joint_mvs")
+
+
+def main(argv=None, infos: list | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m panovlm_tpu_torch")
+    parser.add_argument("stage", choices=("init_lidar_pose",) + NOT_PORTED)
+    parser.add_argument("config")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.stage in NOT_PORTED:
+        print(f"{args.stage}: not ported yet (ROADMAP.md)", file=sys.stderr)
+        return 2
+
+    from panovlm_tpu.config import load_config
+    from panovlm_tpu.utils.timing import TimeReport
+
+    from . import pipeline
+    from .device import resolve
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    device = resolve(args.device)
+    cfg = load_config(args.config)
+    tr = TimeReport()
+    with tr.phase(args.stage):
+        pipeline.init_lidar_pose(cfg, tr, device=device, infos=infos)
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+    print(tr.report())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,118 @@
+"""Odometry residual functions, ported from `panovlm_tpu/solver/residuals.py`
+(point-to-plane, point-to-line and line-to-line families,
+base/CostFunction.h:567-1022 in the reference).
+
+Each function is the un-batched residual of ONE observation; the solver
+maps it over the observation axis with `torch.func.vmap` and differentiates
+it with `torch.func.jacrev`. Poses are [angleaxis_fw (3), t_fw (3)], the
+world-to-frame transform.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops import se3
+
+
+def split_pose(pose):
+    return pose[..., :3], pose[..., 3:]
+
+
+def transform_n_to_r(pose_r, pose_n, point_n):
+    """P_r = R_rw R_wn P_n - R_rw R_wn t_nw + t_rw."""
+    aa_r, t_r = split_pose(pose_r)
+    aa_n, t_n = split_pose(pose_n)
+    R_rn = torch.matmul(se3.exp_so3(aa_r), se3.exp_so3(-aa_n))
+    return R_rn @ point_n - R_rn @ t_n + t_r
+
+
+def _safe_norm(x, eps: float = 1e-6):
+    """sqrt(|x|^2 + eps^2): finite derivative at x = 0."""
+    return torch.sqrt(torch.sum(x * x) + eps * eps)
+
+
+def vector_angle(v1, v2):
+    """Unsigned angle between vectors as atan2(|cross|, dot); the 1e-12
+    floor under the sqrt bounds reverse-mode partials (see the JAX module)."""
+    cross = torch.linalg.cross(v1, v2, dim=-1)
+    sin_n = torch.sqrt(torch.sum(cross * cross) + 1e-12)
+    return torch.atan2(sin_n, torch.sum(v1 * v2))
+
+
+def plane_angle(v1, v2):
+    """Angle folded to [0, pi/2]."""
+    a = vector_angle(v1, v2)
+    return torch.minimum(a, math.pi - a)
+
+
+def _normalized_center_angle(point_proj, point_ref):
+    """Angle seen from a centre 1 m from the projected point along its ray
+    (CostFunction.h:694-715), so the angle ~ metric distance; the norm is
+    clamped to 1 cm."""
+    norm = torch.clamp_min(_safe_norm(point_proj), 1e-2)
+    center = (norm - 1.0) / norm * point_proj
+    return vector_angle(point_proj - center, point_ref - center)
+
+
+def _deadband(value, gate):
+    return torch.where(gate, torch.zeros_like(value), value)[None]
+
+
+def point2plane_meter(pose_r, pose_n, point_n, plane_r):
+    """Point2Plane_Meter: signed point-plane distance in the reference
+    frame; plane_r = (nx, ny, nz, d). (1,)."""
+    p_ref = transform_n_to_r(pose_r, pose_n, point_n)
+    return (torch.sum(plane_r[:3] * p_ref) + plane_r[3])[None]
+
+
+def point2plane_angle(pose_r, pose_n, point_n, plane_r, normalize_distance=True):
+    """Point2Plane_Angle (CostFunction.h:630-729): angle between the point
+    and its in-plane projection; distance < 1e-3 -> 0. (1,)."""
+    p_ref = transform_n_to_r(pose_r, pose_n, point_n)
+    dis = torch.sum(plane_r[:3] * p_ref) + plane_r[3]
+    p_proj = p_ref - dis * plane_r[:3]
+    if normalize_distance:
+        ang = _normalized_center_angle(p_proj, p_ref)
+    else:
+        ang = vector_angle(p_ref, p_proj)
+    return _deadband(ang, torch.abs(dis) < 1e-3)
+
+
+def _point_line_distance(p, line_pt, line_dir):
+    diff = p - line_pt
+    closest = diff - torch.sum(diff * line_dir) * line_dir
+    return torch.sqrt(torch.sum(closest * closest) + 1e-12)
+
+
+def point2line_meter(pose_r, pose_n, point_n, line_pt_r, line_dir_r):
+    """Point2Line_Meter (CostFunction.h:769-833). (1,)."""
+    p_ref = transform_n_to_r(pose_r, pose_n, point_n)
+    return _point_line_distance(p_ref, line_pt_r, line_dir_r)[None]
+
+
+def point2line_angle(pose_r, pose_n, point_n, line_pt_r, line_dir_r,
+                     normalize_distance=True):
+    """Point2Line_Angle (CostFunction.h:836-933); distance < 1e-3 -> 0. (1,)."""
+    p_ref = transform_n_to_r(pose_r, pose_n, point_n)
+    k = torch.sum(line_dir_r * (p_ref - line_pt_r))
+    p_proj = line_pt_r + k * line_dir_r
+    dis = _safe_norm(p_ref - p_proj)
+    if normalize_distance:
+        ang = _normalized_center_angle(p_proj, p_ref)
+    else:
+        ang = vector_angle(p_ref, p_proj)
+    return _deadband(ang, dis < 1e-3)
+
+
+def line2line_angle(pose_r, pose_n, dir_r, dir_n):
+    """Line2Line_Angle: fold-to-90deg angle between the neighbour line
+    direction rotated into the reference frame and the reference direction;
+    rotation only; angle < 1e-3 -> 0. (1,)."""
+    aa_r, _ = split_pose(pose_r)
+    aa_n, _ = split_pose(pose_n)
+    d_ref = se3.exp_so3(aa_r) @ (se3.exp_so3(-aa_n) @ dir_n)
+    ang = plane_angle(d_ref, dir_r)
+    return _deadband(ang, ang < 1e-3)

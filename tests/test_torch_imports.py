@@ -1,0 +1,59 @@
+"""The port imports neither jax nor cv2 (the machine with the card has
+neither), and its CLI refuses what it does not run."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from panovlm_tpu_torch.__main__ import NOT_PORTED, main
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_GUARD = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cv2"):
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import panovlm_tpu_torch
+import panovlm_tpu_torch.pipeline
+import panovlm_tpu_torch.__main__
+import panovlm_tpu_torch.ops.knn
+import panovlm_tpu_torch.interop
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_port_imports_without_jax_or_cv2():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("stage", NOT_PORTED)
+def test_unported_stages_exit_nonzero(stage, capsys):
+    assert main([stage, "config.txt", "--device", "cpu"]) != 0
+    assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
+
+
+def test_cuda_device_is_never_replaced_by_the_cpu():
+    from panovlm_tpu_torch.device import resolve
+    assert resolve("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            resolve("cuda")

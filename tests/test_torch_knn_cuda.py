@@ -1,0 +1,93 @@
+"""CUDA KNN kernels (panovlm_tpu_torch/csrc/knn.cu) against their plain
+PyTorch versions, on the card. Marked `cuda`: they skip where
+torch.cuda.is_available() is false. This file imports neither jax nor the
+test conftest's fixtures, so it runs on a machine without JAX:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_knn_cuda.py
+
+Tolerance: d2 within rtol 1e-5 and atol 1e-5 (FMA order in the kernel,
+matmul order in the plain version); indices equal except on near-ties,
+where two distances of a row differ by <= 1e-5 * max(1, d2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from panovlm_tpu_torch.ops import knn as tknn
+
+B, Q, T = 2, 300, 700
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Q, 3)).astype(np.float32)
+    t = rng.normal(size=(B, T, 3)).astype(np.float32)
+    qm = rng.random((B, Q)) > 0.1
+    tm = rng.random((B, T)) > 0.1
+    qr = rng.integers(0, 16, (B, Q)).astype(np.int32)
+    tr = rng.integers(0, 16, (B, T)).astype(np.int32)
+    return q, qm, t, tm, qr, tr
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from panovlm_tpu_torch.device import resolve
+    return resolve("cuda")
+
+
+def _near_tie_mask(d_ref_k1, k):
+    """Slots of the first k whose d2 lies within 1e-5 * max(1, d2) of a
+    neighbouring slot (d_ref_k1 holds k + 1 sorted slots)."""
+    d = d_ref_k1.double()
+    close = (d[..., 1:] - d[..., :-1]).abs() <= 1e-5 * torch.clamp_min(d[..., 1:], 1.0)
+    tie = torch.zeros_like(d, dtype=torch.bool)
+    tie[..., 1:] |= close
+    tie[..., :-1] |= close
+    return tie[..., :k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_knn_kernel_matches_plain_version(cuda_device, k):
+    q, qm, t, tm, _, _ = (torch.from_numpy(a).to(cuda_device) for a in _inputs(k))
+    n0 = tknn.knn.launches
+    d, i = tknn.knn(q, qm, t, tm, k)
+    assert tknn.knn.launches == n0 + 1
+    d_ref, i_ref = tknn.knn_reference(q, qm, t, tm, k)
+    d_k1, _ = tknn.knn_reference(q, qm, t, tm, k + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, d_ref, rtol=1e-5, atol=1e-5)
+    ok = ~_near_tie_mask(d_k1, k)
+    assert torch.equal(i[ok], i_ref[ok])
+    assert (d[~qm] >= 1e29).all() and (i[~qm] == 0).all()
+
+
+@pytest.mark.cuda
+def test_knn_ring_kernel_matches_plain_version(cuda_device):
+    q, qm, t, tm, qr, tr = (torch.from_numpy(a).to(cuda_device) for a in _inputs(3))
+    n0 = tknn.knn_ring.launches
+    d, i, rd, ri = tknn.knn_ring(q, qm, t, tm, qr, tr, 10)
+    assert tknn.knn_ring.launches == n0 + 1
+    d_ref, i_ref, rd_ref, ri_ref = tknn.knn_ring_reference(q, qm, t, tm, qr, tr, 10)
+    d_k1, _ = tknn.knn_reference(q, qm, t, tm, 11)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, d_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rd, rd_ref, rtol=1e-5, atol=1e-5)
+    ok = ~_near_tie_mask(d_k1, 10)
+    assert torch.equal(i[ok], i_ref[ok])
+    # a ring index may differ only where its distance ties the plain pick
+    d2 = tknn._dist2(q, qm, t, tm)
+    picked = torch.gather(d2, -1, ri.long())
+    have = rd_ref < 1e29
+    assert ((picked - rd_ref).abs() <= 1e-5 * torch.clamp_min(rd_ref, 1.0))[have].all()
+    assert (ri[~have] == 0).all() and (rd[~have] >= 1e29).all()
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_cpu_cuda_mix(cuda_device):
+    q, qm, t, tm, _, _ = (torch.from_numpy(a) for a in _inputs(1))
+    with pytest.raises(ValueError):
+        tknn.knn(q.to(cuda_device), qm, t, tm, 5)
