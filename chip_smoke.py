@@ -1,40 +1,73 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scans N]
+    python3 chip_smoke.py [--scans N] [--mvs-frames N] [--profile-mvs]
 
 Run from the root of a checkout. Phases, each fatal on failure:
-  1. card: nvidia-smi name and power limit, torch's device name;
+  1. card: nvidia-smi name and power limit, torch's device name; the MVS
+     dataset's panoramas start rendering in worker processes meanwhile;
   2. build: the CUDA kernels of panovlm_tpu_torch/csrc, compiled from this
-     checkout (ops/_build.py);
-  3. kernel vs plain: each KNN kernel against its plain PyTorch version at
-     the association shapes (B=256 pairs; point->line Q=T=1024, k=5;
-     point->plane Q=512, T=4096, k=10 with ring offsets +-1, +-2), indices
-     equal except on near-ties, d2 within rtol 1e-5 / atol 1e-5, timed with
-     CUDA events (median of 10 after warm-up);
+     checkout (ops/_build.py, one nvcc per source, in parallel); then the
+     script waits for the renders and stops the workers, so that every
+     later phase runs on an otherwise idle host;
+  3. kernel vs plain, timed with CUDA events (median of 10 after warm-up):
+     - each KNN kernel at the association shapes (B=256 pairs; point->line
+       Q=T=1024, k=5; point->plane Q=512, T=4096, k=10 with ring offsets
+       +-1, +-2): indices equal except on near-ties, d2 within rtol/atol 1e-5;
+     - the plane-sweep NCC kernel at the Room MVS shapes, 720 x 1440: full
+       scoring V=4 views, C=2 candidates, T=49 texels (7x7), D=64 slices;
+       candidate ranking V=2, C=16, T=5, every 4th slice (D=16): max
+       |kernel - plain| <= 2e-4;
   4. the odometry stage (`python -m panovlm_tpu_torch init_lidar_pose`,
      in-process) on a synthetic Room-454 dataset (tests/synthetic.py, the
-     loop trajectory of _room_scale.sh, 16 rings x 1800 azimuths),
-     checked against ground truth (consecutive-scan distance error
-     < 0.05 m in both pose files) and for kernel launches on that path.
-Prints the kernel table as one JSON line, then, as the last line,
-{"ok": true, "device": {...}}. Exits non-zero without that line when there
-is no CUDA device or a phase fails.
+     loop trajectory of _room_scale.sh, 16 rings x 1800 azimuths), checked
+     against ground truth (consecutive-scan distance error < 0.05 m in both
+     pose files) and for kernel launches on that path;
+  5. the MVS stage (`python -m panovlm_tpu_torch joint_mvs`, in-process) on
+     the first --mvs-frames frames of the same loop: 2880 x 5760 panoramas
+     rendered by tests/synthetic.render_panorama, written as PNG, read at
+     scale -2 (720 x 1440) with the Room MVS keys (configs/Room.txt:75-87;
+     min_depth 0.1, the Config default, since Room's 0 divides by zero in
+     the sweep path, ROADMAP F7), undistorted scans and ground-truth joint
+     camera/LiDAR poses. Checked: the artifact set, the median relative
+     depth error < 0.08 in rows H/4..3H/4 (the bound of
+     tests/test_pipeline_cli_late.py), a floor on the share of that band
+     with a depth, and K3 launches;
+  6. K3 against its plain version at the shapes phase 5 launched it with:
+     the sweep range and slice count that the stage's range fit chose (read
+     from its log), full scoring at C=2, the initial scoring at C=1 and the
+     ranking on every 4th slice, max |kernel - plain| <= 2e-4.
+Prints the card line, the kernel table as one JSON line, then, as the last
+line, {"ok": true, "device": {...}}. In the kernel table, volscore's times
+and bound are those of the D=64 full-scoring shape of phase 3, its
+max_abs_err the largest over the shapes of phases 3 and 6, and its
+"shapes" list holds each shape's numbers. Exits non-zero without that line when
+there is no CUDA device or a phase fails. --profile-mvs wraps phase 5 in
+torch.profiler and writes its kernel table to chiprun_out/mvs_profile.txt.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
+import multiprocessing
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NEAR_TIE = 1e-5
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+S = ((1.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0))   # lidar z-up -> camera axes
 
 
 def fail(msg: str):
@@ -44,6 +77,13 @@ def fail(msg: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """Least time on the card: the larger of the bytes at HBM rate and the
+    operations at the float32 rate. Returns (ms, "bytes" or "operations")."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 # ----------------------------------------------------------------------------
@@ -84,7 +124,16 @@ def _check_slots(name, d, i, d_ref, i_ref, d2_full):
     return float((d - d_ref).abs().max()), n_ties
 
 
-def kernel_vs_plain(torch, knn_mod):
+def _knn_bound(B, Q, T, D, k, ring):
+    """Bytes: points and masks read once, (d2, idx) (+ ring outputs) written
+    once; operations: 3D+3 per (query, target) pair (|q|^2 + |t|^2 - 2 q.t
+    and one top-k compare), one more for the ring minimum."""
+    n_out = k + (4 if ring else 0)
+    n_bytes = B * (Q + T) * (4 * D + 1 + (4 if ring else 0)) + B * Q * n_out * 8
+    return bound_ms(n_bytes, B * Q * T * (3 * D + 3 + (1 if ring else 0)))
+
+
+def knn_vs_plain(torch, knn_mod):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B = 256
@@ -105,10 +154,13 @@ def kernel_vs_plain(torch, knn_mod):
     d2_full = knn_mod._dist2(q, qm, t, tm)
     err, ties = _check_slots("knn", d, i, d_ref, i_ref, d2_full)
     del d2_full
-    rows["knn"] = dict(max_abs_err=err, near_ties=ties,
-                       ms=_time_ms(lambda: knn_mod.knn(q, qm, t, tm, 5)),
-                       plain_ms=_time_ms(lambda: knn_mod.knn_reference(q, qm, t, tm, 5)),
-                       shape="B=256 Q=1024 T=1024 D=3 k=5")
+    b_ms, b_by = _knn_bound(B, 1024, 1024, 3, 5, False)
+    rows["knn"] = dict(
+        max_abs_err=err, near_ties=ties,
+        ms=_time_ms(lambda: knn_mod.knn(q, qm, t, tm, 5)),
+        plain_ms=_time_ms(lambda: knn_mod.knn_reference(q, qm, t, tm, 5)),
+        library_ms=_time_ms(lambda: torch.topk(torch.cdist(q, t), 5, largest=False)),
+        bound_ms=b_ms, bound_by=b_by, shape="B=256 Q=1024 T=1024 D=3 k=5")
     # K2 at the point->plane shape
     q, t = cloud(512), cloud(4096)
     qm, tm = mask(512), mask(4096)
@@ -121,15 +173,110 @@ def kernel_vs_plain(torch, knn_mod):
     err1, t1 = _check_slots("knn_ring top-k", out[0], out[1], ref[0], ref[1], d2_full)
     err2, t2 = _check_slots("knn_ring rings", out[2], out[3], ref[2], ref[3], d2_full)
     del d2_full
+    b_ms, b_by = _knn_bound(B, 512, 4096, 3, 10, True)
     rows["knn_ring"] = dict(
         max_abs_err=max(err1, err2), near_ties=t1 + t2,
         ms=_time_ms(lambda: knn_mod.knn_ring(q, qm, t, tm, qr, tr, 10)),
         plain_ms=_time_ms(lambda: knn_mod.knn_ring_reference(q, qm, t, tm, qr, tr, 10)),
-        shape="B=256 Q=512 T=4096 D=3 k=10 rings=4")
+        library_ms=_time_ms(lambda: torch.topk(torch.cdist(q, t), 10, largest=False)),
+        bound_ms=b_ms, bound_by=b_by, shape="B=256 Q=512 T=4096 D=3 k=10 rings=4")
     for name, r in rows.items():
         log(f"kernel {name} [{r['shape']}]: max |d2 - plain| {r['max_abs_err']:.3g}, "
             f"near-tie index swaps {r['near_ties']}, kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms")
+            f"plain {r['plain_ms']:.3f} ms, cdist+topk {r['library_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+# volscore arithmetic, counted from csrc/volscore.cu: per (view, candidate,
+# pixel, texel) the texel-ray dot (5), denominator clamp (2), lambda (1),
+# slice coordinate (4) and its clip (2), floor/fraction (2), two-slice
+# interpolation (4), bilateral weight + gate (5), six moments (11); per
+# (view, candidate, pixel) the plane offset (6) and the NCC epilogue (15).
+VOLSCORE_OPS_PER_TEXEL = 36
+VOLSCORE_OPS_PER_PIXEL = 21
+
+
+def _volscore_bound(V, D, C, T, H, W):
+    HW = H * W
+    n_bytes = V * D * HW * 2 + C * HW * 4 * 4 + HW * 4 * 4 + V * C * HW * 4
+    n_ops = V * C * HW * (T * VOLSCORE_OPS_PER_TEXEL + VOLSCORE_OPS_PER_PIXEL)
+    return bound_ms(n_bytes, n_ops)
+
+
+def volscore_cases(pm, cfg, main_path: bool):
+    """(label, views, candidates, texel offsets, slice stride) of K3's
+    launches: full scoring (and, on the main path, the initial scoring of
+    one candidate) over every slice and view, the ranking of 16 candidates
+    on the sparse texels, the nearest views and every k-th slice."""
+    full = pm._patch_offsets(cfg)
+    cases = [("full", 4, 2, full, 1)]
+    if main_path:
+        cases.append(("init", 4, 1, full, 1))
+    cases.append(("rank", cfg.prune_views, 16, pm._cheap_offsets(cfg),
+                  cfg.prune_slice_stride))
+    return cases
+
+
+def volscore_vs_plain(torch, cfg, main_path: bool = False):
+    """K3 against its plain version at 720 x 1440 and the sweep of cfg
+    (cfg.sweep_slices slices over [cfg.min_depth, cfg.max_depth]), on
+    inputs with the main path's layout and texture: a smooth reference gray
+    and a (4, D, 720, 1440) bf16 volume of shifted copies of it plus noise
+    (on white-noise images the bilateral weights leave one or two effective
+    texels, and NCC of a near-zero variance amplifies rounding), candidate
+    depths inside the sweep range and normals facing the camera."""
+    from panovlm_tpu_torch.ops import patchmatch as pm
+    from panovlm_tpu_torch.ops import spherical
+    from panovlm_tpu_torch.ops import volscore as vs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    H, W, V, D = 720, 1440, 4, cfg.sweep_slices
+    rays = spherical.pixel_ray_grid(H, W, dev)
+    rays_cf = rays.permute(2, 0, 1).contiguous()
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
+    base = 0.5 + 0.25 * torch.sin(0.11 * xx + 0.07 * yy) * torch.cos(0.05 * yy)
+    gray = base + 0.02 * torch.randn((H, W), generator=g, device=dev)
+    vols = torch.stack([torch.stack([torch.roll(base, s + 3 * v, dims=1) for s in range(D)])
+                        for v in range(V)])
+    vols = (vols + 0.05 * torch.randn(vols.shape, generator=g, device=dev)).to(torch.bfloat16)
+    lo, hi = max(cfg.min_depth, 1.0), min(cfg.max_depth, 4.0)
+
+    def candidates(C):
+        depth = lo + (hi - lo) * torch.rand((C, H, W), generator=g, device=dev)
+        n_raw = -rays + 0.3 * torch.randn((C, H, W, 3), generator=g, device=dev)
+        nrm = pm.random_normals(n_raw, rays)
+        return depth, nrm.permute(0, 3, 1, 2).contiguous()
+
+    rows = {}
+    for label, nv, C, offsets, stride in volscore_cases(pm, cfg, main_path):
+        label = f"main path {label}" if main_path else label
+        depth, nrm = candidates(C)
+        sub = vols[:nv, ::stride]
+        inv0, inv_step = pm._inv_grid(cfg, stride)
+        args = (sub, depth, nrm, rays_cf, gray, offsets, inv0, inv_step,
+                cfg.min_depth, cfg.max_depth)
+        out = vs.volscore(*args)
+        ref = vs.volscore_reference(*args)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = float(diff.max())
+        if not err <= 2e-4:
+            fail(f"volscore [{label}]: max |kernel - plain| {err:.3g} > 2e-4 on "
+                 f"{int((diff > 2e-4).sum())} of {diff.numel()} outputs")
+        b_ms, b_by = _volscore_bound(nv, sub.shape[1], C, len(offsets), H, W)
+        rows[label] = dict(
+            max_abs_err=err, ms=_time_ms(lambda: vs.volscore(*args)),
+            plain_ms=_time_ms(lambda: vs.volscore_reference(*args), reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=(f"V={nv} C={C} T={len(offsets)} D={sub.shape[1]} {H}x{W} "
+                   f"depths {cfg.min_depth:.4g}..{cfg.max_depth:.4g} m"))
+        del out, ref
+        log(f"kernel volscore {label} [{rows[label]['shape']}]: max |kernel - plain| "
+            f"{err:.3g}, kernel {rows[label]['ms']:.3f} ms, plain "
+            f"{rows[label]['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return rows
 
 
@@ -150,28 +297,39 @@ num_iteration_lidar          = 7
 """
 
 
-def make_room(root: str, n: int, loop: int = 454, seed: int = 0):
-    """The first n scans of the synthetic Room-`loop` trajectory, a
-    perturbed (2 cm / 0.5 deg, scan 0 exact) stage-1 lidar_pose.txt and
-    config.txt. Returns (config path, ground-truth lidar poses, mean points
-    per scan)."""
+def room_loop(n: int, loop: int = 454, sweep_alpha: float = 0.5):
+    """The first n scans of the synthetic Room-`loop` trajectory (2.5 loops
+    of the room, _room_scale.sh). Returns (scans, lidar poses)."""
+    import synthetic
+    yaw = 2.5 * 2 * math.pi / loop
+    return synthetic.make_trajectory_scans(
+        n_scans=n, step=(0.8 * yaw, 0.0, 0.0), yaw_step=yaw, origin=(0.0, 0.0, -1.0),
+        noise=0.002, h_steps=1800, sweep_alpha=sweep_alpha, body_step=True)
+
+
+def _camera_convention(poses):
+    """Lidar z-up poses -> (R, t) in the camera-convention world."""
+    import numpy as np
+    Sm = np.asarray(S)
+    return (np.stack([Sm @ p[0] @ Sm.T for p in poses]),
+            np.stack([Sm @ p[1] for p in poses]))
+
+
+def make_room(root: str, n: int, seed: int = 0):
+    """The first n scans of the Room-454 loop, a perturbed (2 cm / 0.5 deg,
+    scan 0 exact) stage-1 lidar_pose.txt and config.txt. Returns (config
+    path, ground-truth lidar poses, mean points per scan)."""
     import numpy as np
     from scipy.spatial.transform import Rotation as ScR
-    import synthetic
-    from panovlm_tpu.io import artifacts
-    from panovlm_tpu.io.pointcloud import write_pcd
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.io.pointcloud import write_pcd
 
-    yaw = 2.5 * 2 * math.pi / loop       # _room_scale.sh: 2.5 loops of the room
-    scans, poses = synthetic.make_trajectory_scans(
-        n_scans=n, step=(0.8 * yaw, 0.0, 0.0), yaw_step=yaw, origin=(0.0, 0.0, -1.0),
-        noise=0.002, h_steps=1800, sweep_alpha=0.5, body_step=True)
+    scans, poses = room_loop(n)
     os.makedirs(os.path.join(root, "lidar"))
     for i, scan in enumerate(scans):
         write_pcd(os.path.join(root, "lidar", f"{i:06d}.pcd"), scan,
                   intensity=np.zeros(len(scan), np.float32))
-    S = np.array([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]])
-    R = np.stack([S @ p[0] @ S.T for p in poses])
-    t = np.stack([S @ p[1] for p in poses])
+    R, t = _camera_convention(poses)
     rng = np.random.default_rng(seed)
     dR = ScR.from_rotvec(rng.normal(size=(n, 3)) * np.radians(0.5)).as_matrix()
     dt = rng.normal(size=(n, 3)) * 0.02
@@ -187,11 +345,11 @@ def make_room(root: str, n: int, loop: int = 454, seed: int = 0):
     return cfg, poses, sum(len(s) for s in scans) / n
 
 
-def run_stage(torch, knn_mod, n_scans: int):
+def run_odometry(torch, knn_mod, n_scans: int):
     import numpy as np
-    from panovlm_tpu.config import load_config
-    from panovlm_tpu.io import artifacts
     from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_room_") as root:
         t0 = time.time()
@@ -208,15 +366,15 @@ def run_stage(torch, knn_mod, n_scans: int):
         launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
         if rc != 0:
             fail(f"init_lidar_pose exited {rc}")
-        log(f"stage wall {wall:.1f} s, peak device memory "
+        log(f"odometry stage wall {wall:.1f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for r, info in enumerate(infos):
             log(f"odometry round {r}: {info['pairs']} pairs, cost "
                 f"{info['initial_cost']:.6g} -> {info['final_cost']:.6g}, "
                 f"{info['iterations']} LM iterations")
-        log(f"kernel launches on the main path: {launches}")
+        log(f"kernel launches on the odometry path: {launches}")
         if min(launches.values()) <= 0:
-            fail(f"a kernel of the path was not launched: {launches}")
+            fail(f"a kernel of the odometry path was not launched: {launches}")
 
         cfg = load_config(cfg_path)
         for name in ("lidar_pose_refined.txt", "lidar_center_refined.pcd",
@@ -240,9 +398,207 @@ def run_stage(torch, knn_mod, n_scans: int):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 5: the MVS stage on the same loop
+# ----------------------------------------------------------------------------
+
+ROOM_MVS_KEYS = """\
+mvs_use_lidar        = true
+scale                = -2
+ncc_half_window      = 3
+ncc_step             = 1
+propagate_strategy   = 2
+depth_diff_threshold = 0.01
+min_segment          = 100
+mvs_use_geometric    = true
+keep_lidar_constant  = true
+mvs_sweep_slices     = 64
+max_depth            = 5
+min_depth            = 0.1
+"""
+PANO_H, PANO_W = 2880, 5760   # Room panoramas; scale -2 works at 720 x 1440
+
+
+def write_png_gray(path: str, img):
+    """Minimal PNG encoder: 8-bit gray, filter type 0 on every row."""
+    import numpy as np
+    h, w = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 1)))
+        f.write(chunk(b"IEND", b""))
+
+
+def _render_frame(args):
+    """Worker: render frame i at panorama size into a PNG, and its
+    ground-truth depth at the working size (returned)."""
+    path, C, R_wc, pano_hw, work_hw = args
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import numpy as np
+    import synthetic
+    gray, _ = synthetic.render_panorama(C, *pano_hw, R_wc=R_wc)
+    write_png_gray(path, np.clip(gray * 255, 0, 255).astype(np.uint8))
+    return synthetic.render_panorama(C, *work_hw, R_wc=R_wc)[1]
+
+
+def start_mvs_dataset(root: str, n: int, pool, pano_hw=(PANO_H, PANO_W)):
+    """Write the scans, the joint poses and config.txt of the MVS dataset,
+    and start rendering its panoramas (pano_hw) on `pool`. Returns (config
+    path, async result of the ground-truth depths at the working size)."""
+    import numpy as np
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.io.pointcloud import write_pcd
+
+    scans, poses = room_loop(n, sweep_alpha=0.0)
+    R, t = _camera_convention(poses)   # T_cl = identity: camera at the LiDAR
+    for d in ("images", "undis", "result/joint"):
+        os.makedirs(os.path.join(root, d))
+    for i, scan in enumerate(scans):
+        write_pcd(os.path.join(root, "undis", f"{i:06d}.pcd"), scan,
+                  intensity=np.zeros(len(scan), np.float32))
+    for name in ("camera_pose_joint.txt", "lidar_pose_joint.txt"):
+        artifacts.export_pose_t(os.path.join(root, "result", "joint", name), R, t)
+    cfg = os.path.join(root, "config.txt")
+    with open(cfg, "w") as f:
+        f.write(f"image_path = {root}/images\nlidar_path = {root}/undis\n"
+                f"lidar_path_undistort = {root}/undis\nresult_path = {root}/result\n"
+                f"mvs_data_path = {root}/mvs\n{ROOM_MVS_KEYS}")
+    work = (pano_hw[0] // 4, pano_hw[1] // 4)      # scale -2
+    jobs = [(os.path.join(root, "images", f"{i:06d}.png"), t[i], R[i], pano_hw, work)
+            for i in range(n)]
+    return cfg, pool.map_async(_render_frame, jobs)
+
+
+# share of rows H/4..3H/4 that must hold a depth: about 80 % of what the
+# H100 run measured (0.185 after post-processing, 0.120 filtered), so that a
+# stage that drops most pixels cannot pass on the accuracy of the rest
+MVS_MIN_COVERAGE = {"geo (post-processed)": 0.15, "filter": 0.095}
+
+
+class _RangeFit(logging.Handler):
+    """Keeps the arguments of the stage's "sweep range fit" log record:
+    (min, max, fitted min, fitted max, slices, fitted slices)."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = None
+
+    def emit(self, record):
+        if str(record.msg).startswith("sweep range fit"):
+            self.args = record.args
+
+
+def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
+    """Phase 5. Returns (K3 launches, the PatchMatchConfig of the sweep the
+    stage ran)."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.models import mvs
+    from panovlm_tpu_torch.ops.patchmatch import PatchMatchConfig
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    cfg = load_config(cfg_path)
+    n = len(d_gt)
+    tr = TimeReport()
+    fit = _RangeFit()
+    logging.getLogger("panovlm").addHandler(fit)
+    torch.cuda.reset_peak_memory_stats()
+    vs_mod.volscore.launches = 0
+    t0 = time.time()
+    try:
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as tprofile
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
+        else:
+            rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
+    finally:
+        logging.getLogger("panovlm").removeHandler(fit)
+    wall = time.time() - t0
+    launches = vs_mod.volscore.launches
+    lo, hi, slices = cfg.min_depth, cfg.max_depth, cfg.mvs_sweep_slices
+    if fit.args is not None:
+        lo, hi, slices = fit.args[2], fit.args[3], fit.args[5]
+    pm_run = PatchMatchConfig(ncc_half_window=cfg.ncc_half_window, ncc_step=cfg.ncc_step,
+                              min_depth=float(lo), max_depth=float(hi),
+                              sweep_slices=int(slices))
+    log(f"MVS sweep: {pm_run.sweep_slices} slices over [{lo:.4f}, {hi:.4f}] m "
+        f"({'range fit' if fit.args is not None else 'no range fit'})")
+    if rc != 0:
+        fail(f"joint_mvs exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"MVS stage wall {wall:.1f} s, peak device memory {peak:.2f} GiB, "
+        f"volscore launches {launches} ({launches / n:.1f} per frame)")
+    for name in ("photometric pass", "geometric pass", "lidar depth init",
+                 "post + filter", "fuse + export"):
+        sec = tr.time_spent.get(name, float("nan"))
+        log(f"  {name}: {sec:.2f} s ({sec / n:.3f} s per frame)")
+    if launches <= 0:
+        fail("the volscore kernel was not launched on the MVS path")
+    if profile:
+        write_profile(prof, wall)
+
+    names = sorted(os.listdir(cfg.mvs_depth_path))
+    want = sorted(f"{i:06d}_{s}.npy" for i in range(n) for s in ("pho", "geo", "filter"))
+    if names != want:
+        fail(f"depth artifacts {names[:6]}... != {want[:6]}...")
+    for sub in (cfg.mvs_conf_path, cfg.mvs_normal_path):
+        if len(os.listdir(sub)) != 2 * n:
+            fail(f"{sub}: {len(os.listdir(sub))} files for {n} frames x 2 passes")
+    if not os.path.exists(os.path.join(cfg.mvs_result_path, "mvs_fused.pcd")):
+        fail("missing result/mvs/mvs_fused.pcd")
+    errs = {"geo (post-processed)": [], "filter": []}
+    for i in range(n):
+        geo = torch.from_numpy(np.load(os.path.join(
+            cfg.mvs_depth_path, f"{i:06d}_geo.npy")).astype(np.float32) / 256).cuda()
+        geo = mvs.gap_interpolation(mvs.remove_small_segments(
+            geo, cfg.depth_diff_threshold, cfg.min_segment)).cpu().numpy()
+        filt = np.load(os.path.join(cfg.mvs_depth_path, f"{i:06d}_filter.npy")) / 256.0
+        H, W = geo.shape
+        band = np.zeros((H, W), bool)
+        band[H // 4:3 * H // 4] = True
+        for key, d in (("geo (post-processed)", geo), ("filter", filt)):
+            have = band & (d > 0) & (d_gt[i] > 0)
+            errs[key].append((np.abs(d - d_gt[i])[have] / d_gt[i][have], have.sum() / band.sum()))
+    med = {}
+    for key, parts in errs.items():
+        med[key] = float(np.median(np.concatenate([e for e, _ in parts])))
+        cover = float(np.mean([c for _, c in parts]))
+        log(f"MVS depth vs ground truth [{key}]: median relative error {med[key]:.4f}, "
+            f"coverage {cover:.3f} of rows H/4..3H/4")
+        if not cover >= MVS_MIN_COVERAGE[key]:
+            fail(f"MVS [{key}]: coverage {cover:.3f} < {MVS_MIN_COVERAGE[key]}")
+    if not med["geo (post-processed)"] < 0.08:
+        fail(f"MVS median relative depth error {med['geo (post-processed)']:.4f} >= 0.08")
+    return launches, pm_run
+
+
+def write_profile(prof, wall):
+    ka = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type is not None and "cuda" in str(e.device_type).lower())
+    table = ka.table(sort_by="self_device_time_total", row_limit=30)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "mvs_profile.txt"), "w") as f:
+        f.write(f"wall {wall:.3f} s, device self time {dev_us / 1e6:.3f} s\n{table}\n")
+    log(f"MVS profile: wall {wall:.2f} s (profiling on), device self time "
+        f"{dev_us / 1e6:.2f} s; table in chiprun_out/mvs_profile.txt")
+    log(table)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=454)
+    ap.add_argument("--mvs-frames", type=int, default=16)
+    ap.add_argument("--profile-mvs", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -251,8 +607,9 @@ def main():
     if not os.path.isdir(os.path.join(HERE, "panovlm_tpu_torch")):
         fail("panovlm_tpu_torch/ not found: run from a checkout of the repository")
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    t_start = time.time()
 
-    # 1. card
+    # 1. card; the MVS panoramas render on the host until phase 3
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -260,35 +617,84 @@ def main():
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    mvs_root = tempfile.TemporaryDirectory(prefix="chip_smoke_mvs_")
+    # two cores stay free for the two nvcc processes of the build
+    pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 3) - 2))
+    try:
+        mvs_cfg, gt_async = start_mvs_dataset(mvs_root.name, args.mvs_frames, pool)
 
-    from panovlm_tpu_torch.device import resolve
-    resolve("cuda")
-    from panovlm_tpu_torch.ops import _build
-    from panovlm_tpu_torch.ops import knn as knn_mod
+        from panovlm_tpu_torch.device import resolve
+        resolve("cuda")
+        from panovlm_tpu_torch.ops import _build
+        from panovlm_tpu_torch.ops import knn as knn_mod
+        from panovlm_tpu_torch.ops import volscore as vs_mod
+        from panovlm_tpu_torch.ops.patchmatch import PatchMatchConfig
 
-    # 2. build
-    t0 = time.time()
-    lib_path = _build.build()
-    _build.load()
-    log(f"build: {lib_path.relative_to(HERE)} in {time.time() - t0:.1f} s "
-        f"(nvcc {'ran' if _build.build_seconds is not None else 'not needed'})")
+        # 2. build
+        t0 = time.time()
+        lib_path = _build.build()
+        _build.load()
+        log(f"build: {lib_path.relative_to(HERE)} in {time.time() - t0:.1f} s "
+            f"(nvcc {'ran' if _build.build_seconds is not None else 'not needed'})")
+        regs = {}
+        for line in _build.build_log.splitlines():   # ptxas: entry, then its properties
+            if "Compiling entry function" in line:
+                kernel = "volscore" if "volscore" in line else "knn"
+            elif "Used" in line and "registers" in line:
+                regs.setdefault(kernel, []).append(int(line.split("Used")[1].split()[0]))
+            elif "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+                log(f"  spills: {line.strip()}")
+        for kernel, r in regs.items():
+            log(f"  {kernel}: {len(r)} instantiation(s), {min(r)}-{max(r)} registers per thread")
 
-    # 3. kernel vs plain
-    rows = kernel_vs_plain(torch, knn_mod)
+        t0 = time.time()
+        d_gt = gt_async.get(timeout=900)
+        pool.close()
+        pool.join()
+        log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, ready "
+            f"{time.time() - t0:.1f} s after the build")
 
-    # 4. the stage
-    launches = run_stage(torch, knn_mod, args.scans)
+        # 3. kernel vs plain
+        rows = knn_vs_plain(torch, knn_mod)
+        vrows = volscore_vs_plain(torch, PatchMatchConfig(
+            ncc_half_window=3, ncc_step=1, min_depth=0.5, max_depth=5.0, sweep_slices=64))
 
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+        # 4. the odometry stage
+        launches = run_odometry(torch, knn_mod, args.scans)
+
+        # 5. the MVS stage
+        launches["volscore"], pm_run = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
+                                               args.profile_mvs)
+
+        # 6. K3 at the shapes of phase 5
+        vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
+    finally:
+        pool.terminate()
+        pool.join()
+        mvs_root.cleanup()
+
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "panovlm_tpu"))
     if leaked:
-        fail(f"jax was imported: {leaked}")
+        fail(f"jax or the JAX package was imported: {leaked}")
+    log(f"whole script {time.time() - t_start:.1f} s")
+    rows["volscore"] = dict(
+        vrows["full"], library_ms=None,
+        max_abs_err=max(r["max_abs_err"] for r in vrows.values()),
+        shapes=[{"shape": r["shape"], **{k: r[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+            for r in vrows.values()])
+    src = {"knn": "csrc/knn.cu", "knn_ring": "csrc/knn.cu", "volscore": "csrc/volscore.cu"}
     replaces = {"knn": "panovlm_tpu/ops/pallas/knn.py:30",
-                "knn_ring": "panovlm_tpu/ops/pallas/knn.py:93"}
+                "knn_ring": "panovlm_tpu/ops/pallas/knn.py:93",
+                "volscore": "panovlm_tpu/ops/pallas/volscore.py:40"}
     log(card)   # as nvidia-smi prints it: name, power limit
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": "panovlm_tpu_torch/csrc/knn.cu",
+        {"name": name, "route": "cuda", "source": f"panovlm_tpu_torch/{src[name]}",
          "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"], **({"shapes": r["shapes"]} if "shapes" in r else {})}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

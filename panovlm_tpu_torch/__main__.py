@@ -2,9 +2,9 @@
 
     python -m panovlm_tpu_torch <stage> <config.txt> [--device cuda|cpu]
 
-Ported: init_lidar_pose. The other stages (init_camera_pose,
-joint_optimization, colorize_lidar_map, joint_mvs) exit non-zero: they run
-only in the JAX package (`python -m panovlm_tpu`) until their slices land.
+Ported: init_lidar_pose and joint_mvs. The other stages (init_camera_pose,
+joint_optimization, colorize_lidar_map) exit non-zero: they run only in the
+JAX package (`python -m panovlm_tpu`) until their slices land.
 """
 
 from __future__ import annotations
@@ -13,13 +13,13 @@ import argparse
 import logging
 import sys
 
-NOT_PORTED = ("init_camera_pose", "joint_optimization", "colorize_lidar_map",
-              "joint_mvs")
+PORTED = ("init_lidar_pose", "joint_mvs")
+NOT_PORTED = ("init_camera_pose", "joint_optimization", "colorize_lidar_map")
 
 
-def main(argv=None, infos: list | None = None) -> int:
+def main(argv=None, infos: list | None = None, tr=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m panovlm_tpu_torch")
-    parser.add_argument("stage", choices=("init_lidar_pose",) + NOT_PORTED)
+    parser.add_argument("stage", choices=PORTED + NOT_PORTED)
     parser.add_argument("config")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
@@ -27,22 +27,21 @@ def main(argv=None, infos: list | None = None) -> int:
         print(f"{args.stage}: not ported yet (ROADMAP.md)", file=sys.stderr)
         return 2
 
-    from panovlm_tpu.config import load_config
-    from panovlm_tpu.utils.timing import TimeReport
-
     from . import pipeline
+    from .config import load_config
     from .device import resolve
+    from .utils.timing import TimeReport
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     device = resolve(args.device)
     cfg = load_config(args.config)
-    tr = TimeReport()
+    tr = tr or TimeReport()
     with tr.phase(args.stage):
-        pipeline.init_lidar_pose(cfg, tr, device=device, infos=infos)
-    if device.type == "cuda":
-        import torch
-        torch.cuda.synchronize(device)
+        if args.stage == "joint_mvs":
+            pipeline.joint_mvs(cfg, tr, device=device)
+        else:
+            pipeline.init_lidar_pose(cfg, tr, device=device, infos=infos)
     print(tr.report())
     return 0
 

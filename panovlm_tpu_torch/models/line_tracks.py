@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from panovlm_tpu.utils.tracks import UnionFind
+from ..utils.tracks import UnionFind
 
 
 def _union_tracks(n_nodes, edges, min_length: int):

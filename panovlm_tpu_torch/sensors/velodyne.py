@@ -557,3 +557,55 @@ def extract_features(pts, mask, max_curvature: float = 5.0,
         "line_points": lines["points"], "line_dirs": lines["dirs"],
         "line_endpoints": lines["endpoints"], "line_mask": lines["mask"],
     }
+
+
+# ----------------------------------------------------------------------------
+# voxel grid (panovlm_tpu/sensors/velodyne.py:784-832)
+# ----------------------------------------------------------------------------
+
+def voxel_downsample(pts, mask, aux=None, leaf: float = 0.2, weights=None,
+                     return_counts: bool = False):
+    """Centroid voxel-grid filter (pcl::VoxelGrid, Velodyne.cpp:1076-1080).
+    pts (N,3), mask (N,). Returns (centroids (N,3), out_mask (N,)): one
+    entry per occupied voxel in ascending key order (a stable sort, as
+    jnp.argsort is), padded with zeros. aux (N,) or (N,A) is averaged per
+    voxel too (returned third); weights (N,) make the means weighted;
+    return_counts appends the per-voxel weight sums."""
+    n = pts.shape[0]
+    vox = torch.floor(pts / leaf).to(torch.int32)
+    vmin = torch.min(torch.where(mask[:, None], vox, torch.full_like(vox, 2**30)), dim=0).values
+    # 10-bit packed exact key (1024 cells per axis; farther points clip
+    # into the boundary voxel)
+    v = torch.clamp(vox - vmin, 0, 1023)
+    key = (v[:, 0] << 20) | (v[:, 1] << 10) | v[:, 2]
+    key = torch.where(mask, key, torch.full_like(key, 2**30))
+    order = torch.sort(key, stable=True).indices
+    ks, ps, ms = key[order], pts[order], mask[order]
+    if weights is None:
+        ws = ms.to(pts.dtype)
+    else:
+        ws = torch.where(ms, weights.to(pts.dtype)[order], torch.zeros_like(ps[:, 0]))
+    first = torch.ones(1, dtype=torch.bool, device=pts.device)
+    uniq = torch.cat([first, ks[1:] != ks[:-1]]) & ms
+    seg = torch.clamp_min(torch.cumsum(uniq.to(torch.int64), 0) - 1, 0)
+    sums = torch.zeros((n, 3), dtype=pts.dtype, device=pts.device).index_add_(
+        0, seg, ws[:, None] * ps)
+    cnts = torch.zeros(n, dtype=pts.dtype, device=pts.device).index_add_(0, seg, ws)
+    out_mask = torch.arange(n, device=pts.device) < uniq.sum()
+    safe = torch.clamp_min(cnts, 1e-9)[:, None]
+    centroids = torch.where(out_mask[:, None], sums / safe, torch.zeros_like(sums))
+    out_cnts = torch.where(out_mask, cnts, torch.zeros_like(cnts))
+    if aux is None:
+        return (centroids, out_mask, out_cnts) if return_counts \
+            else (centroids, out_mask)
+    aux2 = aux.to(pts.dtype)
+    squeeze = aux2.dim() == 1
+    if squeeze:
+        aux2 = aux2[:, None]
+    aux_sum = torch.zeros((n, aux2.shape[1]), dtype=pts.dtype,
+                          device=pts.device).index_add_(0, seg, ws[:, None] * aux2[order])
+    aux_out = torch.where(out_mask[:, None], aux_sum / safe, torch.zeros_like(aux_sum))
+    aux_out = aux_out[:, 0] if squeeze else aux_out
+    if return_counts:
+        return centroids, out_mask, aux_out, out_cnts
+    return centroids, out_mask, aux_out

@@ -1,5 +1,7 @@
-"""The port imports neither jax nor cv2 (the machine with the card has
-neither), and its CLI refuses what it does not run."""
+"""The port imports neither jax, cv2 nor the JAX package panovlm_tpu (the
+machine with the card has no jax and no cv2, and the port keeps its own
+copies of the host code it needs); the same holds for chip_smoke.py. The
+CLI refuses what it does not run."""
 
 import os
 import subprocess
@@ -15,22 +17,27 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _GUARD = r"""
+import importlib
+import pkgutil
 import sys
+
+BLOCKED = ("jax", "jaxlib", "cv2", "panovlm_tpu")   # top-level names, exact
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "cv2"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import: {name}")
         return None
 
 sys.meta_path.insert(0, Block())
 import panovlm_tpu_torch
-import panovlm_tpu_torch.pipeline
-import panovlm_tpu_torch.__main__
-import panovlm_tpu_torch.ops.knn
-import panovlm_tpu_torch.interop
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2"))
+mods = ["panovlm_tpu_torch.__main__"] + [
+    m.name for m in pkgutil.walk_packages(panovlm_tpu_torch.__path__, "panovlm_tpu_torch.")]
+for m in mods + ["chip_smoke"]:
+    importlib.import_module(m)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
+assert len(mods) > 30, mods
 print("ok")
 """
 
