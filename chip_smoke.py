@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scans N] [--mvs-frames N] [--profile-mvs]
+    python3 chip_smoke.py [--scans N] [--mvs-frames N] [--sfm-frames N]
+                          [--profile-mvs] [--only-sfm]
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. card: nvidia-smi name and power limit, torch's device name; the MVS
      dataset's panoramas start rendering in worker processes meanwhile;
   2. build: the CUDA kernels of panovlm_tpu_torch/csrc, compiled from this
      checkout (ops/_build.py, one nvcc per source, in parallel); then the
-     script waits for the renders and stops the workers, so that every
-     later phase runs on an otherwise idle host;
+     script waits for the renders (the MVS and the SfM panoramas) and stops
+     the workers, so that every later phase runs on an otherwise idle host;
   3. kernel vs plain, timed with CUDA events (median of 10 after warm-up):
      - each KNN kernel at the association shapes (B=256 pairs; point->line
        Q=T=1024, k=5; point->plane Q=512, T=4096, k=10 with ring offsets
@@ -36,7 +37,21 @@ Run from the root of a checkout. Phases, each fatal on failure:
   6. K3 against its plain version at the shapes phase 5 launched it with:
      the sweep range and slice count that the stage's range fit chose (read
      from its log), full scoring at C=2, the initial scoring at C=1 and the
-     ranking on every 4th slice, max |kernel - plain| <= 2e-4.
+     ranking on every 4th slice, max |kernel - plain| <= 2e-4;
+  7. the SfM stage (`python -m panovlm_tpu_torch init_camera_pose`,
+     in-process) on --sfm-frames frames of the same loop, every 6th (frames
+     0, 6, ..., 282 by default: ~1.55 laps), panoramas rendered straight at
+     the working size 720 x 1440 (scale 0), the scans of those frames with
+     T_cl = identity, the Room SfM keys (configs/Room.txt:38-55) with
+     frame_match_method 6, max_depth 5 and the on-device SIFT; checked: every
+     frame valid, camera_pose_final.txt within 1 deg and 0.08 m of ground
+     truth after aligning frame 0 (the bounds of
+     tests/test_pipeline_cli.py::test_stage1_init_camera_pose), launches of
+     the descriptor KNN kernel;
+  8. K1 at D = 128 (csrc/knn_desc.cu) against its plain version on the
+     stage's own descriptors: the first pairs it matched, at the batch the
+     stage launches, Q = T = num_sift, k = 2 forward and k = 1 reverse.
+--only-sfm runs phases 1-2, 7 and 8 alone (for iterating on the SfM slice).
 Prints the card line, the kernel table as one JSON line, then, as the last
 line, {"ok": true, "device": {...}}. In the kernel table, volscore's times
 and bound are those of the D=64 full-scoring shape of phase 3, its
@@ -581,6 +596,178 @@ def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
     return launches, pm_run
 
 
+# ----------------------------------------------------------------------------
+# phases 7-8: the SfM stage on every 6th frame of the loop, then K1 at D = 128
+# ----------------------------------------------------------------------------
+
+ROOM_SFM_KEYS = """\
+root_sift                    = true
+num_sift                     = 8096
+sift_match_dist_threshold    = 0.6
+sift_match_num_threshold     = 40
+keep_pairs_no_scale          = true
+rotation_averaging_method    = 1
+translation_averaging_method = 1
+use_all_pairs_ra             = true
+use_all_pairs_ta             = true
+init_translation_DLT         = true
+num_iteration_L2IRLS         = 3
+upper_scale_ratio            = 1.3
+lower_scale_ratio            = 1.0
+triangulate_angle_threshold  = 25
+colorize_structure           = true
+frame_match_method           = 6
+max_depth                    = 5
+sift_device                  = true
+scale                        = 0
+"""
+SFM_HW = (720, 1440)
+SFM_EVERY = 6
+
+
+def _render_sfm_frame(args):
+    """Worker: render one panorama straight at the working size as PNG."""
+    path, C, R_wc, hw = args
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import numpy as np
+    import synthetic
+    gray, _ = synthetic.render_panorama(C, *hw, R_wc=R_wc)
+    write_png_gray(path, np.clip(gray * 255, 0, 255).astype(np.uint8))
+
+
+def start_sfm_dataset(root: str, n: int, pool, hw=SFM_HW, every: int = SFM_EVERY,
+                      keys: str = ROOM_SFM_KEYS):
+    """Frames 0, every, ..., every * (n - 1) of the Room-454 loop: their scans
+    (sweep_alpha 0), config.txt, and the panorama renders started on `pool`.
+    Returns (config path, async result of the renders, ground truth (R_wc,
+    C) in the camera-convention world)."""
+    import numpy as np
+    from panovlm_tpu_torch.io.pointcloud import write_pcd
+    scans, poses = room_loop(every * (n - 1) + 1, sweep_alpha=0.0)
+    scans, poses = scans[::every], poses[::every]
+    R, t = _camera_convention(poses)   # T_cl = identity: camera at the LiDAR
+    for d in ("images", "lidar"):
+        os.makedirs(os.path.join(root, d))
+    for i, scan in enumerate(scans):
+        write_pcd(os.path.join(root, "lidar", f"{i:06d}.pcd"), scan,
+                  intensity=np.zeros(len(scan), np.float32))
+    cfg = os.path.join(root, "config.txt")
+    with open(cfg, "w") as f:
+        f.write(f"image_path = {root}/images\nlidar_path = {root}/lidar\n"
+                f"result_path = {root}/result\nframe_path = {root}/frames\n"
+                f"match_pair_path = {root}/pairs\ndata_gap_time = 0.1\n"
+                f"T_cl = 1 0 0 0 0 1 0 0 0 0 1 0\n{keys}")
+    jobs = [(os.path.join(root, "images", f"{i:06d}.png"), t[i], R[i], hw) for i in range(n)]
+    return cfg, pool.map_async(_render_sfm_frame, jobs), (R, t)
+
+
+def sfm_pose_errors(path, gt):
+    """(max rotation error deg, max camera-centre error m, all valid) of a
+    pose file against ground truth, both aligned to frame 0."""
+    import numpy as np
+    from panovlm_tpu_torch.io import artifacts
+    R_wc, t_wc, _, ok = artifacts.read_pose_t(path)
+    R_gt, C_gt = gt
+    R_al = np.einsum("ij,njk->nik", R_gt[0].T, R_gt)
+    C_al = (C_gt - C_gt[0]) @ R_gt[0]
+    rot = max(np.degrees(np.arccos(np.clip((np.trace(R_wc[i].T @ R_al[i]) - 1) / 2, -1, 1)))
+              for i in range(len(R_wc)) if ok[i]) if ok.any() else float("inf")
+    return rot, float(np.abs(t_wc[ok] - C_al[ok]).max()) if ok.any() else float("inf"), bool(ok.all())
+
+
+def run_sfm(torch, knn_mod, cfg_path, gt):
+    """Phase 7. Returns (K1-D128 launches, the stage's match batch)."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import sfm
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    cfg = load_config(cfg_path)
+    tr = TimeReport()
+    torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn.desc_launches = 0
+    t0 = time.time()
+    rc = port_main(["init_camera_pose", cfg_path, "--device", "cuda"], tr=tr)
+    wall = time.time() - t0
+    launches = knn_mod.knn.desc_launches
+    if rc != 0:
+        fail(f"init_camera_pose exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"SfM stage wall {wall:.1f} s, peak device memory {peak:.2f} GiB, "
+        f"descriptor KNN launches {launches}")
+    for name, sec in tr.time_spent.items():
+        if name != "init_camera_pose":
+            log(f"  {name}: {sec:.2f} s")
+    mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    pts = artifacts.load_npz(os.path.join(cfg.sfm_result_path, "points.npz"))
+    with open(os.path.join(cfg.sfm_result_path, "match_pair.txt")) as f:
+        n_rel = sum(1 for _ in f) // 3
+    n = len(gt[0])
+    P = len(mp["pi"])
+    log(f"SfM counts: {n} frames, {P} pairs proposed, {int(mp['pair_ok'].sum())} pairs "
+        f"with >= {cfg.sift_match_num_threshold} matches, {n_rel} pairs with a relative "
+        f"pose, {len(pts['points'])} tracks ({int(pts['point_ok'].sum())} kept), "
+        f"matching {tr.time_spent.get('match pairs', 0) / max(P, 1) * 1e3:.2f} ms per pair, "
+        f"relative poses {tr.time_spent.get('relative poses', 0) / max(P, 1) * 1e3:.2f} ms per pair")
+    if launches <= 0:
+        fail("the descriptor KNN kernel was not launched on the SfM path")
+    rot, dist, all_ok = sfm_pose_errors(
+        os.path.join(cfg.sfm_result_path, "camera_pose_final.txt"), gt)
+    log(f"camera_pose_final.txt vs ground truth: max rotation error {rot:.4f} deg, "
+        f"max camera-centre error {dist * 1000:.2f} mm, every frame valid: {all_ok}")
+    if not all_ok:
+        fail("init_camera_pose left frames invalid")
+    if not (rot < 1.0 and dist < 0.08):
+        fail(f"SfM poses off ground truth: {rot:.3f} deg, {dist:.4f} m (bounds 1 deg, 0.08 m)")
+    return launches, sfm.match_batch(torch.device("cuda"), int(cfg.num_sift)), cfg
+
+
+# knn_desc arithmetic, counted from csrc/knn_desc.cu: per (query, target) D
+# fused multiply-adds for the dot (2 operations each) and the epilogue
+# (|q|^2 + |t|^2 - 2 acc, clamp, mask test, top-k compare: 6)
+KNN_DESC_OPS_PER_PAIR = lambda D: 2 * D + 6
+
+
+def knn_desc_vs_plain(torch, knn_mod, cfg, B):
+    """Phase 8: K1 at D = 128 on the stage's first B matched pairs."""
+    from panovlm_tpu_torch.io import artifacts
+    fr = artifacts.load_npz(os.path.join(cfg.frame_path, "frames_sift.npz"))
+    mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    dev = torch.device("cuda")
+    desc = torch.as_tensor(fr["desc"], device=dev)
+    fmask = torch.as_tensor(fr["fmask"], device=dev)
+    pi = torch.as_tensor(mp["pi"][:B].astype("int64"), device=dev)
+    pj = torch.as_tensor(mp["pj"][:B].astype("int64"), device=dev)
+    rows = {}
+    for k, (q, qm, t, tm) in ((2, (desc[pi], fmask[pi], desc[pj], fmask[pj])),
+                              (1, (desc[pj], fmask[pj], desc[pi], fmask[pi]))):
+        Bq, Q, D = q.shape
+        T = t.shape[1]
+        d, i = knn_mod.knn(q, qm, t, tm, k)
+        d_ref, i_ref = knn_mod.knn_reference(q, qm, t, tm, k)
+        torch.cuda.synchronize()
+        d2_full = knn_mod._dist2(q, qm, t, tm)
+        err, ties = _check_slots(f"knn_desc k={k}", d, i, d_ref, i_ref, d2_full)
+        del d2_full, d_ref, i_ref
+        b_ms, b_by = bound_ms(Bq * (Q + T) * (4 * D + 1) + Bq * Q * k * 8,
+                              Bq * Q * T * KNN_DESC_OPS_PER_PAIR(D))
+        rows[k] = dict(max_abs_err=err, near_ties=ties,
+                       ms=_time_ms(lambda: knn_mod.knn(q, qm, t, tm, k)),
+                       plain_ms=_time_ms(lambda: knn_mod.knn_reference(q, qm, t, tm, k), reps=3),
+                       library_ms=_time_ms(lambda: torch.topk(torch.cdist(q, t), k,
+                                                              largest=False), reps=3),
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"B={Bq} Q={Q} T={T} D={D} k={k}")
+        r = rows[k]
+        log(f"kernel knn_desc [{r['shape']}]: max |d2 - plain| {err:.3g}, near-tie index "
+            f"swaps {ties}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"cdist+topk {r['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def write_profile(prof, wall):
     ka = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in ka
@@ -598,7 +785,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=454)
     ap.add_argument("--mvs-frames", type=int, default=16)
+    ap.add_argument("--sfm-frames", type=int, default=48)
     ap.add_argument("--profile-mvs", action="store_true")
+    ap.add_argument("--only-sfm", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -618,10 +807,13 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     mvs_root = tempfile.TemporaryDirectory(prefix="chip_smoke_mvs_")
-    # two cores stay free for the two nvcc processes of the build
-    pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 3) - 2))
+    sfm_root = tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_")
+    # three cores stay free for the three nvcc processes of the build
+    pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 4) - 3))
     try:
-        mvs_cfg, gt_async = start_mvs_dataset(mvs_root.name, args.mvs_frames, pool)
+        if not args.only_sfm:
+            mvs_cfg, gt_async = start_mvs_dataset(mvs_root.name, args.mvs_frames, pool)
+        sfm_cfg, sfm_async, sfm_gt = start_sfm_dataset(sfm_root.name, args.sfm_frames, pool)
 
         from panovlm_tpu_torch.device import resolve
         resolve("cuda")
@@ -639,7 +831,7 @@ def main():
         regs = {}
         for line in _build.build_log.splitlines():   # ptxas: entry, then its properties
             if "Compiling entry function" in line:
-                kernel = "volscore" if "volscore" in line else "knn"
+                kernel = next(k for k in ("volscore", "knn_desc", "knn") if k in line)
             elif "Used" in line and "registers" in line:
                 regs.setdefault(kernel, []).append(int(line.split("Used")[1].split()[0]))
             elif "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
@@ -648,46 +840,65 @@ def main():
             log(f"  {kernel}: {len(r)} instantiation(s), {min(r)}-{max(r)} registers per thread")
 
         t0 = time.time()
-        d_gt = gt_async.get(timeout=900)
+        sfm_async.get(timeout=900)
+        if not args.only_sfm:
+            d_gt = gt_async.get(timeout=900)
+            log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}")
         pool.close()
         pool.join()
-        log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, ready "
+        log(f"SfM dataset: {args.sfm_frames} panoramas at {SFM_HW}; renders ready "
             f"{time.time() - t0:.1f} s after the build")
 
-        # 3. kernel vs plain
-        rows = knn_vs_plain(torch, knn_mod)
-        vrows = volscore_vs_plain(torch, PatchMatchConfig(
-            ncc_half_window=3, ncc_step=1, min_depth=0.5, max_depth=5.0, sweep_slices=64))
+        rows, vrows, launches = {}, {}, {}
+        if not args.only_sfm:
+            # 3. kernel vs plain
+            rows = knn_vs_plain(torch, knn_mod)
+            vrows = volscore_vs_plain(torch, PatchMatchConfig(
+                ncc_half_window=3, ncc_step=1, min_depth=0.5, max_depth=5.0,
+                sweep_slices=64))
 
-        # 4. the odometry stage
-        launches = run_odometry(torch, knn_mod, args.scans)
+            # 4. the odometry stage
+            launches = run_odometry(torch, knn_mod, args.scans)
 
-        # 5. the MVS stage
-        launches["volscore"], pm_run = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
-                                               args.profile_mvs)
+            # 5. the MVS stage
+            launches["volscore"], pm_run = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
+                                                   args.profile_mvs)
 
-        # 6. K3 at the shapes of phase 5
-        vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
+            # 6. K3 at the shapes of phase 5
+            vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
+
+        # 7. the SfM stage
+        launches["knn_desc"], match_batch, sfm_config = run_sfm(torch, knn_mod, sfm_cfg,
+                                                                sfm_gt)
+
+        # 8. K1 at D = 128 on the stage's descriptors
+        drows = knn_desc_vs_plain(torch, knn_mod, sfm_config, match_batch)
     finally:
         pool.terminate()
         pool.join()
         mvs_root.cleanup()
+        sfm_root.cleanup()
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "panovlm_tpu"))
     if leaked:
         fail(f"jax or the JAX package was imported: {leaked}")
     log(f"whole script {time.time() - t_start:.1f} s")
-    rows["volscore"] = dict(
-        vrows["full"], library_ms=None,
-        max_abs_err=max(r["max_abs_err"] for r in vrows.values()),
-        shapes=[{"shape": r["shape"], **{k: r[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
-            for r in vrows.values()])
-    src = {"knn": "csrc/knn.cu", "knn_ring": "csrc/knn.cu", "volscore": "csrc/volscore.cu"}
+
+    def with_shapes(main, parts, **extra):
+        return dict(main, max_abs_err=max(r["max_abs_err"] for r in parts), **extra,
+                    shapes=[{"shape": r["shape"], **{k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+                        for r in parts])
+    if vrows:
+        rows["volscore"] = with_shapes(vrows["full"], list(vrows.values()), library_ms=None)
+    rows["knn_desc"] = with_shapes(drows[2], [drows[2], drows[1]])
+    src = {"knn": "csrc/knn.cu", "knn_ring": "csrc/knn.cu", "volscore": "csrc/volscore.cu",
+           "knn_desc": "csrc/knn_desc.cu"}
     replaces = {"knn": "panovlm_tpu/ops/pallas/knn.py:30",
                 "knn_ring": "panovlm_tpu/ops/pallas/knn.py:93",
-                "volscore": "panovlm_tpu/ops/pallas/volscore.py:40"}
+                "volscore": "panovlm_tpu/ops/pallas/volscore.py:40",
+                "knn_desc": "panovlm_tpu/ops/pallas/knn.py:30"}
     log(card)   # as nvidia-smi prints it: name, power limit
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"panovlm_tpu_torch/{src[name]}",

@@ -2,8 +2,8 @@
 
     python -m panovlm_tpu_torch <stage> <config.txt> [--device cuda|cpu]
 
-Ported: init_lidar_pose and joint_mvs. The other stages (init_camera_pose,
-joint_optimization, colorize_lidar_map) exit non-zero: they run only in the
+Ported: init_camera_pose, init_lidar_pose and joint_mvs. The other stages
+(joint_optimization, colorize_lidar_map) exit non-zero: they run only in the
 JAX package (`python -m panovlm_tpu`) until their slices land.
 """
 
@@ -13,8 +13,8 @@ import argparse
 import logging
 import sys
 
-PORTED = ("init_lidar_pose", "joint_mvs")
-NOT_PORTED = ("init_camera_pose", "joint_optimization", "colorize_lidar_map")
+PORTED = ("init_camera_pose", "init_lidar_pose", "joint_mvs")
+NOT_PORTED = ("joint_optimization", "colorize_lidar_map")
 
 
 def main(argv=None, infos: list | None = None, tr=None) -> int:
@@ -38,7 +38,9 @@ def main(argv=None, infos: list | None = None, tr=None) -> int:
     cfg = load_config(args.config)
     tr = tr or TimeReport()
     with tr.phase(args.stage):
-        if args.stage == "joint_mvs":
+        if args.stage == "init_camera_pose":
+            pipeline.init_camera_pose(cfg, tr, device=device)
+        elif args.stage == "joint_mvs":
             pipeline.joint_mvs(cfg, tr, device=device)
         else:
             pipeline.init_lidar_pose(cfg, tr, device=device, infos=infos)

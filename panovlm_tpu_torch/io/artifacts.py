@@ -7,9 +7,8 @@ rows (FileIO.cpp:11-191); depth/conf maps are .npy with the reference's
 quantization (depth x256 uint16, conf mapped [-1,1] -> [0, 65534] uint16,
 FileIO.h:101-131).
 
-The port's copy of the parts of panovlm_tpu/io/artifacts.py that it calls;
-a later slice copies the npz blobs (frames, match pairs, tracks) with the
-stage that reads them.
+The port's copy of the parts of panovlm_tpu/io/artifacts.py that it calls,
+the npz blobs (frames, match pairs, tracks) included.
 """
 
 from __future__ import annotations
@@ -94,3 +93,56 @@ def export_conf_u16(path, conf):
 
 def read_conf_u16(path):
     return np.load(path).astype(np.float32) / 32767.0 - 1.0
+
+
+# ----------------------------------------------------------------------------
+# npz blobs (frames / match pairs / tracks — replaces boost binary)
+# ----------------------------------------------------------------------------
+
+def save_npz(path, **arrays):
+    """Compressed npz, written atomically (tmp + rename): caches are
+    rewritten mid-run and a kill must not leave a truncated file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def save_npz_raw(path, **arrays):
+    """Uncompressed npz for the large float caches (descriptors), atomic."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_npz(path) -> dict:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_npz_or_none(path):
+    """A missing or unreadable cache is a cache miss, never an abort."""
+    import logging
+    if not os.path.exists(path):
+        return None
+    try:
+        return load_npz(path)
+    except Exception as e:  # zipfile.BadZipFile, OSError, ValueError
+        logging.getLogger("panovlm").warning(
+            "unreadable cache %s (%s) — recomputing", path, e)
+        return None
+
+
+def export_point_tracks(path, track_img, track_feat, track_mask, points,
+                        point_ok, colors=None):
+    """ExportPointTracks analog (points.bin -> points.npz)."""
+    arrays = dict(track_img=track_img, track_feat=track_feat,
+                  track_mask=track_mask, points=points, point_ok=point_ok)
+    if colors is not None:
+        arrays["colors"] = colors
+    save_npz(path, **arrays)
+
+
+def read_point_tracks(path) -> dict:
+    return load_npz(path)

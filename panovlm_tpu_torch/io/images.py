@@ -105,6 +105,25 @@ def read_png(path: str) -> np.ndarray:
     return img[..., 0] if ch == 1 else img
 
 
+def write_png(path: str, img: np.ndarray):
+    """Encode an 8-bit gray (H,W) or RGB (H,W,3) image as PNG, filter type 0
+    on every row."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(PNG_MAGIC)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
+        f.write(chunk(b"IEND", b""))
+
+
 def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
     """Gray of an (...,3) uint8 RGB image as cv2.imread(IMREAD_GRAYSCALE)
     decodes an RGB PNG (libpng's fixed-point weights, truncated)."""

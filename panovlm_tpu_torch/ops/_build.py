@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "knn.cu", _PKG / "csrc" / "volscore.cu")
+SOURCES = (_PKG / "csrc" / "knn.cu", _PKG / "csrc" / "knn_desc.cu",
+           _PKG / "csrc" / "volscore.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -94,6 +95,10 @@ def load():
                                    ci, ci, ci, ci, ci, ci,        # B Q T D k ring
                                    ci, ci, ci, ci,                # drs
                                    vp, vp, vp, vp, vp]            # outs, stream
+        lib.knn_desc_launch.restype = ci
+        lib.knn_desc_launch.argtypes = [vp, vp, vp, vp,              # q qm t tm
+                                        ci, ci, ci, ci, ci,          # B Q T D k
+                                        vp, vp, vp]                  # outs, stream
         lib.volscore_launch.restype = ci
         ll, cf = ctypes.c_longlong, ctypes.c_float
         lib.volscore_launch.argtypes = [vp, ll, ll,                 # vol, strides

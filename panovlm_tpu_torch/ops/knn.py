@@ -3,10 +3,13 @@ their plain PyTorch versions.
 
 `knn` replaces `panovlm_tpu/ops/pallas/knn.py:_knn_kernel` (driven by
 `knn_pallas_batched`) and `knn_ring` replaces `_knn_ring_kernel` (driven by
-`knn_ring_pallas_batched`), for feature dimension D <= 4. On a CUDA tensor a
-wrapper launches its kernel or raises; on a CPU tensor it calls the plain
-version. Each wrapper counts its kernel launches in a plain integer
-(`knn.launches`, `knn_ring.launches`).
+`knn_ring_pallas_batched`). `knn` dispatches on the feature dimension D:
+`csrc/knn.cu` for the point clouds (D <= 4, any k <= 16), `csrc/knn_desc.cu`
+for descriptors (4 < D, D a multiple of 4, k <= 2: SIFT matching at
+D = 128). On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
+tensor it calls the plain version. Each kernel's launches are counted in a
+plain integer (`knn.launches` for D <= 4, `knn.desc_launches` for the
+descriptor kernel, `knn_ring.launches`).
 
 Semantics shared by kernel and plain version: d2 = |q|^2 + |t|^2 - 2 q.t in
 float32, clamped at 0; masked query rows and masked targets give d2 = 1e30.
@@ -21,8 +24,9 @@ import torch
 from . import _build
 
 BIG = 1e30
-MAX_D = 4
+MAX_D = 4          # csrc/knn.cu; wider features go to csrc/knn_desc.cu
 MAX_K = 16
+MAX_K_DESC = 2
 RING_OFFSETS = (-2, -1, 1, 2)
 
 
@@ -33,10 +37,12 @@ def _check(q, q_mask, t, t_mask, k):
     B, Q, D = q.shape
     if t.shape[0] != B or t.shape[2] != D:
         raise ValueError(f"t {tuple(t.shape)} does not match q {tuple(q.shape)}")
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"feature dim D={D}: the kernel takes 1 <= D <= {MAX_D}")
-    if not 1 <= k <= min(MAX_K, t.shape[1]):
-        raise ValueError(f"k={k}: the kernel takes 1 <= k <= min({MAX_K}, T)")
+    if D > MAX_D and D % 4:
+        raise ValueError(f"feature dim D={D}: the kernels take D <= {MAX_D} "
+                         "or a multiple of 4")
+    max_k = MAX_K if D <= MAX_D else MAX_K_DESC
+    if not 1 <= k <= min(max_k, t.shape[1]):
+        raise ValueError(f"k={k}: the kernel for D={D} takes 1 <= k <= min({max_k}, T)")
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
     if q.dtype != torch.float32 or t.dtype != torch.float32:
@@ -109,6 +115,22 @@ def knn_ring_reference(q, q_mask, t, t_mask, q_row, t_row, k: int,
     return d, i, torch.stack(rd, dim=-1), torch.stack(ri, dim=-1).to(torch.int32)
 
 
+def _launch_desc(q, q_mask, t, t_mask, k):
+    lib = _build.load()
+    B, Q, D = q.shape
+    dev = q.device
+    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.knn_desc_launch(q.data_ptr(), q_mask.data_ptr(), t.data_ptr(),
+                                 t_mask.data_ptr(), B, Q, t.shape[1], D, k,
+                                 out_d.data_ptr(), out_i.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"knn_desc kernel launch failed: cudaError {rc}")
+    return out_d, out_i
+
+
 def _launch(q, q_mask, t, t_mask, q_row, t_row, k, drs):
     lib = _build.load()
     B, Q, D = q.shape
@@ -144,6 +166,10 @@ def knn(q, q_mask, t, t_mask, k: int):
     dev = _check(q, q_mask, t, t_mask, k)
     if dev.type == "cpu":
         return knn_reference(q, q_mask, t, t_mask, k)
+    if q.shape[2] > MAX_D:
+        out = _launch_desc(q, q_mask, t, t_mask, k)
+        knn.desc_launches += 1
+        return out
     d, i, _, _ = _launch(q, q_mask, t, t_mask, None, None, k, None)
     knn.launches += 1
     return d, i
@@ -155,6 +181,8 @@ def knn_ring(q, q_mask, t, t_mask, q_row, t_row, k: int,
     whose ring id equals q_row + dr. q_row (B,Q), t_row (B,T) int32. Returns
     (d2, idx, ring_d2 (B,Q,4), ring_idx (B,Q,4))."""
     dev = _check(q, q_mask, t, t_mask, k)
+    if q.shape[2] > MAX_D:
+        raise ValueError(f"the ring kernel takes D <= {MAX_D}, got {q.shape[2]}")
     _check_rows(q, t, q_row, t_row, drs)
     if dev.type == "cpu":
         return knn_ring_reference(q, q_mask, t, t_mask, q_row, t_row, k, drs)
@@ -164,4 +192,5 @@ def knn_ring(q, q_mask, t, t_mask, q_row, t_row, k: int,
 
 
 knn.launches = 0
+knn.desc_launches = 0
 knn_ring.launches = 0

@@ -1,6 +1,19 @@
 """Stage functions of the port. Each reads and writes the same artifacts
 as its JAX stage in panovlm_tpu/pipeline.py.
 
+`init_camera_pose` (InitCameraPose, main.cpp:91-370; JAX pipeline.py:168-662):
+
+  <frame_path>/frames_sift.npz            (frame cache: uv, desc, fmask)
+  <match_pair_path>/match_pairs.npz, rel_poses.npz   (row caches)
+  <depth_path>/{i}.npy                    (u16 LiDAR depth)
+  result/sfm/depth_visualize/depth_{i}.png  (PNG: the JAX stage writes JPEG
+                                            through cv2, which the port lacks)
+  result/sfm/after_sift_match.txt, match_pair.txt, rotations_after_L1.txt,
+             camera_pose_beforeBA.{txt,ply}, camera_center_beforeBA.pcd,
+             camera_pose_refine.txt, camera_pose_final.{txt,ply},
+             camera_center_final.pcd, lidar_pose.txt, points.npz,
+             frames.npz, structure.pcd
+
 `init_lidar_pose` (InitLidarPose, main.cpp:372-452; JAX pipeline.py:665-830):
 
   result/sfm/lidar_pose.txt               (input, stage 1's lidar poses)
@@ -21,9 +34,11 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import time
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation as ScR
 
 from .config import Config
 from .io import artifacts, pointcloud
@@ -282,10 +297,27 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
             poses = pose_util.world_to_params(R_c, t_c)
         elif (os.path.exists(os.path.join(cfg.sfm_result_path, "frames.npz"))
               and os.path.exists(os.path.join(cfg.sfm_result_path, "points.npz"))):
-            raise NotImplementedError(
-                "joint_mvs: RefineCameraPose needs models/sfm.global_ba, which is "
-                f"not ported (ROADMAP.md); provide {refine_txt} or remove the SfM "
-                "state (frames.npz, points.npz) to skip the refinement")
+            # global BA with the pixel residual over the SfM tracks, then the
+            # joint LiDAR poses follow their camera rigidly
+            from .models import sfm as sfm_mod
+            frames = artifacts.load_npz(os.path.join(cfg.sfm_result_path, "frames.npz"))
+            tracks = artifacts.read_point_tracks(os.path.join(cfg.sfm_result_path, "points.npz"))
+            T_cl_list = None
+            if os.path.exists(joint_lidar):
+                R_l, t_l, _, _ = artifacts.read_pose_t(joint_lidar)
+                n_cl = min(len(R_l), n)
+                T_cl_list = [np.linalg.inv(_pose_T(R_c[i], t_c[i])) @ _pose_T(R_l[i], t_l[i])
+                             for i in range(n_cl)]
+            poses, _, _ = sfm_mod.global_ba(
+                poses, tracks["points"], tracks["track_img"], tracks["track_feat"],
+                tracks["track_mask"], frames["bearings"], tracks["point_ok"], c_ok,
+                sfm_mod.SfMConfig(), residual="pixel", uv=frames["uv"], rows=H, cols=W,
+                device=device)
+            R_c, t_c = pose_util.params_to_world(poses)
+            for i, T_cl in enumerate(T_cl_list or []):
+                T_wl = _pose_T(R_c[i], t_c[i]) @ T_cl
+                R_l[i], t_l[i] = T_wl[:3, :3], T_wl[:3, 3]
+            artifacts.export_pose_t(refine_txt, R_c, t_c, names)
 
     nei_table = mvs_mod.select_neighbor_views(poses, mcfg.n_neighbors, c_ok)
     # pass-level resume: every frame has final-pass depth + conf artifacts
@@ -404,3 +436,373 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         pointcloud.write_pcd(os.path.join(cfg.mvs_result_path, "mvs_fused.pcd"),
                              pts, rgb=np.clip(cols * 255, 0, 255))
     return depths, confs
+
+
+# ----------------------------------------------------------------------------
+# init_camera_pose
+# ----------------------------------------------------------------------------
+
+def _sfm_config(cfg: Config, cap: int):
+    from .models import sfm as sfm_mod
+    return sfm_mod.SfMConfig(
+        num_sift=cap, sift_match_dist_threshold=cfg.sift_match_dist_threshold,
+        sift_match_num_threshold=cfg.sift_match_num_threshold,
+        triangulate_angle_threshold=cfg.triangulate_angle_threshold,
+        upper_scale_ratio=cfg.upper_scale_ratio,
+        lower_scale_ratio=cfg.lower_scale_ratio)
+
+
+def _match_pairs_cached(cfg: Config, scfg, cap: int, desc, fmask, pi, pj):
+    """Row-based match-pair cache (main.cpp:194-248; JAX pipeline.py:168-254):
+    rows of <match_pair_path>/match_pairs.npz whose (i, j) is proposed are
+    reused, the others matched on desc/fmask's device (checkpointed every
+    1024 rows), and cached rows flagged `extra` (pair surgery) appended.
+    Returns (pi, pj, matches) with numpy matches idx (P,K,2), mask (P,K),
+    pair_ok (P,)."""
+    from .models import sfm as sfm_mod
+    mcache = os.path.join(cfg.match_pair_path, "match_pairs.npz") if cfg.match_pair_path else ""
+    K = min(int(scfg.max_matches), cap)
+    mc = artifacts.load_npz_or_none(mcache) if mcache else None
+    if mc is not None and (int(mc["num_sift"]) != cap or mc["idx"].shape[1] != K
+                           or mc["idx"].shape[0] != mc["pi"].shape[0]):
+        log.info("cached match pairs are stale, re-matching")
+        mc = None
+    cpi = mc["pi"] if mc is not None else np.zeros((0,), np.int32)
+    cpj = mc["pj"] if mc is not None else np.zeros((0,), np.int32)
+    rowmap = {(int(a), int(b)): r for r, (a, b) in enumerate(zip(cpi, cpj))}
+    cextra = (mc["extra"].astype(bool) if mc is not None and "extra" in mc
+              else np.zeros(len(cpi), bool))
+    gen = set(zip(pi.tolist(), pj.tolist()))
+    keep_extra = [r for r in range(len(cpi))
+                  if cextra[r] and (int(cpi[r]), int(cpj[r])) not in gen]
+    pi = np.concatenate([pi, cpi[keep_extra].astype(pi.dtype)])
+    pj = np.concatenate([pj, cpj[keep_extra].astype(pj.dtype)])
+    hit = np.asarray([rowmap.get((int(a), int(b)), -1) for a, b in zip(pi, pj)], np.int64)
+    have = hit >= 0
+    P = len(pi)
+    idx = np.zeros((P, K, 2), np.int32)
+    msk = np.zeros((P, K), bool)
+    pok = np.zeros((P,), bool)
+    if have.any():
+        idx[have] = mc["idx"][hit[have]]
+        msk[have] = mc["mask"][hit[have]]
+        pok[have] = mc["pair_ok"][hit[have]]
+    miss = np.nonzero(~have)[0]
+    extra = np.asarray([(int(a), int(b)) not in gen for a, b in zip(pi, pj)], bool)
+
+    def _save(done_mask):
+        if not mcache:
+            return
+        os.makedirs(cfg.match_pair_path, exist_ok=True)
+        artifacts.save_npz(mcache, pi=pi[done_mask], pj=pj[done_mask], num_sift=cap,
+                           idx=idx[done_mask], mask=msk[done_mask],
+                           pair_ok=pok[done_mask], extra=extra[done_mask])
+
+    if len(miss):
+        if len(cpi):
+            log.info("match-pair cache: %d/%d rows reused, %d re-matched",
+                     int(have.sum()), P, len(miss))
+        done = have.copy()
+        save_every = 1024
+        for s in range(0, len(miss), save_every):
+            part = miss[s:s + save_every]
+            mm = sfm_mod.match_all_pairs(desc, fmask, pi[part], pj[part], scfg)
+            idx[part] = mm["idx"].cpu().numpy()
+            msk[part] = mm["mask"].cpu().numpy()
+            pok[part] = mm["pair_ok"].cpu().numpy()
+            done[part] = True
+            if s + save_every < len(miss):
+                _save(done)
+                log.info("match-pair cache: checkpoint %d/%d rows", int(done.sum()), P)
+        _save(np.ones(P, bool))
+    else:
+        if len(cpi):
+            log.info("Use existing match pairs in %s", cfg.match_pair_path)
+        if len(keep_extra) != int(cextra.sum()) or len(pi) != len(cpi):
+            _save(np.ones(P, bool))
+    return pi, pj, {"idx": idx, "mask": msk, "pair_ok": pok}
+
+
+def _match_row_fp(idx, mask):
+    """Per-row blake2b fingerprint of a pair's (idx, mask) bytes: the key
+    that invalidates a cached relative pose when its matches change."""
+    import hashlib
+    idx = np.ascontiguousarray(np.asarray(idx, np.int64))
+    mask = np.ascontiguousarray(np.asarray(mask, bool))
+    out = np.empty(len(idx), np.int64)
+    for r in range(len(idx)):
+        h = hashlib.blake2b(idx[r].tobytes() + mask[r].tobytes(), digest_size=8).digest()
+        out[r] = np.int64(int.from_bytes(h, "little", signed=True))
+    return out
+
+
+def _relative_poses_cached(cfg: Config, scfg, bearings, matches, pi, pj):
+    """Row cache of relative poses in <match_pair_path>/rel_poses.npz, keyed
+    by (i, j, fingerprint of the pair's matches); missing rows are estimated
+    on bearings' device (checkpointed every 4096 rows), their AC-RANSAC
+    draws keyed by their row. Returns numpy arrays."""
+    from .models import sfm as sfm_mod
+    rcache = os.path.join(cfg.match_pair_path, "rel_poses.npz") if cfg.match_pair_path else ""
+    fp = _match_row_fp(matches["idx"], matches["mask"])
+    P = len(pi)
+    rc = artifacts.load_npz_or_none(rcache) if rcache else None
+    if rc is not None and rc["tri_points"].shape[1] != matches["idx"].shape[1]:
+        log.info("cached relative poses are stale, re-estimating")
+        rc = None
+    hit = np.full(P, -1, np.int64)
+    if rc is not None:
+        rowmap = {(int(a), int(b), int(f)): r
+                  for r, (a, b, f) in enumerate(zip(rc["pi"], rc["pj"], rc["fp"]))}
+        hit = np.asarray([rowmap.get((int(a), int(b), int(f)), -1)
+                          for a, b, f in zip(pi, pj, fp)], np.int64)
+    have = hit >= 0
+    K = matches["idx"].shape[1]
+    out = {"rel_aa": np.zeros((P, 3), np.float32), "rel_t": np.zeros((P, 3), np.float32),
+           "n_inliers": np.zeros((P,), np.int32), "ok": np.zeros((P,), bool),
+           "tri_points": np.zeros((P, K, 3), np.float32),
+           "tri_mask": np.zeros((P, K), bool)}
+    if have.any():
+        for k in out:
+            out[k][have] = np.asarray(rc[k])[hit[have]]
+    miss = np.nonzero(~have)[0]
+    if len(miss):
+        if have.any():
+            log.info("relative-pose cache: %d/%d rows reused, %d estimated",
+                     int(have.sum()), P, len(miss))
+
+        def _save(done_rows):
+            os.makedirs(cfg.match_pair_path, exist_ok=True)
+            artifacts.save_npz(rcache, pi=np.asarray(pi)[done_rows],
+                               pj=np.asarray(pj)[done_rows], fp=fp[done_rows],
+                               **{k: v[done_rows] for k, v in out.items()})
+
+        dev = bearings.device
+        done = have.copy()
+        save_every = 4096
+        for s in range(0, len(miss), save_every):
+            part = miss[s:s + save_every]
+            rel = sfm_mod.relative_poses(
+                bearings, torch.as_tensor(matches["idx"][part], device=dev),
+                torch.as_tensor(matches["mask"][part], device=dev),
+                np.asarray(pi)[part], np.asarray(pj)[part], scfg, keys=part)
+            for k in out:
+                out[k][part] = rel[k].cpu().numpy()
+            done[part] = True
+            if rcache and s + save_every < len(miss):
+                _save(done)
+                log.info("relative-pose cache: checkpoint %d/%d rows", int(done.sum()), P)
+        if rcache:
+            _save(np.ones(P, bool))
+    elif rc is not None:
+        log.info("Use existing relative poses in %s", cfg.match_pair_path)
+    return out
+
+
+def _gps_in_use(cfg: Config) -> bool:
+    return bool(cfg.gps_path) and os.path.exists(cfg.gps_path)
+
+
+def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
+    """LiDAR-assisted global SfM (InitCameraPose, main.cpp:91-370). Returns
+    (poses (N,6) [aa_cw, t_cw] numpy, frame_valid (N,))."""
+    from .io import images
+    from .models import rotation_averaging as ra
+    from .models import sfm as sfm_mod
+    from .models import translation_averaging as ta
+    from .ops import se3, spherical
+    from .utils import tracks as trk
+    from .utils.depth_completion import compute_depth_images
+    from .utils.membudget import assert_host_budget
+
+    device = torch.device(device)
+    tr = tr or TimeReport()
+    if _gps_in_use(cfg):
+        raise NotImplementedError(
+            "init_camera_pose: the GPS hooks (gps_path) are not ported (ROADMAP.md)")
+    os.makedirs(cfg.sfm_result_path, exist_ok=True)
+    grays, names = images.load_images(cfg.image_path, cfg.scale)
+    n = len(grays)
+    H, W = grays[0].shape
+
+    with tr.phase("extract sift"):
+        cap = int(cfg.num_sift)
+        if cap > 16384:
+            log.error("num_sift = %d exceeds the 16384 feature ceiling; capping", cap)
+            cap = 16384
+        assert_host_budget("init_camera_pose", {
+            "grays": ((n, H, W), np.float32), "desc stack": ((n, cap, 128), np.float32),
+            "uv+mask": ((n, cap, 3), np.float32), "depth maps": ((n, H, W), np.float32)})
+        cache = os.path.join(cfg.frame_path, "frames_sift.npz") if cfg.frame_path else ""
+        cached = None
+        if cache and os.path.exists(cache):
+            cached = artifacts.load_npz(cache)
+            if len(cached["uv"]) != n or cached["uv"].shape[1] != cap:
+                log.info("number of cached frames != images, re-extracting")
+                cached = None
+            else:
+                log.info("Use existing frame data in %s", cfg.frame_path)
+        if cached is not None:
+            uv, desc, fmask = cached["uv"], cached["desc"], cached["fmask"]
+        elif not cfg.sift_device:
+            raise NotImplementedError(
+                "init_camera_pose: sift_device = false asks for the host cv2 SIFT, "
+                "which is not ported (no cv2 on the card's machine, ROADMAP.md); set "
+                "sift_device = true or provide frames_sift.npz in frame_path")
+        else:
+            from .ops import sift_device as sd
+            t0 = time.time()
+            uv, desc, fmask = sd.extract_sift_device_batch(
+                np.stack(grays), num_features=cap, root_sift=cfg.root_sift,
+                mask=images.load_mask(cfg.mask_path, H, W), device=device)
+            t1 = time.time()
+            if cache:
+                os.makedirs(cfg.frame_path, exist_ok=True)
+                artifacts.save_npz_raw(cache, uv=uv, desc=desc, fmask=fmask)
+            log.info("sift: detect %.1f s, cache write %.1f s", t1 - t0, time.time() - t1)
+        uv_t = torch.as_tensor(uv, device=device)
+        bearings_t = spherical.image_to_cam(uv_t, H, W)
+        bearings = bearings_t.cpu().numpy()
+
+    with tr.phase("compute depth images"):
+        scans, _, _ = load_scans(cfg)
+        dcap = _scan_cap(scans)
+        pm = [vd.pad_points(pts, dcap) for pts in scans[:n]]
+        T_cl = torch.as_tensor(np.asarray(cfg.T_cl, np.float32), device=device)
+        depth_maps = compute_depth_images(
+            torch.from_numpy(np.stack([p for p, _ in pm])).to(device),
+            torch.from_numpy(np.stack([m for _, m in pm])).to(device),
+            T_cl.expand(len(pm), 4, 4), H, W, max_depth=cfg.max_depth).cpu().numpy()
+        if len(depth_maps) < n:
+            depth_maps = np.concatenate(
+                [depth_maps, np.zeros((n - len(depth_maps), H, W), np.float32)])
+        viz_dir = os.path.join(cfg.sfm_result_path, "depth_visualize")
+        os.makedirs(viz_dir, exist_ok=True)
+        for i in range(n):
+            color = viz.depth_to_color(depth_maps[i], cfg.max_depth_visual)
+            blend = (0.5 * color + 0.5 * (grays[i][..., None] * 255)).astype(np.uint8)
+            images.write_png(os.path.join(viz_dir, f"depth_{i}.png"), blend[..., ::-1])
+            if cfg.depth_path:
+                os.makedirs(cfg.depth_path, exist_ok=True)
+                artifacts.export_depth_u16(os.path.join(cfg.depth_path, f"{i}.npy"),
+                                           depth_maps[i])
+
+    scfg = _sfm_config(cfg, cap)
+    desc_t = torch.as_tensor(desc, device=device)
+    fmask_t = torch.as_tensor(fmask, device=device)
+    with tr.phase("match pairs"):
+        fm = cfg.frame_match_method
+        embeddings = None
+        if fm & (sfm_mod.MATCH_VLAD | sfm_mod.MATCH_GPS_VLAD) and n > 2:
+            from .models import vlad
+            _, _, embeddings = vlad.vlad_pairs(desc_t, fmask_t, n_centers=min(64, cap))
+        pi, pj = sfm_mod.init_image_pairs(n, scfg, embeddings=embeddings, methods=fm)
+        pi, pj, matches = _match_pairs_cached(cfg, scfg, cap, desc_t, fmask_t, pi, pj)
+        with open(os.path.join(cfg.sfm_result_path, "after_sift_match.txt"), "w") as f:
+            for k in range(len(pi)):
+                if matches["pair_ok"][k]:
+                    f.write(f"{int(pi[k])} {int(pj[k])}\n")
+    del desc_t
+    with tr.phase("relative poses"):
+        rel = _relative_poses_cached(cfg, scfg, bearings_t, matches, pi, pj)
+        ok = rel["ok"] & matches["pair_ok"]
+        Rm = ScR.from_rotvec(rel["rel_aa"]).as_matrix()
+        with open(os.path.join(cfg.sfm_result_path, "match_pair.txt"), "w") as f:
+            for k in range(len(pi)):
+                if not ok[k]:
+                    continue
+                f.write(f"{int(pi[k])} {int(pj[k])}\n")
+                f.write(" ".join(f"{Rm[k][r, c]:.9g}" if c < 3 else f"{rel['rel_t'][k][r]:.9g}"
+                                 for r in range(3) for c in range(4)) + "\n")
+                f.write(f"points with depth: {int(rel['n_inliers'][k])}\n")
+    with tr.phase("translation scale from depth"):
+        scales = sfm_mod.translation_scale_from_depth(depth_maps, H, W, rel, matches["idx"],
+                                                      uv, pi, scfg)
+    with tr.phase("graph filters"):
+        has_scale = scales >= 0
+        if not cfg.keep_pairs_no_scale:
+            ok = ok & has_scale
+        keep = sfm_mod.filter_by_triplet(pi, pj, rel["rel_aa"], ok)
+        keep, frame_valid = sfm_mod.largest_biconnected(pi, pj, keep, n)
+    with tr.phase("rotation averaging"):
+        ra_keep = keep if cfg.use_all_pairs_ra else (keep & has_scale)
+        aa_glob, _, _ = ra.rotation_averaging(
+            n, pi[ra_keep], pj[ra_keep], rel["rel_aa"][ra_keep],
+            weights=rel["n_inliers"][ra_keep], method=cfg.rotation_averaging_method,
+            device=device)
+        artifacts.export_pose_t(
+            os.path.join(cfg.sfm_result_path, "rotations_after_L1.txt"),
+            se3.exp_so3(torch.as_tensor(aa_glob)).numpy(), np.zeros((n, 3)), names)
+    with tr.phase("translation averaging"):
+        ta_method = {1: "softl1", 2: "l1", 3: "chordal", 4: "l2irls", 5: "bata",
+                     6: "lud"}.get(cfg.translation_averaging_method, "softl1")
+        ta_keep = keep if cfg.use_all_pairs_ta else (keep & has_scale)
+        t_glob, _ = ta.translation_averaging(
+            aa_glob, pi[ta_keep], pj[ta_keep], rel["rel_aa"][ta_keep],
+            rel["rel_t"][ta_keep], scales[ta_keep], method=ta_method,
+            upper_scale_ratio=cfg.upper_scale_ratio, lower_scale_ratio=cfg.lower_scale_ratio,
+            irls_iters=cfg.num_iteration_L2IRLS, device=device)
+
+    def export_poses(name, poses):
+        R, t = pose_util.params_to_world(poses)
+        R[~frame_valid] = np.eye(3)
+        t[~frame_valid] = np.inf
+        artifacts.export_pose_t(os.path.join(cfg.sfm_result_path, name), R, t, names)
+        return R, t
+
+    with tr.phase("structure + BA"):
+        poses0 = np.concatenate([aa_glob, t_glob], axis=1).astype(np.float32)
+        export_poses("camera_pose_beforeBA.txt", poses0)
+        viz.camera_pose_ply(os.path.join(cfg.sfm_result_path, "camera_pose_beforeBA.ply"),
+                            poses0, frame_valid)
+        viz.camera_centers_pcd(os.path.join(cfg.sfm_result_path, "camera_center_beforeBA.pcd"),
+                               poses0, frame_valid)
+        pair_matches = [(int(pi[k]), int(pj[k]), matches["idx"][k][matches["mask"][k]])
+                        for k in np.where(keep)[0]]
+        timg, tfeat, tmask = trk.build_tracks(pair_matches, [cap] * n,
+                                              min_length=scfg.min_track_length)
+
+        def on_dev(a):
+            return torch.as_tensor(np.array(a), device=device)
+        X, x_ok = sfm_mod.estimate_structure(on_dev(poses0), bearings_t, on_dev(timg),
+                                             on_dev(tfeat), on_dev(tmask), scfg)
+        x_ok = x_ok.cpu().numpy()
+        ba = dict(track_img=timg, track_feat=tfeat, track_mask=tmask, bearings=bearings,
+                  frame_valid=frame_valid, cfg=scfg, device=device)
+        poses_ba, pts_ba, _ = sfm_mod.global_ba(poses0, X.cpu().numpy(), point_ok=x_ok, **ba)
+        export_poses("camera_pose_refine.txt", poses_ba)
+
+        def pixel_filter(poses, pts, point_ok, px):
+            return sfm_mod.filter_tracks_pixel_residual(
+                on_dev(poses), on_dev(pts), on_dev(timg), on_dev(tfeat), on_dev(tmask),
+                uv_t, on_dev(point_ok), px, H, W).cpu().numpy()
+        x_ok = pixel_filter(poses_ba, pts_ba, x_ok, 40.0)
+        poses_ba, pts_ba, _ = sfm_mod.global_ba(poses_ba, pts_ba, point_ok=x_ok, **ba)
+        x_ok = pixel_filter(poses_ba, pts_ba, x_ok, 10.0)
+        poses_fin = sfm_mod.set_to_origin(poses_ba, frame_valid)
+
+    with tr.phase("export"):
+        R_wc, t_wc = export_poses("camera_pose_final.txt", poses_fin)
+        R_wl, t_wl, _ = pose_util.set_lidar_pose(
+            R_wc, t_wc, frame_valid, cfg.T_cl, len(scans), cfg.data_gap_time or 0.1,
+            cfg.time_offset)
+        artifacts.export_pose_t(os.path.join(cfg.sfm_result_path, "lidar_pose.txt"), R_wl, t_wl)
+        artifacts.export_point_tracks(os.path.join(cfg.sfm_result_path, "points.npz"),
+                                      timg, tfeat, tmask, pts_ba, x_ok)
+        artifacts.save_npz(os.path.join(cfg.sfm_result_path, "frames.npz"), uv=uv,
+                           fmask=fmask, bearings=bearings, poses=poses_fin,
+                           frame_valid=frame_valid, rows=np.asarray([H]),
+                           cols=np.asarray([W]))
+        viz.camera_centers_pcd(os.path.join(cfg.sfm_result_path, "camera_center_final.pcd"),
+                               poses_fin, frame_valid)
+        viz.camera_pose_ply(os.path.join(cfg.sfm_result_path, "camera_pose_final.ply"),
+                            poses_fin, frame_valid)
+        structure = os.path.join(cfg.sfm_result_path, "structure.pcd")
+        if cfg.colorize_structure and x_ok.any():
+            from .models import texture
+            col, cok = texture.colorize_points(on_dev(pts_ba), on_dev(x_ok),
+                                               on_dev(grays[0]), on_dev(poses_fin[0]))
+            sel = x_ok & cok.cpu().numpy()
+            pointcloud.write_pcd(structure, pts_ba[sel], intensity=col.cpu().numpy()[sel, 0])
+        else:
+            pointcloud.write_pcd(structure, pts_ba[x_ok])
+    return poses_fin, frame_valid

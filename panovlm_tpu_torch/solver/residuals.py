@@ -1,6 +1,8 @@
-"""Odometry residual functions, ported from `panovlm_tpu/solver/residuals.py`
-(point-to-plane, point-to-line and line-to-line families,
-base/CostFunction.h:567-1022 in the reference).
+"""Residual functions, ported from `panovlm_tpu/solver/residuals.py`: the
+odometry families (point-to-plane, point-to-line and line-to-line,
+base/CostFunction.h:567-1022 in the reference) and the SfM families
+(chordal and pixel reprojection, pairwise rotation and translation, scale
+bounds).
 
 Each function is the un-batched residual of ONE observation; the solver
 maps it over the observation axis with `torch.func.vmap` and differentiates
@@ -116,3 +118,51 @@ def line2line_angle(pose_r, pose_n, dir_r, dir_n):
     d_ref = se3.exp_so3(aa_r) @ (se3.exp_so3(-aa_n) @ dir_n)
     ang = plane_angle(d_ref, dir_r)
     return _deadband(ang, ang < 1e-3)
+
+
+# ----------------------------------------------------------------------------
+# camera reprojection (base/CostFunction.h:178-292) and the pairwise
+# pose-graph residuals (base/CostFunction.h:17-147) of the SfM slice
+# ----------------------------------------------------------------------------
+
+def reproj_chordal(pose_cw, point_3d, obs_ray):
+    """Chordal reprojection: normalize(R_cw X + t_cw) - obs_ray. (3,)."""
+    aa, t = split_pose(pose_cw)
+    p_c = se3.exp_so3(aa) @ point_3d + t
+    return p_c / (torch.linalg.vector_norm(p_c) + 1e-12) - obs_ray
+
+
+def reproj_pixel(pose_cw, point_3d, obs_uv, rows, cols):
+    """PanoramaReprojResidual_Pixel (base/CostFunction.h:249-292), with the
+    u difference wrapped across the longitude seam. (2,)."""
+    aa, t = split_pose(pose_cw)
+    p_c = se3.exp_so3(aa) @ point_3d + t
+    norm = torch.linalg.vector_norm(p_c) + 1e-12
+    lon = torch.atan2(p_c[0], p_c[2])
+    lat = -torch.arcsin(torch.clamp(p_c[1] / norm, -1.0, 1.0))
+    u = cols * (0.5 + lon / (2 * math.pi))
+    v = rows * (0.5 - lat / math.pi)
+    du = torch.remainder(u - obs_uv[0] + cols / 2, cols) - cols / 2
+    return torch.stack([du, v - obs_uv[1]])
+
+
+def pairwise_rotation(aa_1w, aa_2w, aa_21_obs):
+    """PairWiseRotationResidual (base/CostFunction.h:17-47): log of
+    (R_2w R_1w^T) R_21_obs^T. (3,)."""
+    cycle = (se3.exp_so3(aa_2w) @ se3.exp_so3(aa_1w).transpose(-1, -2)
+             @ se3.exp_so3(aa_21_obs).transpose(-1, -2))
+    return se3.log_so3(cycle)
+
+
+def pairwise_translation(t_1w, t_2w, scale, aa_21_obs, t_21_obs_unit):
+    """PairWiseTranslationResidual (base/CostFunction.h:51-84):
+    t_2w - R_21 t_1w - scale t_21. (3,)."""
+    return t_2w - se3.exp_so3(aa_21_obs) @ t_1w - scale[0] * t_21_obs_unit
+
+
+def scale_factor(scale, lower, upper):
+    """ScaleFactor (base/CostFunction.h:119-147): hinge keeping a scale in
+    [lower, upper]. (1,)."""
+    below = torch.clamp_min(lower - scale[0], 0.0)
+    above = torch.clamp_min(scale[0] - upper, 0.0)
+    return (below + above).reshape(1)

@@ -1,6 +1,8 @@
-"""Pose artifact writers (util/Visualization.{h,cpp} of the reference): the
-port's copy of the numpy parts of panovlm_tpu/utils/visualization.py that
-the port calls."""
+"""Artifact writers (util/Visualization.{h,cpp} of the reference): the
+port's copy of the parts of panovlm_tpu/utils/visualization.py that the
+port calls. The JAX module colours depth with cv2's JET colormap and writes
+JPEG; the machine with the card has no cv2, so `depth_to_color` uses the
+piecewise-linear JET formula and the SfM stage writes PNG."""
 
 from __future__ import annotations
 
@@ -8,6 +10,18 @@ import numpy as np
 
 from ..io.pointcloud import write_pcd
 from .poses import params_to_world
+
+
+def depth_to_color(depth, max_depth: float = 20.0, min_depth: float = 0.0):
+    """Depth colormap -> (H,W,3) uint8 BGR (cv2's channel order), JET:
+    blue (near) through green to red (far); no depth is black."""
+    d = np.asarray(depth, np.float32)
+    x = np.clip((d - min_depth) / max(max_depth - min_depth, 1e-6), 0, 1)
+    x = (x * 255).astype(np.uint8).astype(np.float32) / 255.0
+    rgb = np.stack([np.clip(1.5 - np.abs(4 * x - c), 0, 1) for c in (3.0, 2.0, 1.0)], -1)
+    color = (rgb[..., ::-1] * 255 + 0.5).astype(np.uint8)
+    color[d <= 0] = 0
+    return color
 
 
 def camera_centers_pcd(path, poses_params, frame_valid=None):

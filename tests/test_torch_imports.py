@@ -1,7 +1,7 @@
-"""The port imports neither jax, cv2 nor the JAX package panovlm_tpu (the
-machine with the card has no jax and no cv2, and the port keeps its own
-copies of the host code it needs); the same holds for chip_smoke.py. The
-CLI refuses what it does not run."""
+"""The port imports neither jax, cv2, networkx nor the JAX package
+panovlm_tpu (the machine with the card has no jax, no cv2 and no networkx,
+and the port keeps its own copies of the host code it needs); the same
+holds for chip_smoke.py. The CLI refuses what it does not run."""
 
 import os
 import subprocess
@@ -21,7 +21,7 @@ import importlib
 import pkgutil
 import sys
 
-BLOCKED = ("jax", "jaxlib", "cv2", "panovlm_tpu")   # top-level names, exact
+BLOCKED = ("jax", "jaxlib", "cv2", "networkx", "panovlm_tpu")   # top-level names, exact
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -43,6 +43,7 @@ print("ok")
 
 
 def test_port_imports_without_jax_or_cv2():
+    """Also without networkx (the SfM graph filters use utils/graph.py)."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,

@@ -99,7 +99,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q, qm, t, tm, _, _ = (torch.from_numpy(a) for a in _inputs(11))
     k = 5
     if bad == "dim":
-        q, t = torch.zeros(B, Q, 8), torch.zeros(B, T, 8)
+        q, t = torch.zeros(B, Q, 6), torch.zeros(B, T, 6)   # neither <= 4 nor a multiple of 4
     elif bad == "k":
         k = 17
     elif bad == "dtype":

@@ -1,5 +1,6 @@
-"""CUDA KNN kernels (panovlm_tpu_torch/csrc/knn.cu) against their plain
-PyTorch versions, on the card. Marked `cuda`: they skip where
+"""CUDA KNN kernels (panovlm_tpu_torch/csrc/knn.cu, and csrc/knn_desc.cu at
+the SIFT descriptor width D = 128) against their plain PyTorch versions, on
+the card. Marked `cuda`: they skip where
 torch.cuda.is_available() is false. This file imports neither jax nor the
 test conftest's fixtures, so it runs on a machine without JAX:
 
@@ -91,3 +92,36 @@ def test_kernel_rejects_cpu_cuda_mix(cuda_device):
     q, qm, t, tm, _, _ = (torch.from_numpy(a) for a in _inputs(1))
     with pytest.raises(ValueError):
         tknn.knn(q.to(cuda_device), qm, t, tm, 5)
+
+
+def _descriptors(seed, B, Q, T, D=128):
+    """Unit-norm non-negative descriptors (RootSIFT-like), with near
+    duplicates so that the top-2 lists hold close distances."""
+    rng = np.random.default_rng(seed)
+    t = np.abs(rng.normal(size=(B, T, D))).astype(np.float32)
+    q = t[:, rng.integers(0, T, Q)] + 0.3 * np.abs(rng.normal(size=(B, Q, D)))
+    q = q.astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    return q, rng.random((B, Q)) > 0.05, t, rng.random((B, T)) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, shape", [(1, (3, 500, 700)), (2, (3, 500, 700)),
+                                      (2, (2, 8096, 8096))])
+def test_knn_descriptor_kernel_matches_plain_version(cuda_device, k, shape):
+    B, Qn, Tn = shape
+    q, qm, t, tm = (torch.from_numpy(a).to(cuda_device)
+                    for a in _descriptors(k + Qn, B, Qn, Tn))
+    n0, n1 = tknn.knn.desc_launches, tknn.knn.launches
+    d, i = tknn.knn(q, qm, t, tm, k)
+    assert (tknn.knn.desc_launches, tknn.knn.launches) == (n0 + 1, n1)
+    for b in range(B):       # the plain version one batch element at a time
+        sl = slice(b, b + 1)
+        d_ref, i_ref = tknn.knn_reference(q[sl], qm[sl], t[sl], tm[sl], k)
+        d_k1, _ = tknn.knn_reference(q[sl], qm[sl], t[sl], tm[sl], k + 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(d[sl], d_ref, rtol=1e-5, atol=1e-5)
+        ok = ~_near_tie_mask(d_k1, k)
+        assert torch.equal(i[sl][ok], i_ref[ok])
+    assert (d[~qm] >= 1e29).all() and (i[~qm] == 0).all()

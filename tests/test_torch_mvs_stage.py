@@ -1,7 +1,8 @@
 """The port's MVS stage as a whole (`python -m panovlm_tpu_torch joint_mvs`)
 against the JAX stage (panovlm_tpu.pipeline.joint_mvs) on one synthetic
 Room dataset: 4 frames, ground-truth joint camera and LiDAR poses (the
-seed_sfm_state convention), no SfM state (so no RefineCameraPose), the Room
+seed_sfm_state convention), no SfM state (so no RefineCameraPose: that is
+tests/test_torch_sfm_stage.py), the Room
 MVS keys of configs/Room.txt:75-87 (sweep slices 64 with the range fit,
 sequential propagation, 7x7 texels, LiDAR init kept constant, geometric
 pass) at scale 0 and 2 PatchMatch iterations.
@@ -152,12 +153,15 @@ def test_resumed_run_reads_back_the_pass_artifacts(runs):
 
 
 def test_unported_refinement_and_neighbour_selection_raise(runs):
+    """RefineCameraPose is ported (tests/test_torch_sfm_stage.py): with SfM
+    state files that hold no tracks it now fails on their content, not as
+    unported; neighbour selection 1 and min_depth 0 still raise."""
     cfg = _copy(os.path.dirname(runs["port"][0].result_path), "refine")
     for name in ("frames.npz", "points.npz"):
         os.makedirs(cfg.sfm_result_path, exist_ok=True)
         np.savez(os.path.join(cfg.sfm_result_path, name), x=np.zeros(1))
     os.remove(os.path.join(cfg.mvs_result_path, "camera_pose_after_refine.txt"))
-    with pytest.raises(NotImplementedError, match="global_ba"):
+    with pytest.raises(KeyError):
         tpipeline.joint_mvs(cfg, device="cpu")
     cfg.mvs_neighbor_selection = 1
     with pytest.raises(NotImplementedError, match="select_neighbor_sfm"):
