@@ -17,8 +17,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
        +-1, +-2): indices equal except on near-ties, d2 within rtol/atol 1e-5;
      - the plane-sweep NCC kernel at the Room MVS shapes, 720 x 1440: full
        scoring V=4 views, C=2 candidates, T=49 texels (7x7), D=64 slices;
-       candidate ranking V=2, C=16, T=5, every 4th slice (D=16): max
-       |kernel - plain| <= 2e-4;
+       candidate ranking V=2, C=16, T=5, every 4th slice (D=16); both again
+       at 723 x 1443 (partial 32 x 8 tiles at the right and bottom edges):
+       max |kernel - plain| <= 2e-4, and two launches bit-equal;
   4. the odometry stage (`python -m panovlm_tpu_torch init_lidar_pose`,
      in-process) on a synthetic Room-454 dataset (tests/synthetic.py, the
      loop trajectory of _room_scale.sh, 16 rings x 1800 azimuths), checked
@@ -37,7 +38,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
   6. K3 against its plain version at the shapes phase 5 launched it with:
      the sweep range and slice count that the stage's range fit chose (read
      from its log), full scoring at C=2, the initial scoring at C=1 and the
-     ranking on every 4th slice, max |kernel - plain| <= 2e-4;
+     ranking on every 4th slice, max |kernel - plain| <= 2e-4, two launches
+     bit-equal;
   7. the SfM stage (`python -m panovlm_tpu_torch init_camera_pose`,
      in-process) on --sfm-frames frames of the same loop, every 6th (frames
      0, 6, ..., 282 by default: ~1.55 laps), panoramas rendered straight at
@@ -46,17 +48,24 @@ Run from the root of a checkout. Phases, each fatal on failure:
      frame_match_method 6, max_depth 5 and the on-device SIFT; checked: every
      frame valid, camera_pose_final.txt within 1 deg and 0.08 m of ground
      truth after aligning frame 0 (the bounds of
-     tests/test_pipeline_cli.py::test_stage1_init_camera_pose), launches of
-     the descriptor KNN kernel;
-  8. K1 at D = 128 (csrc/knn_desc.cu) against its plain version on the
-     stage's own descriptors: the first pairs it matched, at the batch the
-     stage launches, Q = T = num_sift, k = 2 forward and k = 1 reverse.
+     tests/test_pipeline_cli.py::test_stage1_init_camera_pose), one launch of
+     the fused descriptor search per batch of pairs; then the device SIFT
+     and the VLAD proposal twice more on the same frames: descriptors,
+     embeddings and pairs bit-equal to each other and to the stage's
+     (ROADMAP F8);
+  8. K1 at D = 128 (csrc/knn_desc.cu, `knn_mutual`: forward top-2 and
+     reverse top-1 in one launch) against two plain searches on the stage's
+     own descriptors: the first pairs it matched, at the batch the stage
+     launches, Q = T = num_sift, and a ragged cut (Q = 5000, T = 7001, more
+     rows masked); two launches bit-equal.
 --only-sfm runs phases 1-2, 7 and 8 alone (for iterating on the SfM slice).
 Prints the card line, the kernel table as one JSON line, then, as the last
 line, {"ok": true, "device": {...}}. In the kernel table, volscore's times
-and bound are those of the D=64 full-scoring shape of phase 3, its
-max_abs_err the largest over the shapes of phases 3 and 6, and its
-"shapes" list holds each shape's numbers. Exits non-zero without that line when
+and bound are those of the D=64 full-scoring shape of phase 3 and
+knn_desc's those of the fused search at the stage's batch, their
+max_abs_err the largest over their shapes, and their "shapes" lists hold
+each shape's numbers, with the bound of the PR 3 operation count beside
+the recounted one (`bound_ms_pr3`). Exits non-zero without that line when
 there is no CUDA device or a phase fails. --profile-mvs wraps phase 5 in
 torch.profiler and writes its kernel table to chiprun_out/mvs_profile.txt.
 """
@@ -78,10 +87,12 @@ import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NEAR_TIE = 1e-5
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores, dense TF32 tensor-core
+# operations/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 S = ((1.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0))   # lidar z-up -> camera axes
 
 
@@ -203,20 +214,50 @@ def knn_vs_plain(torch, knn_mod):
     return rows
 
 
-# volscore arithmetic, counted from csrc/volscore.cu: per (view, candidate,
-# pixel, texel) the texel-ray dot (5), denominator clamp (2), lambda (1),
-# slice coordinate (4) and its clip (2), floor/fraction (2), two-slice
-# interpolation (4), bilateral weight + gate (5), six moments (11); per
-# (view, candidate, pixel) the plane offset (6) and the NCC epilogue (15).
-VOLSCORE_OPS_PER_TEXEL = 36
-VOLSCORE_OPS_PER_PIXEL = 21
+# K3 arithmetic (csrc/volscore.cu), each operation counted once at the
+# level of the indices its value depends on:
+#   (pixel, texel): the gray difference, its square, the scale, the exp (4);
+#   (candidate, pixel, texel): the texel-ray dot (5), the denominator clamp
+#     (2), lambda (1), max and reciprocal (2), the slice coordinate (2) and
+#     its clip (2), floor, fraction and 1 - f (3), the weight gate (1),
+#     w i_t (1), the three moments of the gray (4): 23;
+#   (view, candidate, pixel, texel): the two-slice interpolation (3), w s
+#     (1), the three moments with s (5): 9;
+#   (candidate, pixel): the plane offset (6), the gray mean and variance
+#     (5), the validity tests (3): 14;
+#   (view, candidate, pixel): the rest of the NCC epilogue (15).
+# The count of the PR 3 kernel, which repeated the lower levels per view and
+# candidate, was 36 per (view, candidate, pixel, texel) and 21 per (view,
+# candidate, pixel): VOLSCORE_OPS_PR3, kept to compare the two shares.
+VOLSCORE_OPS = (("pixel texel", 4), ("candidate pixel texel", 23),
+                ("view candidate pixel texel", 9), ("candidate pixel", 14),
+                ("view candidate pixel", 15))
+VOLSCORE_OPS_PR3 = (36, 21)
 
 
-def _volscore_bound(V, D, C, T, H, W):
+def volscore_ops(V, C, T, H, W):
+    """Operations of one K3 launch, per level of VOLSCORE_OPS."""
     HW = H * W
-    n_bytes = V * D * HW * 2 + C * HW * 4 * 4 + HW * 4 * 4 + V * C * HW * 4
-    n_ops = V * C * HW * (T * VOLSCORE_OPS_PER_TEXEL + VOLSCORE_OPS_PER_PIXEL)
-    return bound_ms(n_bytes, n_ops)
+    n = {"pixel texel": HW * T, "candidate pixel texel": C * HW * T,
+         "view candidate pixel texel": V * C * HW * T, "candidate pixel": C * HW,
+         "view candidate pixel": V * C * HW}
+    return {level: n[level] * ops for level, ops in VOLSCORE_OPS}
+
+
+def _volscore_bytes(V, D, C, H, W):
+    """The volume (bf16), depth + normals, rays + gray read once; the
+    (V, C) costs written once."""
+    HW = H * W
+    return V * D * HW * 2 + C * HW * 4 * 4 + HW * 4 * 4 + V * C * HW * 4
+
+
+def _volscore_bound(V, D, C, T, H, W, pr3: bool = False):
+    if pr3:
+        per_texel, per_pixel = VOLSCORE_OPS_PR3
+        n_ops = V * C * H * W * (T * per_texel + per_pixel)
+    else:
+        n_ops = sum(volscore_ops(V, C, T, H, W).values())
+    return bound_ms(_volscore_bytes(V, D, C, H, W), n_ops)
 
 
 def volscore_cases(pm, cfg, main_path: bool):
@@ -234,64 +275,77 @@ def volscore_cases(pm, cfg, main_path: bool):
 
 
 def volscore_vs_plain(torch, cfg, main_path: bool = False):
-    """K3 against its plain version at 720 x 1440 and the sweep of cfg
-    (cfg.sweep_slices slices over [cfg.min_depth, cfg.max_depth]), on
-    inputs with the main path's layout and texture: a smooth reference gray
-    and a (4, D, 720, 1440) bf16 volume of shifted copies of it plus noise
-    (on white-noise images the bilateral weights leave one or two effective
-    texels, and NCC of a near-zero variance amplifies rounding), candidate
-    depths inside the sweep range and normals facing the camera."""
+    """K3 against its plain version at 720 x 1440 (and, outside the main
+    path, at 723 x 1443, whose rows and columns end in partial 32 x 8 tiles)
+    and the sweep of cfg (cfg.sweep_slices slices over [cfg.min_depth,
+    cfg.max_depth]), on inputs with the main path's layout and texture: a
+    smooth reference gray and a (4, D, H, W) bf16 volume of shifted copies
+    of it plus noise (on white-noise images the bilateral weights leave one
+    or two effective texels, and NCC of a near-zero variance amplifies
+    rounding), candidate depths inside the sweep range and normals facing
+    the camera. Each shape runs the kernel twice: the two results must be
+    equal bit for bit."""
     from panovlm_tpu_torch.ops import patchmatch as pm
     from panovlm_tpu_torch.ops import spherical
     from panovlm_tpu_torch.ops import volscore as vs
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    H, W, V, D = 720, 1440, 4, cfg.sweep_slices
-    rays = spherical.pixel_ray_grid(H, W, dev)
-    rays_cf = rays.permute(2, 0, 1).contiguous()
-    yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
-                            torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
-    base = 0.5 + 0.25 * torch.sin(0.11 * xx + 0.07 * yy) * torch.cos(0.05 * yy)
-    gray = base + 0.02 * torch.randn((H, W), generator=g, device=dev)
-    vols = torch.stack([torch.stack([torch.roll(base, s + 3 * v, dims=1) for s in range(D)])
-                        for v in range(V)])
-    vols = (vols + 0.05 * torch.randn(vols.shape, generator=g, device=dev)).to(torch.bfloat16)
+    V, D = 4, cfg.sweep_slices
     lo, hi = max(cfg.min_depth, 1.0), min(cfg.max_depth, 4.0)
-
-    def candidates(C):
-        depth = lo + (hi - lo) * torch.rand((C, H, W), generator=g, device=dev)
-        n_raw = -rays + 0.3 * torch.randn((C, H, W, 3), generator=g, device=dev)
-        nrm = pm.random_normals(n_raw, rays)
-        return depth, nrm.permute(0, 3, 1, 2).contiguous()
-
     rows = {}
-    for label, nv, C, offsets, stride in volscore_cases(pm, cfg, main_path):
-        label = f"main path {label}" if main_path else label
-        depth, nrm = candidates(C)
-        sub = vols[:nv, ::stride]
-        inv0, inv_step = pm._inv_grid(cfg, stride)
-        args = (sub, depth, nrm, rays_cf, gray, offsets, inv0, inv_step,
-                cfg.min_depth, cfg.max_depth)
-        out = vs.volscore(*args)
-        ref = vs.volscore_reference(*args)
-        torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        err = float(diff.max())
-        if not err <= 2e-4:
-            fail(f"volscore [{label}]: max |kernel - plain| {err:.3g} > 2e-4 on "
-                 f"{int((diff > 2e-4).sum())} of {diff.numel()} outputs")
-        b_ms, b_by = _volscore_bound(nv, sub.shape[1], C, len(offsets), H, W)
-        rows[label] = dict(
-            max_abs_err=err, ms=_time_ms(lambda: vs.volscore(*args)),
-            plain_ms=_time_ms(lambda: vs.volscore_reference(*args), reps=3),
-            bound_ms=b_ms, bound_by=b_by,
-            shape=(f"V={nv} C={C} T={len(offsets)} D={sub.shape[1]} {H}x{W} "
-                   f"depths {cfg.min_depth:.4g}..{cfg.max_depth:.4g} m"))
-        del out, ref
-        log(f"kernel volscore {label} [{rows[label]['shape']}]: max |kernel - plain| "
-            f"{err:.3g}, kernel {rows[label]['ms']:.3f} ms, plain "
-            f"{rows[label]['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for H, W in ((720, 1440),) if main_path else ((720, 1440), (723, 1443)):
+        rays = spherical.pixel_ray_grid(H, W, dev)
+        rays_cf = rays.permute(2, 0, 1).contiguous()
+        yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                                torch.arange(W, device=dev, dtype=torch.float32),
+                                indexing="ij")
+        base = 0.5 + 0.25 * torch.sin(0.11 * xx + 0.07 * yy) * torch.cos(0.05 * yy)
+        gray = base + 0.02 * torch.randn((H, W), generator=g, device=dev)
+        vols = torch.stack([torch.stack([torch.roll(base, s + 3 * v, dims=1)
+                                         for s in range(D)]) for v in range(V)])
+        vols = (vols + 0.05 * torch.randn(vols.shape, generator=g, device=dev)
+                ).to(torch.bfloat16)
+
+        for label, nv, C, offsets, stride in volscore_cases(pm, cfg, main_path):
+            label = f"main path {label}" if main_path else label
+            if (H, W) != (720, 1440):
+                label = f"{label} {H}x{W}"
+            depth = lo + (hi - lo) * torch.rand((C, H, W), generator=g, device=dev)
+            n_raw = -rays + 0.3 * torch.randn((C, H, W, 3), generator=g, device=dev)
+            nrm = pm.random_normals(n_raw, rays).permute(0, 3, 1, 2).contiguous()
+            sub = vols[:nv, ::stride]
+            inv0, inv_step = pm._inv_grid(cfg, stride)
+            args = (sub, depth, nrm, rays_cf, gray, offsets, inv0, inv_step,
+                    cfg.min_depth, cfg.max_depth)
+            out = vs.volscore(*args)
+            again = vs.volscore(*args)
+            ref = vs.volscore_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"volscore [{label}]: two launches on the same inputs differ on "
+                     f"{int((out != again).sum())} outputs")
+            diff = (out - ref).abs()
+            err = float(diff.max())
+            if not err <= 2e-4:
+                fail(f"volscore [{label}]: max |kernel - plain| {err:.3g} > 2e-4 on "
+                     f"{int((diff > 2e-4).sum())} of {diff.numel()} outputs")
+            shape = (nv, sub.shape[1], C, len(offsets), H, W)
+            b_ms, b_by = _volscore_bound(*shape)
+            b3_ms, _ = _volscore_bound(*shape, pr3=True)
+            rows[label] = dict(
+                max_abs_err=err, ms=_time_ms(lambda: vs.volscore(*args)),
+                plain_ms=_time_ms(lambda: vs.volscore_reference(*args), reps=3),
+                bound_ms=b_ms, bound_by=b_by, bound_ms_pr3=b3_ms,
+                shape=(f"V={nv} C={C} T={len(offsets)} D={sub.shape[1]} {H}x{W} "
+                       f"depths {cfg.min_depth:.4g}..{cfg.max_depth:.4g} m"))
+            del out, again, ref, diff
+            r = rows[label]
+            log(f"kernel volscore {label} [{r['shape']}]: max |kernel - plain| {err:.3g}, "
+                f"repeat bit-equal, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}; PR 3 count {b3_ms:.4f} ms)")
+        del vols
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -676,7 +730,7 @@ def sfm_pose_errors(path, gt):
 
 
 def run_sfm(torch, knn_mod, cfg_path, gt):
-    """Phase 7. Returns (K1-D128 launches, the stage's match batch)."""
+    """Phase 7. Returns (K1-D128 launches, the stage's match batch, config)."""
     import numpy as np
     from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
@@ -687,16 +741,18 @@ def run_sfm(torch, knn_mod, cfg_path, gt):
     cfg = load_config(cfg_path)
     tr = TimeReport()
     torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn_mutual.launches = 0
     knn_mod.knn.desc_launches = 0
     t0 = time.time()
     rc = port_main(["init_camera_pose", cfg_path, "--device", "cuda"], tr=tr)
     wall = time.time() - t0
-    launches = knn_mod.knn.desc_launches
+    launches = knn_mod.knn_mutual.launches
     if rc != 0:
         fail(f"init_camera_pose exited {rc}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = sfm.match_batch(torch.device("cuda"), int(cfg.num_sift))
     log(f"SfM stage wall {wall:.1f} s, peak device memory {peak:.2f} GiB, "
-        f"descriptor KNN launches {launches}")
+        f"descriptor KNN launches {launches} (mutual) + {knn_mod.knn.desc_launches} (knn)")
     for name, sec in tr.time_spent.items():
         if name != "init_camera_pose":
             log(f"  {name}: {sec:.2f} s")
@@ -711,8 +767,9 @@ def run_sfm(torch, knn_mod, cfg_path, gt):
         f"pose, {len(pts['points'])} tracks ({int(pts['point_ok'].sum())} kept), "
         f"matching {tr.time_spent.get('match pairs', 0) / max(P, 1) * 1e3:.2f} ms per pair, "
         f"relative poses {tr.time_spent.get('relative poses', 0) / max(P, 1) * 1e3:.2f} ms per pair")
-    if launches <= 0:
-        fail("the descriptor KNN kernel was not launched on the SfM path")
+    if launches != -(-P // batch):
+        fail(f"{launches} launches of the fused descriptor search for {P} pairs in "
+             f"batches of {batch}: the SfM path did not match one launch per batch")
     rot, dist, all_ok = sfm_pose_errors(
         os.path.join(cfg.sfm_result_path, "camera_pose_final.txt"), gt)
     log(f"camera_pose_final.txt vs ground truth: max rotation error {rot:.4f} deg, "
@@ -721,17 +778,96 @@ def run_sfm(torch, knn_mod, cfg_path, gt):
         fail("init_camera_pose left frames invalid")
     if not (rot < 1.0 and dist < 0.08):
         fail(f"SfM poses off ground truth: {rot:.3f} deg, {dist:.4f} m (bounds 1 deg, 0.08 m)")
-    return launches, sfm.match_batch(torch.device("cuda"), int(cfg.num_sift)), cfg
+    return launches, batch, cfg
 
 
-# knn_desc arithmetic, counted from csrc/knn_desc.cu: per (query, target) D
-# fused multiply-adds for the dot (2 operations each) and the epilogue
-# (|q|^2 + |t|^2 - 2 acc, clamp, mask test, top-k compare: 6)
-KNN_DESC_OPS_PER_PAIR = lambda D: 2 * D + 6
+def sfm_reproducibility(torch, cfg):
+    """ROADMAP F8: the device SIFT and the VLAD proposal run twice more on
+    the stage's frames; the descriptors, the embeddings and the proposed
+    pairs must equal each other and the stage's own bit for bit. As a
+    control, the float scatter_add_ that the SIFT histograms used before
+    runs twice on the same inputs at the descriptor-bin shape."""
+    import numpy as np
+    from panovlm_tpu_torch.io import artifacts, images
+    from panovlm_tpu_torch.models import sfm, vlad
+    from panovlm_tpu_torch.ops import sift_device as sd
+
+    dev = torch.device("cuda")
+    grays, _ = images.load_images(cfg.image_path, cfg.scale)
+    H, W = grays[0].shape
+    cap = int(cfg.num_sift)
+    stage_desc = artifacts.load_npz(os.path.join(cfg.frame_path, "frames_sift.npz"))["desc"]
+    mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    scfg = sfm.SfMConfig(num_sift=cap)
+    runs = []
+    t0 = time.time()
+    for _ in range(2):
+        uv, desc, fmask = sd.extract_sift_device_batch(
+            np.stack(grays), num_features=cap, root_sift=cfg.root_sift,
+            mask=images.load_mask(cfg.mask_path, H, W), device=dev)
+        d, m = torch.as_tensor(desc, device=dev), torch.as_tensor(fmask, device=dev)
+        _, _, emb = vlad.vlad_pairs(d, m, n_centers=min(64, cap))
+        pi, pj = sfm.init_image_pairs(len(grays), scfg, embeddings=emb,
+                                      methods=cfg.frame_match_method)
+        runs.append(dict(uv=uv, desc=desc, fmask=fmask, emb=emb, pi=pi, pj=pj))
+    differ = [k for k in runs[0] if not np.array_equal(runs[0][k], runs[1][k])]
+    if not np.array_equal(runs[0]["desc"], stage_desc):
+        differ.append("desc vs the stage's")
+    if not (np.array_equal(runs[0]["pi"], mp["pi"]) and np.array_equal(runs[0]["pj"], mp["pj"])):
+        differ.append("pairs vs the stage's")
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.randint(0, 128, (8, cap, 256), generator=g, device=dev)
+    src = torch.rand((8, cap, 256), generator=g, device=dev)
+    a = torch.zeros((8, cap, 128), device=dev).scatter_add_(2, idx, src)
+    b = torch.zeros((8, cap, 128), device=dev).scatter_add_(2, idx, src)
+    control = float((a != b).double().mean())
+    log(f"F8 reproducibility: device SIFT + VLAD twice more on {len(grays)} frames "
+        f"({time.time() - t0:.1f} s): {len(runs[0]['pi'])} pairs, "
+        f"{'differ: ' + ', '.join(differ) if differ else 'bit-equal to each other and to the stage'}; "
+        f"control: float scatter_add_ at (8, {cap}, 256) -> 128 bins differs between two "
+        f"runs on {control:.4%} of the bins")
+    if differ:
+        fail(f"F8: SfM inputs not reproducible: {differ}")
+    return control
 
 
-def knn_desc_vs_plain(torch, knn_mod, cfg, B):
-    """Phase 8: K1 at D = 128 on the stage's first B matched pairs."""
+# K1 at D = 128, the fused search (csrc/knn_desc.cu, one launch per batch):
+# per (query, target) pair D products, each three TF32 tensor-core
+# multiply-adds (3xTF32: 6 operations) at the dense TF32 rate; at the fp32
+# rate the epilogue, 6 per pair (|q|^2 + |t|^2, -2 q.t, clamp, mask test,
+# the forward top-k compare, the reverse minimum), and the norms, 2D per
+# row. The PR 3 count, two launches of D fp32 FMAs + 6 per pair at the
+# fp32 rate, is kept as `pr3` to compare the two shares.
+KNN_DESC_EPILOGUE_OPS = 6
+KNN_DESC_OPS_PER_PAIR_PR3 = lambda D: 2 * D + 6
+
+
+def knn_mutual_work(B, Q, T, D):
+    """(bytes, tensor-core operations, fp32 operations) of one fused launch:
+    descriptors and masks read once, the forward (d2, idx) top-2 and the
+    reverse 8-byte keys written once."""
+    n_bytes = B * (Q + T) * (4 * D + 1) + B * Q * 2 * 8 + B * T * 8
+    return n_bytes, B * Q * T * D * 6, B * Q * T * KNN_DESC_EPILOGUE_OPS + B * (Q + T) * 2 * D
+
+
+def knn_mutual_bound(B, Q, T, D, pr3: bool = False):
+    """Least time of the fused search: the larger of the bytes at HBM rate
+    and the operations (tensor-core part at the TF32 rate plus the fp32
+    part at the fp32 rate); with pr3, the bound of the two fp32 launches
+    it replaced."""
+    n_bytes, tc_ops, f32_ops = knn_mutual_work(B, Q, T, D)
+    if pr3:
+        return bound_ms(n_bytes, 2 * B * Q * T * KNN_DESC_OPS_PER_PAIR_PR3(D))
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = (tc_ops / TF32_OPS_PER_S + f32_ops / F32_OPS_PER_S) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def knn_mutual_vs_plain(torch, knn_mod, cfg, B):
+    """Phase 8: K1 at D = 128, the fused forward top-2 + reverse top-1, on
+    the stage's first B proposed pairs (Q = T = num_sift) and on a ragged
+    cut of them (Q = 5000, T = 7001 with a fifth of the rows masked more),
+    against two plain searches; every launch twice, bit-equal."""
     from panovlm_tpu_torch.io import artifacts
     fr = artifacts.load_npz(os.path.join(cfg.frame_path, "frames_sift.npz"))
     mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
@@ -740,30 +876,48 @@ def knn_desc_vs_plain(torch, knn_mod, cfg, B):
     fmask = torch.as_tensor(fr["fmask"], device=dev)
     pi = torch.as_tensor(mp["pi"][:B].astype("int64"), device=dev)
     pj = torch.as_tensor(mp["pj"][:B].astype("int64"), device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    full = (desc[pi], fmask[pi], desc[pj], fmask[pj])
+    Qr, Tr = min(5000, desc.shape[1]), min(7001, desc.shape[1])
+    ragged = (full[0][:, :Qr].contiguous(),
+              full[1][:, :Qr] & (torch.rand((len(pi), Qr), generator=g, device=dev) > 0.2),
+              full[2][:, :Tr].contiguous(),
+              full[3][:, :Tr] & (torch.rand((len(pi), Tr), generator=g, device=dev) > 0.2))
     rows = {}
-    for k, (q, qm, t, tm) in ((2, (desc[pi], fmask[pi], desc[pj], fmask[pj])),
-                              (1, (desc[pj], fmask[pj], desc[pi], fmask[pi]))):
+    for label, (q, qm, t, tm) in (("mutual", full), ("ragged", ragged)):
         Bq, Q, D = q.shape
         T = t.shape[1]
-        d, i = knn_mod.knn(q, qm, t, tm, k)
-        d_ref, i_ref = knn_mod.knn_reference(q, qm, t, tm, k)
+        out = knn_mod.knn_mutual(q, qm, t, tm)
+        again = knn_mod.knn_mutual(q, qm, t, tm)
+        ref = knn_mod.knn_mutual_reference(q, qm, t, tm)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            fail(f"knn_mutual [{label}]: two launches on the same inputs differ")
         d2_full = knn_mod._dist2(q, qm, t, tm)
-        err, ties = _check_slots(f"knn_desc k={k}", d, i, d_ref, i_ref, d2_full)
-        del d2_full, d_ref, i_ref
-        b_ms, b_by = bound_ms(Bq * (Q + T) * (4 * D + 1) + Bq * Q * k * 8,
-                              Bq * Q * T * KNN_DESC_OPS_PER_PAIR(D))
-        rows[k] = dict(max_abs_err=err, near_ties=ties,
-                       ms=_time_ms(lambda: knn_mod.knn(q, qm, t, tm, k)),
-                       plain_ms=_time_ms(lambda: knn_mod.knn_reference(q, qm, t, tm, k), reps=3),
-                       library_ms=_time_ms(lambda: torch.topk(torch.cdist(q, t), k,
-                                                              largest=False), reps=3),
-                       bound_ms=b_ms, bound_by=b_by,
-                       shape=f"B={Bq} Q={Q} T={T} D={D} k={k}")
-        r = rows[k]
-        log(f"kernel knn_desc [{r['shape']}]: max |d2 - plain| {err:.3g}, near-tie index "
-            f"swaps {ties}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"cdist+topk {r['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        err_f, ties_f = _check_slots(f"knn_mutual {label} forward", out[0], out[1],
+                                     ref[0], ref[1], d2_full)
+        err_r, ties_r = _check_slots(f"knn_mutual {label} reverse", out[2], out[3],
+                                     ref[2], ref[3], d2_full.transpose(1, 2))
+        del d2_full, out, again, ref
+
+        def library():
+            dd = torch.cdist(q, t)
+            return torch.topk(dd, 2, largest=False), torch.min(dd, dim=1)
+        b_ms, b_by = knn_mutual_bound(Bq, Q, T, D)
+        b3_ms, _ = knn_mutual_bound(Bq, Q, T, D, pr3=True)
+        rows[label] = dict(
+            max_abs_err=max(err_f, err_r), near_ties=ties_f + ties_r,
+            ms=_time_ms(lambda: knn_mod.knn_mutual(q, qm, t, tm)),
+            plain_ms=_time_ms(lambda: knn_mod.knn_mutual_reference(q, qm, t, tm), reps=3),
+            library_ms=_time_ms(library, reps=3),
+            bound_ms=b_ms, bound_by=b_by, bound_ms_pr3=b3_ms,
+            shape=f"B={Bq} Q={Q} T={T} D={D} k=2 + reverse k=1")
+        r = rows[label]
+        log(f"kernel knn_desc {label} [{r['shape']}]: max |d2 - plain| {r['max_abs_err']:.3g}, "
+            f"near-tie index swaps {ties_f} forward + {ties_r} reverse, repeat bit-equal, "
+            f"kernel {r['ms']:.3f} ms, plain (two searches) {r['plain_ms']:.3f} ms, "
+            f"cdist+topk+min {r['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"PR 3 fp32 two-launch bound {b3_ms:.4f} ms)")
         torch.cuda.empty_cache()
     return rows
 
@@ -867,12 +1021,13 @@ def main():
             # 6. K3 at the shapes of phase 5
             vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
 
-        # 7. the SfM stage
+        # 7. the SfM stage, then its reproducibility (F8)
         launches["knn_desc"], match_batch, sfm_config = run_sfm(torch, knn_mod, sfm_cfg,
                                                                 sfm_gt)
+        sfm_reproducibility(torch, sfm_config)
 
         # 8. K1 at D = 128 on the stage's descriptors
-        drows = knn_desc_vs_plain(torch, knn_mod, sfm_config, match_batch)
+        drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
     finally:
         pool.terminate()
         pool.join()
@@ -888,11 +1043,12 @@ def main():
     def with_shapes(main, parts, **extra):
         return dict(main, max_abs_err=max(r["max_abs_err"] for r in parts), **extra,
                     shapes=[{"shape": r["shape"], **{k: r[k] for k in (
-                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "bound_ms_pr3") if k in r}}
                         for r in parts])
     if vrows:
         rows["volscore"] = with_shapes(vrows["full"], list(vrows.values()), library_ms=None)
-    rows["knn_desc"] = with_shapes(drows[2], [drows[2], drows[1]])
+    rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
     src = {"knn": "csrc/knn.cu", "knn_ring": "csrc/knn.cu", "volscore": "csrc/volscore.cu",
            "knn_desc": "csrc/knn_desc.cu"}
     replaces = {"knn": "panovlm_tpu/ops/pallas/knn.py:30",

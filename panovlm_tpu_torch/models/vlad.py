@@ -9,12 +9,18 @@ The JAX module draws its descriptor sample and its initial centres with
 can inject jax.random's; without it they come from a `torch.Generator` on
 the descriptors' device (ROADMAP F5: the two generators give different
 numbers from one seed).
+
+The residual and centre sums go through `ops/exact.index_sum` (fixed-point
+int64 sums), so the codebook, the embeddings and the pair set are the same
+on every run: float atomics on the card are not (ROADMAP F8).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops import exact
 
 
 def _sq_dist(x, centers):
@@ -31,9 +37,8 @@ def kmeans(desc, mask, init_idx, iters: int = 15):
         d2 = torch.where(mask[:, None] != 0, _sq_dist(desc, centers),
                          torch.full((), float("inf"), device=desc.device))
         assign = torch.argmin(d2, dim=1)
-        sums = torch.zeros_like(centers).index_add_(0, assign, desc * w[:, None])
-        cnts = torch.zeros(centers.shape[0], dtype=desc.dtype,
-                           device=desc.device).index_add_(0, assign, w)
+        sums = exact.index_sum(centers.shape[0], assign, desc * w[:, None])
+        cnts = exact.index_sum(centers.shape[0], assign, w)
         new = sums / torch.clamp_min(cnts, 1.0)[:, None]
         centers = torch.where((cnts > 0)[:, None], new, centers)
     return centers
@@ -47,8 +52,7 @@ def vlad_embedding(desc, mask, centers):
     assign = torch.argmin(_sq_dist(desc, centers), dim=-1)          # (N, F)
     resid = (desc - centers[assign]) * mask[..., None]
     flat = (assign + K * torch.arange(N, device=desc.device)[:, None]).reshape(-1)
-    v = torch.zeros((N * K, D), dtype=desc.dtype, device=desc.device).index_add_(
-        0, flat, resid.reshape(-1, D)).reshape(N, K, D)
+    v = exact.index_sum(N * K, flat, resid.reshape(-1, D)).reshape(N, K, D)
     v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
     v = v.reshape(N, K * D)
     v = torch.sign(v) * torch.sqrt(torch.abs(v))

@@ -97,12 +97,13 @@ def load():
                                    vp, vp, vp, vp, vp]            # outs, stream
         lib.knn_desc_launch.restype = ci
         lib.knn_desc_launch.argtypes = [vp, vp, vp, vp,              # q qm t tm
-                                        ci, ci, ci, ci, ci,          # B Q T D k
-                                        vp, vp, vp]                  # outs, stream
+                                        ci, ci, ci, ci, ci, ci,      # B Q T D k reverse
+                                        vp, vp, vp, vp, vp]          # norms outs keys stream
         lib.volscore_launch.restype = ci
         ll, cf = ctypes.c_longlong, ctypes.c_float
         lib.volscore_launch.argtypes = [vp, ll, ll,                 # vol, strides
-                                        vp, vp, vp, vp, vp, ci,     # depth nrm rays gray offsets T
+                                        vp, vp, vp, vp,             # depth nrm rays gray
+                                        ctypes.POINTER(ci), ci,     # host offsets, T
                                         ci, ci, ci, ci, ci,         # V C D H W
                                         cf, cf, cf, cf, cf,         # inv0 1/inv_step dmin dmax 1/(2s^2)
                                         vp, vp]                     # out, stream

@@ -11,12 +11,24 @@ on any device. `sqrt` is correctly rounded on any device (PyTorch's
 vectorized CPU sqrt is not; the JAX package's is). XLA also rewrites
 `x / const` as `x * (1 / const)` (`div_const`), while PyTorch's `c / tensor`
 multiplies by the reciprocal where JAX divides (`rdiv`).
+
+`index_sum` and `scatter_sum` make scattered float sums
+reproducible: `index_add_` and `scatter_add_` of float32 on the card add
+with atomics in an order that changes from run to run (ROADMAP F8). Here
+every term is rounded to a multiple of 2^-40 and summed as int64, which is
+exact and so does not depend on the order; the sum is then rounded once to
+float32. The result is the same on the card and on the CPU, within
+2^-40 per term of the exact sum (terms must stay below 2^22 in magnitude,
+sums below 2^23).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+FIXED_BITS = 40
 
 
 def f32(v: float) -> float:
@@ -73,3 +85,32 @@ def sum_of_products(pairs):
     for a, b in rest:
         acc = fma(a, b, acc)
     return acc
+
+
+def to_fixed(x):
+    """float tensor -> int64 multiples of 2^-FIXED_BITS (round to nearest)."""
+    return torch.round(x.double() * 2.0 ** FIXED_BITS).to(torch.int64)
+
+
+def from_fixed(n, dtype=torch.float32):
+    """int64 fixed-point sums -> dtype, rounded once."""
+    return (n.double() * 2.0 ** -FIXED_BITS).to(dtype)
+
+
+def index_sum(n: int, index, src):
+    """zeros((n, *src.shape[1:])).index_add_(0, index, src), summed in fixed
+    point: the same bits on every run and device."""
+    acc = torch.zeros((n, *src.shape[1:]), dtype=torch.int64, device=src.device)
+    return from_fixed(acc.index_add_(0, index, to_fixed(src)), src.dtype)
+
+
+def scatter_sum(n: int, parts):
+    """The sum over (index, src) in parts of
+    zeros((*src.shape[:-1], n)).scatter_add_(-1, index, src), in fixed point:
+    the same bits on every run and device."""
+    acc = None
+    for index, src in parts:
+        if acc is None:
+            acc = torch.zeros((*src.shape[:-1], n), dtype=torch.int64, device=src.device)
+        acc.scatter_add_(-1, index, to_fixed(src))
+    return from_fixed(acc, src.dtype)

@@ -1,23 +1,29 @@
-"""Batched masked KNN — wrappers of the CUDA kernels in `csrc/knn.cu`, and
-their plain PyTorch versions.
+"""Batched masked KNN — wrappers of the CUDA kernels in `csrc/knn.cu` and
+`csrc/knn_desc.cu`, and their plain PyTorch versions.
 
 `knn` replaces `panovlm_tpu/ops/pallas/knn.py:_knn_kernel` (driven by
 `knn_pallas_batched`) and `knn_ring` replaces `_knn_ring_kernel` (driven by
 `knn_ring_pallas_batched`). `knn` dispatches on the feature dimension D:
 `csrc/knn.cu` for the point clouds (D <= 4, any k <= 16), `csrc/knn_desc.cu`
-for descriptors (4 < D, D a multiple of 4, k <= 2: SIFT matching at
-D = 128). On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
-tensor it calls the plain version. Each kernel's launches are counted in a
-plain integer (`knn.launches` for D <= 4, `knn.desc_launches` for the
-descriptor kernel, `knn_ring.launches`).
+for descriptors (4 < D <= 128, D a multiple of 4, k <= 2: SIFT matching at
+D = 128). `knn_mutual` is the matcher's pair of searches in one launch of
+the descriptor kernel: the forward top-2 and the reverse top-1, from one
+pass over the (Q, T) distances (3xTF32 tensor-core products, fp32
+accuracy). On a CUDA tensor a wrapper launches its kernel or raises; on a
+CPU tensor it calls the plain version. Each kernel's launches are counted
+in a plain integer (`knn.launches` for D <= 4, `knn.desc_launches` for the
+descriptor kernel called through `knn`, `knn_mutual.launches`,
+`knn_ring.launches`).
 
-Semantics shared by kernel and plain version: d2 = |q|^2 + |t|^2 - 2 q.t in
-float32, clamped at 0; masked query rows and masked targets give d2 = 1e30.
-The k smallest d2 come in ascending order with ties to the lower target
-index; a slot that no valid target fills holds d2 = 1e30 and index 0.
+Semantics shared by kernels and plain versions: d2 = |q|^2 + |t|^2 - 2 q.t
+in float32, clamped at 0; masked query rows and masked targets give
+d2 = 1e30. The k smallest d2 come in ascending order with ties to the lower
+target index; a slot that no valid target fills holds d2 = 1e30 and index 0.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -25,8 +31,11 @@ from . import _build
 
 BIG = 1e30
 MAX_D = 4          # csrc/knn.cu; wider features go to csrc/knn_desc.cu
+MAX_D_DESC = 128   # csrc/knn_desc.cu kDmax
 MAX_K = 16
 MAX_K_DESC = 2
+# reverse-search key of an empty slot: float bits of 1e30 << 32 | index 0
+KEY_EMPTY = struct.unpack("<I", struct.pack("<f", BIG))[0] << 32
 RING_OFFSETS = (-2, -1, 1, 2)
 
 
@@ -37,9 +46,9 @@ def _check(q, q_mask, t, t_mask, k):
     B, Q, D = q.shape
     if t.shape[0] != B or t.shape[2] != D:
         raise ValueError(f"t {tuple(t.shape)} does not match q {tuple(q.shape)}")
-    if D > MAX_D and D % 4:
+    if D > MAX_D and (D % 4 or D > MAX_D_DESC):
         raise ValueError(f"feature dim D={D}: the kernels take D <= {MAX_D} "
-                         "or a multiple of 4")
+                         f"or a multiple of 4 up to {MAX_D_DESC}")
     max_k = MAX_K if D <= MAX_D else MAX_K_DESC
     if not 1 <= k <= min(max_k, t.shape[1]):
         raise ValueError(f"k={k}: the kernel for D={D} takes 1 <= k <= min({max_k}, T)")
@@ -115,20 +124,35 @@ def knn_ring_reference(q, q_mask, t, t_mask, q_row, t_row, k: int,
     return d, i, torch.stack(rd, dim=-1), torch.stack(ri, dim=-1).to(torch.int32)
 
 
-def _launch_desc(q, q_mask, t, t_mask, k):
+def _launch_desc(q, q_mask, t, t_mask, k, reverse: bool):
+    """One launch of csrc/knn_desc.cu: the forward top-k (d2, idx) and,
+    with `reverse`, the reverse top-1 keys (B, T) int64."""
     lib = _build.load()
     B, Q, D = q.shape
+    T = t.shape[1]
     dev = q.device
+    if q.data_ptr() % 16 or t.data_ptr() % 16:
+        raise ValueError("the descriptor kernel takes 16-byte aligned q and t")
     out_d = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
+    norms = torch.empty(B * (Q + T), dtype=torch.float32, device=dev)
+    keys = torch.full((B, T), KEY_EMPTY, dtype=torch.int64, device=dev) if reverse else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.knn_desc_launch(q.data_ptr(), q_mask.data_ptr(), t.data_ptr(),
-                                 t_mask.data_ptr(), B, Q, t.shape[1], D, k,
-                                 out_d.data_ptr(), out_i.data_ptr(), stream)
+                                 t_mask.data_ptr(), B, Q, T, D, k, int(reverse),
+                                 norms.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                                 None if keys is None else keys.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"knn_desc kernel launch failed: cudaError {rc}")
-    return out_d, out_i
+    return out_d, out_i, keys
+
+
+def _decode_keys(keys):
+    """(B, T) int64 reverse keys -> (d2 (B,T,1) float32, idx (B,T,1) int32)."""
+    d = (keys >> 32).to(torch.int32).view(torch.float32)
+    i = (keys & 0xFFFFFFFF).to(torch.int32)
+    return d[..., None], i[..., None]
 
 
 def _launch(q, q_mask, t, t_mask, q_row, t_row, k, drs):
@@ -167,12 +191,37 @@ def knn(q, q_mask, t, t_mask, k: int):
     if dev.type == "cpu":
         return knn_reference(q, q_mask, t, t_mask, k)
     if q.shape[2] > MAX_D:
-        out = _launch_desc(q, q_mask, t, t_mask, k)
+        d, i, _ = _launch_desc(q, q_mask, t, t_mask, k, reverse=False)
         knn.desc_launches += 1
-        return out
+        return d, i
     d, i, _, _ = _launch(q, q_mask, t, t_mask, None, None, k, None)
     knn.launches += 1
     return d, i
+
+
+def knn_mutual_reference(d1, m1, d2, m2):
+    """Plain PyTorch version of `knn_mutual`: two `knn_reference` calls."""
+    fd, fi = knn_reference(d1, m1, d2, m2, 2)
+    rd, ri = knn_reference(d2, m2, d1, m1, 1)
+    return fd, fi, rd, ri
+
+
+def knn_mutual(d1, m1, d2, m2):
+    """The two searches of mutual matching: knn(d1, m1, d2, m2, 2) and
+    knn(d2, m2, d1, m1, 1), in one launch of the descriptor kernel on the
+    card. d1 (B,N1,D), d2 (B,N2,D) float32 with 4 < D <= 128, masks bool.
+    Returns (d2 (B,N1,2), idx (B,N1,2), reverse d2 (B,N2,1), reverse idx
+    (B,N2,1)); the reverse search ties to the lower index of d1 and
+    leaves 1e30 / 0 where no valid row of d1 exists."""
+    dev = _check(d1, m1, d2, m2, 2)
+    _check(d2, m2, d1, m1, 1)
+    if d1.shape[2] <= MAX_D:
+        raise ValueError(f"knn_mutual takes descriptors (D > {MAX_D}), got D={d1.shape[2]}")
+    if dev.type == "cpu":
+        return knn_mutual_reference(d1, m1, d2, m2)
+    fd, fi, keys = _launch_desc(d1, m1, d2, m2, 2, reverse=True)
+    knn_mutual.launches += 1
+    return (fd, fi, *_decode_keys(keys))
 
 
 def knn_ring(q, q_mask, t, t_mask, q_row, t_row, k: int,
@@ -193,4 +242,5 @@ def knn_ring(q, q_mask, t, t_mask, q_row, t_row, k: int,
 
 knn.launches = 0
 knn.desc_launches = 0
+knn_mutual.launches = 0
 knn_ring.launches = 0

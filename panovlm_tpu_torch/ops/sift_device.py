@@ -16,6 +16,11 @@ bilinearly, which gives the same four taps. Top-k ties keep the lower index,
 as `lax.top_k` does (stable descending sort). The TPU chunking of the frame
 axis (2 frames above 4096 features) exists for TPU memory; here a chunk of
 frames is sized for the card (`frame_chunk`).
+
+The orientation histogram and the descriptor bins are scattered sums; they
+are summed in fixed point (`exact.scatter_sum`, int64 scatter-adds), so the descriptors are the same on every run: float
+`scatter_add_` on the card adds with atomics in a varying order (ROADMAP
+F8).
 """
 
 from __future__ import annotations
@@ -171,8 +176,7 @@ def _orientation_and_descriptor(gimg, yx, sigma, root_sift: bool):
 
     bins = torch.clamp(torch.floor((ang + math.pi) / (2 * math.pi) * N_ORI_BINS),
                        0, N_ORI_BINS - 1).long()
-    hist = torch.zeros((B, K, N_ORI_BINS), device=dev).scatter_add_(
-        2, bins.reshape(B, K, -1), magw.reshape(B, K, -1))
+    hist = exact.scatter_sum(N_ORI_BINS, [(bins.reshape(B, K, -1), magw.reshape(B, K, -1))])
     hist = exact.div_const(torch.roll(hist, 1, 2) + hist + torch.roll(hist, -1, 2), 3.0)
     peak = torch.argmax(hist, dim=2, keepdim=True)
     hl = torch.gather(hist, 2, (peak - 1) % N_ORI_BINS)[..., 0]
@@ -193,22 +197,24 @@ def _orientation_and_descriptor(gimg, yx, sigma, root_sift: bool):
     obf = (rang + math.pi) / (2 * math.pi) * DESC_BINS - 0.5
     cy0, cx0, ob0 = torch.floor(cyf), torch.floor(cxf), torch.floor(obf)
     fy, fx, fo = cyf - cy0, cxf - cx0, obf - ob0
-    d = torch.zeros((B, K, DESC_WIDTH * DESC_WIDTH * DESC_BINS), device=dev)
-    for dy_ in (0, 1):
-        wy = 1 - fy if dy_ == 0 else fy
-        iy = (cy0 + dy_).long()
-        in_y = (iy >= 0) & (iy < DESC_WIDTH)
-        for dx_ in (0, 1):
-            wx = 1 - fx if dx_ == 0 else fx
-            ix = (cx0 + dx_).long()
-            in_x = (ix >= 0) & (ix < DESC_WIDTH)
-            for do_ in (0, 1):
-                wo = 1 - fo if do_ == 0 else fo
-                io = torch.remainder(ob0.long() + do_, DESC_BINS)
-                w8 = magw * wy * wx * wo * (in_y & in_x)
-                idx = ((torch.clamp(iy, 0, DESC_WIDTH - 1) * DESC_WIDTH
-                        + torch.clamp(ix, 0, DESC_WIDTH - 1)) * DESC_BINS + io)
-                d.scatter_add_(2, idx.reshape(B, K, -1), w8.reshape(B, K, -1))
+
+    def corners():
+        for dy_ in (0, 1):
+            wy = 1 - fy if dy_ == 0 else fy
+            iy = (cy0 + dy_).long()
+            in_y = (iy >= 0) & (iy < DESC_WIDTH)
+            for dx_ in (0, 1):
+                wx = 1 - fx if dx_ == 0 else fx
+                ix = (cx0 + dx_).long()
+                in_x = (ix >= 0) & (ix < DESC_WIDTH)
+                for do_ in (0, 1):
+                    wo = 1 - fo if do_ == 0 else fo
+                    io = torch.remainder(ob0.long() + do_, DESC_BINS)
+                    w8 = magw * wy * wx * wo * (in_y & in_x)
+                    idx = ((torch.clamp(iy, 0, DESC_WIDTH - 1) * DESC_WIDTH
+                            + torch.clamp(ix, 0, DESC_WIDTH - 1)) * DESC_BINS + io)
+                    yield idx.reshape(B, K, -1), w8.reshape(B, K, -1)
+    d = exact.scatter_sum(DESC_WIDTH * DESC_WIDTH * DESC_BINS, corners())
     d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-12)
     d = torch.clamp_max(d, 0.2)
     d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-12)

@@ -9,6 +9,17 @@ plane-sweep volumes, over T texel offsets. On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it calls `volscore_reference`. Launches
 are counted in `volscore.launches`.
 
+The kernel (csrc/volscore.cu) stages each 32 x 8 pixel tile's rays and gray
+with their halo in shared memory, and computes every quantity once at the
+level it depends on: the bilateral factor per (pixel, texel), the plane
+depth, slice coordinate and the gray moments per (candidate, pixel, texel),
+only the hat sample and its three moments per (view, candidate, pixel,
+texel), with the block's slab of the volume staged in shared memory where
+it fits (the MVS stage's 16-slice sweep). The texel offsets travel by value
+in the launch (a host array, cached per offset list), so a launch copies
+nothing from the host to the card. The kernel takes at most 256 offsets
+within +-16 of the pixel.
+
 Inputs: vols (V,D,H,W) bfloat16 with unit column stride and row stride W
 (a slice subset such as vols[:, ::4] is taken as it is, through its
 strides); depth (C,H,W), nrm (C,3,H,W), rays (3,H,W), gray (H,W) float32
@@ -18,9 +29,24 @@ at inverse depth inv0 + k * inv_step, k = 0..D-1. Returns (V,C,H,W) float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
+
+MAX_TEXELS = 256   # csrc/volscore.cu MAX_T
+MAX_HALO = 16      # csrc/volscore.cu MAX_HALO
+_offset_arrays: dict = {}   # offsets tuple -> ctypes int32 array of (dv, du)
+
+
+def _offset_array(offsets):
+    arr = _offset_arrays.get(offsets)
+    if arr is None:
+        flat = [x for dv_du in offsets for x in dv_du]
+        arr = _offset_arrays[offsets] = (ctypes.c_int * len(flat))(*flat)
+    return arr
+
 
 def _check(vols, depth, nrm, rays, gray, offsets):
     if vols.dim() != 4 or vols.dtype != torch.bfloat16:
@@ -48,8 +74,13 @@ def _check(vols, depth, nrm, rays, gray, offsets):
             raise ValueError("the kernel takes contiguous depth/nrm/rays/gray")
         if vols.stride(3) != 1 or vols.stride(2) != W:
             raise ValueError("the kernel takes volumes with contiguous (H,W) slices")
-        if V * C > 65535 or H > 65535:
-            raise ValueError(f"V*C={V * C} or H={H} exceeds the kernel's grid")
+        if len(offsets) > MAX_TEXELS or max(max(abs(a), abs(b)) for a, b in offsets) > MAX_HALO:
+            raise ValueError(f"the kernel takes at most {MAX_TEXELS} texel offsets "
+                             f"within +-{MAX_HALO}")
+        if (max(V * C, 3 * C) * H * W >= 2**31 or H > 8 * 65535
+                or (D - 1) * vols.stride(1) + H * W >= 2**31):
+            raise ValueError("the kernel indexes with 32-bit offsets and takes "
+                             "H <= 524280: inputs too large")
     return dev
 
 
@@ -118,14 +149,13 @@ def volscore(vols, depth, nrm, rays, gray, offsets, inv0: float,
     lib = _build.load()
     V, D, H, W = vols.shape
     C = depth.shape[0]
-    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     out = torch.empty((V, C, H, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.volscore_launch(
             vols.data_ptr(), vols.stride(0), vols.stride(1), depth.data_ptr(),
             nrm.data_ptr(), rays.data_ptr(), gray.data_ptr(),
-            off.data_ptr(), len(offsets), V, C, D, H, W,
+            _offset_array(offsets), len(offsets), V, C, D, H, W,
             float(inv0), 1.0 / inv_step, float(dmin), float(dmax),
             1.0 / (2 * sigma_color ** 2), out.data_ptr(), stream)
     if rc != 0:

@@ -2,9 +2,10 @@
 panovlm_tpu/utils/sift.py (MatchSIFT and the pair filter of the reference,
 sfm/SfM.cpp:229-295), batched over pairs.
 
-The nearest-neighbour search goes through `ops/knn.knn`: on the card the
-descriptor KNN kernel (`csrc/knn_desc.cu`, top-2 forward, top-1 reverse),
-on the CPU its plain version. The JAX package's default path forms
+The nearest-neighbour search goes through `ops/knn.knn_mutual`: on the
+card one launch of the descriptor KNN kernel (`csrc/knn_desc.cu`) per batch
+of pairs gives the top-2 forward and the top-1 reverse search; on the CPU
+its plain version (two `knn_reference` calls). The JAX package's default path forms
 2 - 2 d1.d2 with an einsum; the kernel forms |d1|^2 + |d2|^2 - 2 d1.d2. For
 unit-norm (RootSIFT) descriptors the two differ only by rounding.
 
@@ -33,8 +34,7 @@ def match_descriptors(d1, m1, d2, m2, ratio: float = 0.6,
     (B, N2) bool. Returns dict idx (B, K, 2) int32 (feature in image 1,
     feature in image 2), mask (B, K), dist (B, K) with K = min(max_matches,
     N1); rows past the accepted matches are zero."""
-    d2_12, idx12 = knn_ops.knn(d1, m1, d2, m2, 2)
-    _, idx21 = knn_ops.knn(d2, m2, d1, m1, 1)
+    d2_12, idx12, _, idx21 = knn_ops.knn_mutual(d1, m1, d2, m2)
     best = torch.clamp_max(d2_12[..., 0], BIG)
     second = torch.clamp_max(d2_12[..., 1], BIG)
     j1 = idx12[..., 0].long()

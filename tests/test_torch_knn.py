@@ -14,7 +14,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from panovlm_tpu.ops.pallas.knn import knn_pallas_batched, knn_ring_pallas_batched
+from panovlm_tpu.ops.pallas.knn import (knn_pallas_batched, knn_reference,
+                                        knn_ring_pallas_batched)
 from panovlm_tpu_torch.ops import knn as tknn
 
 torch.set_num_threads(2)
@@ -92,6 +93,40 @@ def test_masked_rows_and_short_targets():
     assert (d[:, 10:] >= 1e29).all() and (i[:, 10:] == 0).all()
     assert (d[:, :10, :3] < 1e29).all()
     assert (d[:, :10, 3:] >= 1e29).all() and (i[:, :10, 3:] == 0).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_knn_mutual_reference_matches_jax_forward_and_reverse(seed):
+    """`knn_mutual` on the CPU (its plain version) against the JAX package's
+    `knn_reference` called forward with k = 2 and reverse with k = 1, on
+    unit non-negative (RootSIFT-like) descriptors at D = 128 with masked
+    rows on both sides. Indices must be equal on every valid slot except
+    near-ties (two float64 distances of the row within 1e-5, where the
+    float32 rounding of either side may order them either way); d2 within
+    rtol/atol 1e-5. Masked rows: 1e30 in both."""
+    rng = np.random.default_rng(seed)
+    Bn, N1, N2 = 2, 300, 260
+    t = np.abs(rng.normal(size=(Bn, N2, 128))).astype(np.float32)
+    q = t[:, rng.integers(0, N2, N1)] + 0.3 * np.abs(rng.normal(size=(Bn, N1, 128)))
+    q = q.astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    qm, tm = rng.random((Bn, N1)) > 0.1, rng.random((Bn, N2)) > 0.1
+    out = tknn.knn_mutual(*(torch.from_numpy(a) for a in (q, qm, t, tm)))
+    for b in range(Bn):
+        for (d, i), (x, xm, y, ym), k in (((out[0], out[1]), (q, qm, t, tm), 2),
+                                          ((out[2], out[3]), (t, tm, q, qm), 1)):
+            d_j, i_j = (np.asarray(a) for a in knn_reference(
+                jnp.asarray(x[b]), jnp.asarray(xm[b]), jnp.asarray(y[b]),
+                jnp.asarray(ym[b]), k=k))
+            d_p, i_p = d[b].numpy(), i[b].numpy()
+            valid = d_j < 1e29
+            assert ((d_p >= 1e29) == ~valid).all()
+            np.testing.assert_allclose(d_p[valid], d_j[valid], rtol=1e-5, atol=1e-5)
+            full = ((x[b].astype(np.float64)[:, None] - y[b][None]) ** 2).sum(-1)
+            rows, slots = np.nonzero(valid & (i_p != i_j))
+            gap = np.abs(full[rows, i_p[rows, slots]] - full[rows, i_j[rows, slots]])
+            assert (gap <= 1e-5).all(), gap.max()
 
 
 @pytest.mark.parametrize("bad", ["dim", "k", "dtype", "mask"])

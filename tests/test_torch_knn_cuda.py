@@ -8,7 +8,9 @@ test conftest's fixtures, so it runs on a machine without JAX:
 
 Tolerance: d2 within rtol 1e-5 and atol 1e-5 (FMA order in the kernel,
 matmul order in the plain version); indices equal except on near-ties,
-where two distances of a row differ by <= 1e-5 * max(1, d2).
+where two distances of a row differ by <= 1e-5 * max(1, d2). The fused
+descriptor search (knn_mutual) is held against two plain searches by the
+same rule, and two launches on the same inputs must agree bit for bit.
 """
 
 import numpy as np
@@ -125,3 +127,31 @@ def test_knn_descriptor_kernel_matches_plain_version(cuda_device, k, shape):
         ok = ~_near_tie_mask(d_k1, k)
         assert torch.equal(i[sl][ok], i_ref[ok])
     assert (d[~qm] >= 1e29).all() and (i[~qm] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 517, 1203, 128), (2, 300, 130, 64), (2, 8096, 8096, 128)])
+def test_knn_mutual_matches_two_plain_searches(cuda_device, shape):
+    """Forward top-2 and reverse top-1 from one launch; Q and T not
+    multiples of the 128 x 64 tile, masked rows on both sides."""
+    B, Qn, Tn, D = shape
+    q, qm, t, tm = (torch.from_numpy(a).to(cuda_device)
+                    for a in _descriptors(Qn + Tn, B, Qn, Tn, D))
+    n0, n1 = tknn.knn_mutual.launches, tknn.knn.desc_launches
+    out = tknn.knn_mutual(q, qm, t, tm)
+    again = tknn.knn_mutual(q, qm, t, tm)
+    assert (tknn.knn_mutual.launches, tknn.knn.desc_launches) == (n0 + 2, n1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    fd, fi, rd, ri = out
+    for b in range(B):
+        sl = slice(b, b + 1)
+        for (d, i), (x, xm, y, ym), k in (((fd, fi), (q, qm, t, tm), 2),
+                                          ((rd, ri), (t, tm, q, qm), 1)):
+            d_ref, i_ref = tknn.knn_reference(x[sl], xm[sl], y[sl], ym[sl], k)
+            d_k1, _ = tknn.knn_reference(x[sl], xm[sl], y[sl], ym[sl], k + 1)
+            torch.testing.assert_close(d[sl], d_ref, rtol=1e-5, atol=1e-5)
+            ok = ~_near_tie_mask(d_k1, k)
+            assert torch.equal(i[sl][ok], i_ref[ok])
+    assert (fd[~qm] >= 1e29).all() and (fi[~qm] == 0).all()
+    assert (rd[~tm] >= 1e29).all() and (ri[~tm] == 0).all()

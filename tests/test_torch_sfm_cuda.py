@@ -16,7 +16,8 @@ that rounding of each other. Relative poses from the same
 matches and draws agree within 1e-3 rad / 1e-3 (batched SVD, eigh and 3x3
 inverses run on cuSOLVER / in another order on the card); the
 Schur global BA within 1e-3; device SIFT puts at least 95 % of keypoints
-within 0.01 px of the CPU's.
+within 0.01 px of the CPU's. Device SIFT, the VLAD proposal and matching
+give the same bits on two runs (ROADMAP F8).
 """
 
 import numpy as np
@@ -24,7 +25,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation as ScR
 
-from panovlm_tpu_torch.models import sfm
+from panovlm_tpu_torch.models import sfm, vlad
 from panovlm_tpu_torch.ops import sift_device
 from panovlm_tpu_torch.utils import tracks
 
@@ -123,3 +124,21 @@ def test_device_sift_card_vs_cpu(cuda_device):
     a, b = uv_c[v_c], uv_g[v_g]
     dist = np.linalg.norm(a[:, None] - b[None], axis=-1).min(axis=1)
     assert (dist < 0.01).mean() >= 0.95
+
+
+@pytest.mark.cuda
+def test_device_sift_vlad_and_matching_are_reproducible(cuda_device):
+    import synthetic
+    grays = np.stack([synthetic.render_panorama(np.array([0.3 * i, 0.1, 0.2]), 128, 256)[0]
+                      for i in range(4)])
+    cfg = sfm.SfMConfig(contiguous_window=2, max_matches=512)
+    runs = []
+    for _ in range(2):
+        uv, desc, fm = sift_device.extract_sift_device_batch(grays, num_features=1024,
+                                                             device=cuda_device)
+        d, m = torch.from_numpy(desc).to(cuda_device), torch.from_numpy(fm).to(cuda_device)
+        pi, pj, emb = vlad.vlad_pairs(d, m, n_neighbors=2, n_centers=16, sample=2000)
+        mm = sfm.match_all_pairs(d, m, pi, pj, cfg)
+        runs.append([uv, desc, fm, pi, pj, emb] + [v.cpu().numpy() for v in mm.values()])
+    for a, b in zip(*runs):
+        assert np.array_equal(a, b)

@@ -9,7 +9,8 @@ Tolerance: atol 2e-4 on the costs in [0, 2], the bound the JAX package holds
 its Pallas kernel to against the XLA path (tests/test_mvs.py). The kernel
 and the plain version take the same two slices with the same weights, and
 the kernel rounds each operation as the plain version's CUDA kernels do
-(csrc/volscore.cu), so on the H100 they agree bit for bit.
+(csrc/volscore.cu), so on the H100 they agree bit for bit. Two launches
+on the same inputs must agree bit for bit (no atomics, fixed order).
 """
 
 import numpy as np
@@ -70,3 +71,27 @@ def test_volscore_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         vs.volscore(vols, depth, nrm.transpose(2, 3), rays, gray, [(0, 0)],
                     0.1, 0.1, 0.5, 10.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V, C, D, H, W, hw, step, stride", [
+    (4, 3, 12, 21, 45, 6, 2, 1),    # ragged 32 x 8 tiles in both axes
+    (2, 9, 12, 37, 83, 3, 1, 3),    # the ranking kernel shape (V <= 2), strided slices
+    (3, 2, 12, 5, 7, 6, 3, 1),      # window wider than the image: rows and columns wrap twice
+    (4, 2, 64, 21, 45, 3, 1, 1),    # slab over 100 KB: slices read from device memory
+    (6, 2, 12, 21, 45, 3, 1, 1),    # more views than one pass holds: two view chunks
+])
+def test_volscore_ragged_tiles_wrap_and_determinism(cuda_device, V, C, D, H, W, hw, step,
+                                                    stride):
+    vols, depth, nrm, rays, gray = _inputs(cuda_device, V, C, D, H, W, seed=H)
+    cfg = pm.PatchMatchConfig(ncc_half_window=hw, ncc_step=step, min_depth=0.5,
+                              max_depth=10.0, sweep_slices=D)
+    inv0, inv_step = pm._inv_grid(cfg, stride)
+    args = (vols[:, ::stride], depth, nrm, rays, gray, pm._patch_offsets(cfg), inv0,
+            inv_step, cfg.min_depth, cfg.max_depth)
+    out = vs.volscore(*args)
+    again = vs.volscore(*args)
+    ref = vs.volscore_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-4)
