@@ -12,9 +12,12 @@ Run from the root of a checkout. Phases, each fatal on failure:
      script waits for the renders (the MVS and the SfM panoramas) and stops
      the workers, so that every later phase runs on an otherwise idle host;
   3. kernel vs plain, timed with CUDA events (median of 10 after warm-up):
-     - each KNN kernel at the association shapes (B=256 pairs; point->line
-       Q=T=1024, k=5; point->plane Q=512, T=4096, k=10 with ring offsets
-       +-1, +-2): indices equal except on near-ties, d2 within rtol/atol 1e-5;
+     - each KNN kernel at the association shapes on random clouds (B=256
+       pairs, 90 % of the points valid; point->line Q=T=1024, k=5;
+       point->plane Q=512, T=4096, k=10 with ring offsets +-1, +-2, the
+       target ring ids sorted within each pair as the stage's are):
+       indices equal except on near-ties, d2 within rtol/atol 1e-5, two
+       launches bit-equal;
      - the plane-sweep NCC kernel at the Room MVS shapes, 720 x 1440: full
        scoring V=4 views, C=2 candidates, T=49 texels (7x7), D=64 slices;
        candidate ranking V=2, C=16, T=5, every 4th slice (D=16); both again
@@ -24,8 +27,14 @@ Run from the root of a checkout. Phases, each fatal on failure:
      in-process) on a synthetic Room-454 dataset (tests/synthetic.py, the
      loop trajectory of _room_scale.sh, 16 rings x 1800 azimuths), checked
      against ground truth (consecutive-scan distance error < 0.05 m in both
-     pose files) and for kernel launches on that path;
-  5. the MVS stage (`python -m panovlm_tpu_torch joint_mvs`, in-process) on
+     pose files) and for kernel launches on that path (one knn and one
+     knn_ring launch per association round); the arguments of the first
+     knn and knn_ring calls are kept on the card;
+  5. K1 and K2 on those arguments (the first association round, B = its
+     pair count, ~3,500): as in phase 3, with the plain version and the
+     library call run in chunks of 256 pairs and timed as the sum over the
+     chunks; prints the valid shares of queries, targets and pairs;
+  6. the MVS stage (`python -m panovlm_tpu_torch joint_mvs`, in-process) on
      the first --mvs-frames frames of the same loop: 2880 x 5760 panoramas
      rendered by tests/synthetic.render_panorama, written as PNG, read at
      scale -2 (720 x 1440) with the Room MVS keys (configs/Room.txt:75-87;
@@ -35,12 +44,12 @@ Run from the root of a checkout. Phases, each fatal on failure:
      depth error < 0.08 in rows H/4..3H/4 (the bound of
      tests/test_pipeline_cli_late.py), a floor on the share of that band
      with a depth, and K3 launches;
-  6. K3 against its plain version at the shapes phase 5 launched it with:
+  7. K3 against its plain version at the shapes phase 6 launched it with:
      the sweep range and slice count that the stage's range fit chose (read
      from its log), full scoring at C=2, the initial scoring at C=1 and the
      ranking on every 4th slice, max |kernel - plain| <= 2e-4, two launches
      bit-equal;
-  7. the SfM stage (`python -m panovlm_tpu_torch init_camera_pose`,
+  8. the SfM stage (`python -m panovlm_tpu_torch init_camera_pose`,
      in-process) on --sfm-frames frames of the same loop, every 6th (frames
      0, 6, ..., 282 by default: ~1.55 laps), panoramas rendered straight at
      the working size 720 x 1440 (scale 0), the scans of those frames with
@@ -53,21 +62,25 @@ Run from the root of a checkout. Phases, each fatal on failure:
      and the VLAD proposal twice more on the same frames: descriptors,
      embeddings and pairs bit-equal to each other and to the stage's
      (ROADMAP F8);
-  8. K1 at D = 128 (csrc/knn_desc.cu, `knn_mutual`: forward top-2 and
+  9. K1 at D = 128 (csrc/knn_desc.cu, `knn_mutual`: forward top-2 and
      reverse top-1 in one launch) against two plain searches on the stage's
      own descriptors: the first pairs it matched, at the batch the stage
      launches, Q = T = num_sift, and a ragged cut (Q = 5000, T = 7001, more
      rows masked); two launches bit-equal.
---only-sfm runs phases 1-2, 7 and 8 alone (for iterating on the SfM slice).
-Prints the card line, the kernel table as one JSON line, then, as the last
-line, {"ok": true, "device": {...}}. In the kernel table, volscore's times
-and bound are those of the D=64 full-scoring shape of phase 3 and
-knn_desc's those of the fused search at the stage's batch, their
-max_abs_err the largest over their shapes, and their "shapes" lists hold
-each shape's numbers, with the bound of the PR 3 operation count beside
-the recounted one (`bound_ms_pr3`). Exits non-zero without that line when
-there is no CUDA device or a phase fails. --profile-mvs wraps phase 5 in
-torch.profiler and writes its kernel table to chiprun_out/mvs_profile.txt.
+--only-sfm runs phases 1-2, 8 and 9 alone (for iterating on the SfM
+slice). Prints the card line, the kernel table as one JSON line, then, as
+the last line, {"ok": true, "device": {...}}. In the kernel table, the
+headline numbers of knn and knn_ring are those at the odometry stage's
+inputs (phase 5), volscore's those of the D=64 full-scoring shape of phase
+3 and knn_desc's those of the fused search at the stage's batch; each
+row's max_abs_err is the largest over its shapes, and its "shapes" list
+holds each shape's numbers, with the bound of an earlier operation count
+beside the current one (`bound_ms_pr3` for volscore and knn_desc;
+`bound_ms_pr4` for knn and knn_ring, counting every point and every one
+of the B*Q*T pairs, where their bound counts only the valid points'
+coordinates and the valid pairs). Exits non-zero without that line
+when there is no CUDA device or a phase fails. --profile-mvs wraps phase 6
+in torch.profiler and writes its kernel table to chiprun_out/mvs_profile.txt.
 """
 
 from __future__ import annotations
@@ -150,16 +163,95 @@ def _check_slots(name, d, i, d_ref, i_ref, d2_full):
     return float((d - d_ref).abs().max()), n_ties
 
 
-def _knn_bound(B, Q, T, D, k, ring):
-    """Bytes: points and masks read once, (d2, idx) (+ ring outputs) written
-    once; operations: 3D+3 per (query, target) pair (|q|^2 + |t|^2 - 2 q.t
-    and one top-k compare), one more for the ring minimum."""
+def knn_valid_counts(q_mask, t_mask):
+    """(valid queries, valid targets, valid pairs) over the batch; the
+    pairs are the sum of |valid queries_b| x |valid targets_b|, whose
+    distances the function needs (a masked pair's output, 1e30, is known
+    without one), and only valid points' coordinates need to be read."""
+    import torch
+    nq, nt = q_mask.sum(1).double(), t_mask.sum(1).double()
+    return int(nq.sum()), int(nt.sum()), int(torch.sum(nq * nt))
+
+
+def _knn_bound(B, Q, T, D, k, ring, valid=None):
+    """Bytes: both masks and the valid points' coordinates (+ ring ids) read
+    once, (d2, idx) (+ ring outputs) written once for every query;
+    operations: 3D+3 per valid (query, target) pair (|q|^2 + |t|^2 - 2 q.t
+    and one top-k compare), one more for the ring minimum. `valid` is
+    knn_valid_counts(); with None every point and every one of the B*Q*T
+    pairs counts (the earlier count, kept as `bound_ms_pr4`)."""
+    n_q, n_t, pairs = (B * Q, B * T, B * Q * T) if valid is None else valid
     n_out = k + (4 if ring else 0)
-    n_bytes = B * (Q + T) * (4 * D + 1 + (4 if ring else 0)) + B * Q * n_out * 8
-    return bound_ms(n_bytes, B * Q * T * (3 * D + 3 + (1 if ring else 0)))
+    n_bytes = (B * (Q + T) + (n_q + n_t) * (4 * D + (4 if ring else 0))
+               + B * Q * n_out * 8)
+    return bound_ms(n_bytes, pairs * (3 * D + 3 + (1 if ring else 0)))
+
+
+KNN_CHUNK = 256   # pairs per plain-version and library call (phase 3's B)
+
+
+def knn_case(torch, knn_mod, name, args, k, label):
+    """K1 (args q, q_mask, t, t_mask) or K2 (args + q_row, t_row, ring
+    offsets +-1, +-2) against its plain version: two launches bit-equal,
+    d2 within rtol/atol 1e-5 and indices equal except on near-ties. The
+    plain version and the library call (cdist + topk) run on chunks of
+    KNN_CHUNK pairs (at the stage's batch they would need tens of GB at
+    once); their times are the sums over the chunks. Returns the row."""
+    ring = len(args) == 6
+    q, qm, t, tm = args[:4]
+    B, Q, D = q.shape
+    T = t.shape[1]
+    kernel = knn_mod.knn_ring if ring else knn_mod.knn
+    plain = knn_mod.knn_ring_reference if ring else knn_mod.knn_reference
+    out, again = kernel(*args, k), kernel(*args, k)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"{name} [{label}]: two launches on the same inputs differ")
+    del again
+    chunks = [slice(b0, min(B, b0 + KNN_CHUNK)) for b0 in range(0, B, KNN_CHUNK)]
+    errs, ties = [0.0], 0
+    for sl in chunks:
+        part = [a[sl] for a in args]
+        ref = plain(*part, k)
+        d2_full = knn_mod._dist2(*part[:4])
+        for what, j in (("top-k", 0), ("rings", 2))[:2 if ring else 1]:
+            e, n = _check_slots(f"{name} {what} [{label}]", out[j][sl], out[j + 1][sl],
+                                ref[j], ref[j + 1], d2_full)
+            errs.append(e)
+            ties += n
+        del ref, d2_full
+    del out
+    torch.cuda.empty_cache()
+    valid = knn_valid_counts(qm, tm)
+    pairs = valid[2]
+    b_ms, b_by = _knn_bound(B, Q, T, D, k, ring, valid)
+    b4_ms, _ = _knn_bound(B, Q, T, D, k, ring)
+    row = dict(
+        max_abs_err=max(errs), near_ties=ties,
+        ms=_time_ms(lambda: kernel(*args, k)),
+        plain_ms=sum(_time_ms(lambda: plain(*[a[sl] for a in args], k), reps=3)
+                     for sl in chunks),
+        library_ms=sum(_time_ms(lambda: torch.topk(torch.cdist(q[sl], t[sl]), k,
+                                                    largest=False), reps=3)
+                       for sl in chunks),
+        bound_ms=b_ms, bound_by=b_by, bound_ms_pr4=b4_ms,
+        valid_queries=float(qm.float().mean()), valid_targets=float(tm.float().mean()),
+        valid_pairs=pairs / (B * Q * T),
+        shape=f"B={B} Q={Q} T={T} D={D} k={k}{' rings=4' if ring else ''} ({label})")
+    chunked = f" in {len(chunks)} chunks of {KNN_CHUNK} pairs" if len(chunks) > 1 else ""
+    log(f"kernel {name} [{row['shape']}]: valid queries {row['valid_queries']:.4f}, "
+        f"valid targets {row['valid_targets']:.4f}, valid pairs {row['valid_pairs']:.4f}; "
+        f"max |d2 - plain| {row['max_abs_err']:.3g}, near-tie index swaps {ties}, repeat "
+        f"bit-equal, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms{chunked}, "
+        f"cdist+topk {row['library_ms']:.3f} ms{chunked}, bound {b_ms:.4f} ms ({b_by}; "
+        f"counting every point and pair {b4_ms:.4f} ms)")
+    return row
 
 
 def knn_vs_plain(torch, knn_mod):
+    """Phase 3's KNN part: K1 and K2 at the association shapes, B = 256
+    pairs of random clouds with 90 % of the points valid, interleaved; K2's
+    target ring ids sorted within each pair, as gather_masked orders them."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B = 256
@@ -170,47 +262,28 @@ def knn_vs_plain(torch, knn_mod):
     def mask(n):
         return torch.rand((B, n), generator=g, device=dev) > 0.1
 
-    rows = {}
-    # K1 at the point->line shape
-    q, t = cloud(1024), cloud(1024)
-    qm, tm = mask(1024), mask(1024)
-    d, i = knn_mod.knn(q, qm, t, tm, 5)
-    d_ref, i_ref = knn_mod.knn_reference(q, qm, t, tm, 5)
-    torch.cuda.synchronize()
-    d2_full = knn_mod._dist2(q, qm, t, tm)
-    err, ties = _check_slots("knn", d, i, d_ref, i_ref, d2_full)
-    del d2_full
-    b_ms, b_by = _knn_bound(B, 1024, 1024, 3, 5, False)
-    rows["knn"] = dict(
-        max_abs_err=err, near_ties=ties,
-        ms=_time_ms(lambda: knn_mod.knn(q, qm, t, tm, 5)),
-        plain_ms=_time_ms(lambda: knn_mod.knn_reference(q, qm, t, tm, 5)),
-        library_ms=_time_ms(lambda: torch.topk(torch.cdist(q, t), 5, largest=False)),
-        bound_ms=b_ms, bound_by=b_by, shape="B=256 Q=1024 T=1024 D=3 k=5")
-    # K2 at the point->plane shape
+    rows = {"knn": knn_case(torch, knn_mod, "knn",
+                            (cloud(1024), mask(1024), cloud(1024), mask(1024)), 5, "random")}
     q, t = cloud(512), cloud(4096)
     qm, tm = mask(512), mask(4096)
     qr = torch.randint(0, 16, (B, 512), generator=g, device=dev, dtype=torch.int32)
-    tr = torch.randint(0, 16, (B, 4096), generator=g, device=dev, dtype=torch.int32)
-    out = knn_mod.knn_ring(q, qm, t, tm, qr, tr, 10)
-    ref = knn_mod.knn_ring_reference(q, qm, t, tm, qr, tr, 10)
-    torch.cuda.synchronize()
-    d2_full = knn_mod._dist2(q, qm, t, tm)
-    err1, t1 = _check_slots("knn_ring top-k", out[0], out[1], ref[0], ref[1], d2_full)
-    err2, t2 = _check_slots("knn_ring rings", out[2], out[3], ref[2], ref[3], d2_full)
-    del d2_full
-    b_ms, b_by = _knn_bound(B, 512, 4096, 3, 10, True)
-    rows["knn_ring"] = dict(
-        max_abs_err=max(err1, err2), near_ties=t1 + t2,
-        ms=_time_ms(lambda: knn_mod.knn_ring(q, qm, t, tm, qr, tr, 10)),
-        plain_ms=_time_ms(lambda: knn_mod.knn_ring_reference(q, qm, t, tm, qr, tr, 10)),
-        library_ms=_time_ms(lambda: torch.topk(torch.cdist(q, t), 10, largest=False)),
-        bound_ms=b_ms, bound_by=b_by, shape="B=256 Q=512 T=4096 D=3 k=10 rings=4")
-    for name, r in rows.items():
-        log(f"kernel {name} [{r['shape']}]: max |d2 - plain| {r['max_abs_err']:.3g}, "
-            f"near-tie index swaps {r['near_ties']}, kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, cdist+topk {r['library_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    tr = torch.randint(0, 16, (B, 4096), generator=g, device=dev,
+                       dtype=torch.int32).sort(dim=1).values
+    rows["knn_ring"] = knn_case(torch, knn_mod, "knn_ring", (q, qm, t, tm, qr, tr), 10,
+                                "random")
+    return rows
+
+
+def knn_at_stage(torch, knn_mod, captured):
+    """Phase 5: K1 and K2 on the arguments of their first launch in the
+    odometry stage (the first association round, B = its pair count)."""
+    rows = {}
+    for name, nargs in (("knn", 4), ("knn_ring", 6)):
+        args = captured[name]
+        if name == "knn_ring" and tuple(args[7]) != knn_mod.RING_OFFSETS:
+            fail(f"knn_ring was called with ring offsets {args[7]}")
+        rows[name] = knn_case(torch, knn_mod, name, tuple(args[:nargs]), args[nargs],
+                              "odometry stage, round 0")
     return rows
 
 
@@ -414,11 +487,36 @@ def make_room(root: str, n: int, seed: int = 0):
     return cfg, poses, sum(len(s) for s in scans) / n
 
 
+class _FirstCall:
+    """Wraps the KNN functions that models/association.py imports and keeps
+    a device copy of the arguments of each one's first call."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.args = module, names, {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for name, fn in self.saved.items():
+            def wrapped(*a, _name=name, _fn=fn):
+                if _name not in self.args:
+                    self.args[_name] = [x.clone() if hasattr(x, "clone") else x for x in a]
+                return _fn(*a)
+            setattr(self.module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
 def run_odometry(torch, knn_mod, n_scans: int):
+    """Phase 4. Returns (kernel launches, the arguments of the first knn and
+    knn_ring calls)."""
     import numpy as np
     from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
     from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import association
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_room_") as root:
         t0 = time.time()
@@ -430,7 +528,8 @@ def run_odometry(torch, knn_mod, n_scans: int):
         knn_mod.knn.launches = 0
         knn_mod.knn_ring.launches = 0
         t0 = time.time()
-        rc = port_main(["init_lidar_pose", cfg_path, "--device", "cuda"], infos=infos)
+        with _FirstCall(association, ("knn", "knn_ring")) as first:
+            rc = port_main(["init_lidar_pose", cfg_path, "--device", "cuda"], infos=infos)
         wall = time.time() - t0
         launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
         if rc != 0:
@@ -441,9 +540,14 @@ def run_odometry(torch, knn_mod, n_scans: int):
             log(f"odometry round {r}: {info['pairs']} pairs, cost "
                 f"{info['initial_cost']:.6g} -> {info['final_cost']:.6g}, "
                 f"{info['iterations']} LM iterations")
-        log(f"kernel launches on the odometry path: {launches}")
+        log(f"kernel launches on the odometry path: {launches} in {len(infos)} "
+            f"association rounds")
         if min(launches.values()) <= 0:
             fail(f"a kernel of the odometry path was not launched: {launches}")
+        if set(launches.values()) != {len(infos)}:
+            fail(f"launches {launches} differ from the {len(infos)} association rounds")
+        if set(first.args) != {"knn", "knn_ring"}:
+            fail(f"the stage's KNN calls were not captured: {sorted(first.args)}")
 
         cfg = load_config(cfg_path)
         for name in ("lidar_pose_refined.txt", "lidar_center_refined.pcd",
@@ -464,11 +568,11 @@ def run_odometry(torch, knn_mod, n_scans: int):
                 f"max {err.max() * 1000:.2f} mm, median {np.median(err) * 1000:.2f} mm")
             if not err.max() < 0.05:
                 fail(f"{name}: error {err.max():.4f} m >= 0.05 m at scan {int(err.argmax())}")
-    return launches
+    return launches, first.args
 
 
 # ----------------------------------------------------------------------------
-# phase 5: the MVS stage on the same loop
+# phase 6: the MVS stage on the same loop
 # ----------------------------------------------------------------------------
 
 ROOM_MVS_KEYS = """\
@@ -565,7 +669,7 @@ class _RangeFit(logging.Handler):
 
 
 def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
-    """Phase 5. Returns (K3 launches, the PatchMatchConfig of the sweep the
+    """Phase 6. Returns (K3 launches, the PatchMatchConfig of the sweep the
     stage ran)."""
     import numpy as np
     from panovlm_tpu_torch.__main__ import main as port_main
@@ -651,7 +755,7 @@ def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
 
 
 # ----------------------------------------------------------------------------
-# phases 7-8: the SfM stage on every 6th frame of the loop, then K1 at D = 128
+# phases 8-9: the SfM stage on every 6th frame of the loop, then K1 at D = 128
 # ----------------------------------------------------------------------------
 
 ROOM_SFM_KEYS = """\
@@ -730,7 +834,7 @@ def sfm_pose_errors(path, gt):
 
 
 def run_sfm(torch, knn_mod, cfg_path, gt):
-    """Phase 7. Returns (K1-D128 launches, the stage's match batch, config)."""
+    """Phase 8. Returns (K1-D128 launches, the stage's match batch, config)."""
     import numpy as np
     from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
@@ -864,7 +968,7 @@ def knn_mutual_bound(B, Q, T, D, pr3: bool = False):
 
 
 def knn_mutual_vs_plain(torch, knn_mod, cfg, B):
-    """Phase 8: K1 at D = 128, the fused forward top-2 + reverse top-1, on
+    """Phase 9: K1 at D = 128, the fused forward top-2 + reverse top-1, on
     the stage's first B proposed pairs (Q = T = num_sift) and on a ragged
     cut of them (Q = 5000, T = 7001 with a fifth of the rows masked more),
     against two plain searches; every launch twice, bit-equal."""
@@ -935,6 +1039,16 @@ def write_profile(prof, wall):
     log(table)
 
 
+def with_shapes(main, parts, **extra):
+    """A kernel's row of the JSON line: the headline shape's numbers, the
+    largest error over its shapes and each shape's numbers."""
+    return dict(main, max_abs_err=max(r["max_abs_err"] for r in parts), **extra,
+                shapes=[{"shape": r["shape"], **{k: r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "bound_ms_pr3", "bound_ms_pr4") if k in r}}
+                    for r in parts])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=454)
@@ -985,11 +1099,12 @@ def main():
         regs = {}
         for line in _build.build_log.splitlines():   # ptxas: entry, then its properties
             if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
                 kernel = next(k for k in ("volscore", "knn_desc", "knn") if k in line)
             elif "Used" in line and "registers" in line:
                 regs.setdefault(kernel, []).append(int(line.split("Used")[1].split()[0]))
             elif "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
-                log(f"  spills: {line.strip()}")
+                log(f"  spills in {entry}: {line.strip()}")
         for kernel, r in regs.items():
             log(f"  {kernel}: {len(r)} instantiation(s), {min(r)}-{max(r)} registers per thread")
 
@@ -1003,7 +1118,7 @@ def main():
         log(f"SfM dataset: {args.sfm_frames} panoramas at {SFM_HW}; renders ready "
             f"{time.time() - t0:.1f} s after the build")
 
-        rows, vrows, launches = {}, {}, {}
+        rows, launches = {}, {}
         if not args.only_sfm:
             # 3. kernel vs plain
             rows = knn_vs_plain(torch, knn_mod)
@@ -1012,22 +1127,33 @@ def main():
                 sweep_slices=64))
 
             # 4. the odometry stage
-            launches = run_odometry(torch, knn_mod, args.scans)
+            launches, captured = run_odometry(torch, knn_mod, args.scans)
 
-            # 5. the MVS stage
+            # 5. K1 and K2 on the stage's own inputs
+            t0 = time.time()
+            for name, row in knn_at_stage(torch, knn_mod, captured).items():
+                rows[name] = with_shapes(row, [rows[name], row])
+            del captured
+            torch.cuda.empty_cache()
+            log(f"phase 5 (K1 and K2 at the stage's inputs): {time.time() - t0:.1f} s")
+
+            # 6. the MVS stage
             launches["volscore"], pm_run = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
                                                    args.profile_mvs)
 
-            # 6. K3 at the shapes of phase 5
+            # 7. K3 at the shapes of phase 6
             vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
+            rows["volscore"] = with_shapes(vrows["full"], list(vrows.values()),
+                                           library_ms=None)
 
-        # 7. the SfM stage, then its reproducibility (F8)
+        # 8. the SfM stage, then its reproducibility (F8)
         launches["knn_desc"], match_batch, sfm_config = run_sfm(torch, knn_mod, sfm_cfg,
                                                                 sfm_gt)
         sfm_reproducibility(torch, sfm_config)
 
-        # 8. K1 at D = 128 on the stage's descriptors
+        # 9. K1 at D = 128 on the stage's descriptors
         drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
+        rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
     finally:
         pool.terminate()
         pool.join()
@@ -1040,15 +1166,6 @@ def main():
         fail(f"jax or the JAX package was imported: {leaked}")
     log(f"whole script {time.time() - t_start:.1f} s")
 
-    def with_shapes(main, parts, **extra):
-        return dict(main, max_abs_err=max(r["max_abs_err"] for r in parts), **extra,
-                    shapes=[{"shape": r["shape"], **{k: r[k] for k in (
-                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                        "bound_ms_pr3") if k in r}}
-                        for r in parts])
-    if vrows:
-        rows["volscore"] = with_shapes(vrows["full"], list(vrows.values()), library_ms=None)
-    rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
     src = {"knn": "csrc/knn.cu", "knn_ring": "csrc/knn.cu", "volscore": "csrc/volscore.cu",
            "knn_desc": "csrc/knn_desc.cu"}
     replaces = {"knn": "panovlm_tpu/ops/pallas/knn.py:30",

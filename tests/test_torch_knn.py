@@ -17,6 +17,7 @@ import torch
 from panovlm_tpu.ops.pallas.knn import (knn_pallas_batched, knn_reference,
                                         knn_ring_pallas_batched)
 from panovlm_tpu_torch.ops import knn as tknn
+from knn_layouts import stage_layout
 
 torch.set_num_threads(2)
 
@@ -68,6 +69,36 @@ def test_knn_ring_reference_matches_pallas():
     # absent ring slots: 1e30 and index 0 in both
     absent = np.asarray(rd_pl) >= 1e29
     assert (np.asarray(ri)[absent] == 0).all() and (np.asarray(ri_pl)[absent] == 0).all()
+
+
+@pytest.mark.parametrize("k", [5, 10])
+def test_knn_reference_matches_pallas_on_the_stage_layout(k):
+    """Queries as picks_to_buffer lays them out (interleaved invalid picks,
+    a masked tail), targets as gather_masked does (a valid prefix ordered by
+    ring, a zero-filled masked tail)."""
+    q, qm, t, tm, _, _ = stage_layout(20 + k, B, Q, T)
+    d_pl, i_pl = knn_pallas_batched(jnp.asarray(q), jnp.asarray(qm), jnp.asarray(t),
+                                    jnp.asarray(tm), k=k, interpret=True)
+    d, i = tknn.knn(torch.from_numpy(q), torch.from_numpy(qm), torch.from_numpy(t),
+                    torch.from_numpy(tm), k)
+    _assert_match(d_pl, i_pl, d, i)
+    assert (d[torch.from_numpy(~qm)] >= 1e29).all()
+
+
+def test_knn_ring_reference_matches_pallas_on_the_stage_layout():
+    q, qm, t, tm, qr, tr = stage_layout(31, B, Q, T)
+    d_pl, i_pl, rd_pl, ri_pl = knn_ring_pallas_batched(
+        jnp.asarray(q), jnp.asarray(qm), jnp.asarray(t), jnp.asarray(tm),
+        jnp.asarray(qr), jnp.asarray(tr), k=10, drs=DRS, interpret=True)
+    d, i, rd, ri = tknn.knn_ring(
+        torch.from_numpy(q), torch.from_numpy(qm), torch.from_numpy(t),
+        torch.from_numpy(tm), torch.from_numpy(qr), torch.from_numpy(tr), 10, DRS)
+    _assert_match(d_pl, i_pl, d, i)
+    _assert_match(rd_pl, ri_pl, rd, ri)
+    absent = np.asarray(rd_pl) >= 1e29
+    assert (np.asarray(ri)[absent] == 0).all() and (np.asarray(ri_pl)[absent] == 0).all()
+    # queries on rings 0 and 15 have two absent offsets each
+    assert absent.any()
 
 
 def test_cpu_wrappers_take_plain_path_without_counting():

@@ -6,6 +6,14 @@ test conftest's fixtures, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_knn_cuda.py
 
+The layout cases follow the branches of csrc/knn.cu: the stage's own
+layout (ring-sorted targets: long ring runs), a pair with no valid
+target, fewer valid targets than k, valid targets only after the first
+staged tile, Q not a multiple of a block's queries, rings absent on both
+sides of the queries' rings, a narrow batch of 3,500 pairs, and valid
+targets all in one of the strided tiles (more than a tile holds); the
+random rings of the tests above make runs of one target.
+
 Tolerance: d2 within rtol 1e-5 and atol 1e-5 (FMA order in the kernel,
 matmul order in the plain version); indices equal except on near-ties,
 where two distances of a row differ by <= 1e-5 * max(1, d2). The fused
@@ -18,6 +26,7 @@ import pytest
 import torch
 
 from panovlm_tpu_torch.ops import knn as tknn
+from knn_layouts import stage_layout
 
 B, Q, T = 2, 300, 700
 
@@ -87,6 +96,78 @@ def test_knn_ring_kernel_matches_plain_version(cuda_device):
     have = rd_ref < 1e29
     assert ((picked - rd_ref).abs() <= 1e-5 * torch.clamp_min(rd_ref, 1.0))[have].all()
     assert (ri[~have] == 0).all() and (rd[~have] >= 1e29).all()
+
+
+LAYOUTS = ["stage", "no valid target", "fewer valid than k", "valid after the first tile",
+           "ragged Q", "absent rings", "B=3500", "uneven tiles"]
+
+
+def _layout(case):
+    """(q, q_mask, t, t_mask, q_row, t_row) of a layout case."""
+    if case == "B=3500":
+        return stage_layout(5, 3500, 64, 96)
+    Qn = 517 if case == "ragged Q" else Q   # blocks of 512 (k=5) and 384 (k=10) queries
+    late = case == "valid after the first tile"
+    full = late or case == "uneven tiles"
+    q, qm, t, tm, qr, tr = stage_layout(LAYOUTS.index(case), B, Qn, T,
+                                        min_valid=T if full else None)
+    if case == "no valid target":
+        tm[1] = False
+    elif case == "fewer valid than k":
+        tm[1, 3:] = False
+    elif late:
+        tm[:, :600] = False   # the first 600 targets span two staged tiles
+    elif case == "uneven tiles":
+        tm[:, 1::2] = False   # 350 valid: two strided tiles, the even one holds them all
+        qm[:] = True
+        qr[:] = np.arange(Qn) % 16
+    elif case == "absent rings":
+        qr = np.where(qm, np.array([0, 3, 15], np.int32)[np.arange(Qn) % 3], -1)
+        tr = np.where(tm, np.sort(np.array([0, 5, 6, 15], np.int32)[
+            np.random.default_rng(2).integers(0, 4, tm.shape)], axis=1), -1)
+    t[~tm], tr[~tm] = 0.0, -1
+    return q, qm, t, tm, qr.astype(np.int32), tr.astype(np.int32)
+
+
+def _check_against_plain(out, args, k):
+    """The kernel's (d2, idx[, ring d2, ring idx]) against the plain version."""
+    q, qm, t, tm = args[:4]
+    ref = (tknn.knn_ring_reference if len(out) == 4 else tknn.knn_reference)(*args, k)
+    d_k1, _ = tknn.knn_reference(q, qm, t, tm, min(k + 1, t.shape[1]))
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-5)
+    ok = ~_near_tie_mask(d_k1, k)
+    assert torch.equal(out[1][ok], ref[1][ok])
+    assert (out[0][~qm] >= 1e29).all() and (out[1][~qm] == 0).all()
+    if len(out) == 4:
+        rd, ri, rd_ref = out[2], out[3], ref[2]
+        torch.testing.assert_close(rd, rd_ref, rtol=1e-5, atol=1e-5)
+        picked = torch.gather(tknn._dist2(q, qm, t, tm), -1, ri.long())
+        have = rd_ref < 1e29
+        assert ((picked - rd_ref).abs() <= 1e-5 * torch.clamp_min(rd_ref, 1.0))[have].all()
+        assert (ri[~have] == 0).all() and (rd[~have] >= 1e29).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True], ids=["knn", "knn_ring"])
+@pytest.mark.parametrize("case", LAYOUTS)
+def test_kernel_matches_plain_version_on_stage_layouts(cuda_device, case, ring):
+    """Each layout case through K1 (k=5) or K2 (k=10): the plain version's
+    d2 and indices (near-ties aside), 1e30 / 0 on masked rows and absent
+    rings, and two launches equal bit for bit."""
+    arrays = _layout(case)
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in arrays[:6 if ring else 4])
+    fn, k = (tknn.knn_ring, 10) if ring else (tknn.knn, 5)
+    out, again = fn(*args, k), fn(*args, k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    _check_against_plain(out, args, k)
+    if case == "no valid target":
+        assert (out[0][1] >= 1e29).all() and (out[1][1] == 0).all()
+    if case == "fewer valid than k":
+        have = args[1][1]
+        assert (out[0][1][have][:, :3] < 1e29).all() and (out[0][1][:, 3:] >= 1e29).all()
+    if case == "absent rings" and ring:
+        assert (out[2] >= 1e29).any() and (out[2] < 1e29).any()
 
 
 @pytest.mark.cuda
