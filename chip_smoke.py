@@ -67,11 +67,37 @@ Run from the root of a checkout. Phases, each fatal on failure:
      own descriptors: the first pairs it matched, at the batch the stage
      launches, Q = T = num_sift, and a ragged cut (Q = 5000, T = 7001, more
      rows masked); two launches bit-equal.
+  10. the odometry stage on the scans of phase 8's frames, seeded from its
+     sfm/lidar_pose.txt (lidar_path_undistort set; data_gap_time 9.9 s, so
+     that the undistortion leaves these undistorted scans nearly alone),
+     then the joint stage (`python -m panovlm_tpu_torch
+     joint_optimization`) on the port's own SfM and odometry outputs with
+     the Room joint keys (configs/Room.txt:36,58,66,69-73). Checked: the
+     reference's artifact set, camera poses within 1 deg and 0.08 m of
+     ground truth after aligning frame 0, LiDAR consecutive-scan distance
+     error < 0.05 m after the odometry stage and, after the joint stage,
+     within 1.25 times (max and median) what the JAX joint_optimize gives
+     on the same arguments (JOINT_LIDAR_REF: the reference moves the LiDAR
+     poses ~0.57 m there), every pose valid and finite, a floor on the
+     fused image arcs per frame before the cap, one knn and one knn_ring
+     launch per joint round, K1 and K2 on the first joint round's own
+     inputs as in phase 5. The joint_optimize arguments and the card's
+     result are kept in chiprun_out/joint_chain.npz, the input of
+     tests/joint_chain_reference.py (the JAX and the port's solve on the
+     CPU, scan by scan). ROADMAP F9: the
+     joint stage run twice gives bit-equal pose files and points, and the
+     rotation averaging (L1-ADMM) and translation averaging calls of phase
+     8 and the fuse's voxel_downsample of phase 6, rerun twice on their
+     captured inputs, give the stage's bits; as a control, the float
+     index_add_ that the solver used before runs twice on the joint solve's
+     largest scattered sum. Prints the stage's TimeReport and peak memory.
 --only-sfm runs phases 1-2, 8 and 9 alone (for iterating on the SfM
 slice). Prints the card line, the kernel table as one JSON line, then, as
 the last line, {"ok": true, "device": {...}}. In the kernel table, the
 headline numbers of knn and knn_ring are those at the odometry stage's
-inputs (phase 5), volscore's those of the D=64 full-scoring shape of phase
+inputs (phase 5; the joint stage's, phase 10, are a further shape, and
+`launches_joint` their launches there), volscore's those of the D=64
+full-scoring shape of phase
 3 and knn_desc's those of the fused search at the stage's batch; each
 row's max_abs_err is the largest over its shapes, and its "shapes" list
 holds each shape's numbers, with the bound of an earlier operation count
@@ -274,16 +300,15 @@ def knn_vs_plain(torch, knn_mod):
     return rows
 
 
-def knn_at_stage(torch, knn_mod, captured):
-    """Phase 5: K1 and K2 on the arguments of their first launch in the
-    odometry stage (the first association round, B = its pair count)."""
+def knn_at_stage(torch, knn_mod, captured, label="odometry stage, round 0"):
+    """Phases 5 and 10: K1 and K2 on the arguments of their first launch in
+    a stage (its first association round, B = its pair count)."""
     rows = {}
     for name, nargs in (("knn", 4), ("knn_ring", 6)):
         args = captured[name]
         if name == "knn_ring" and tuple(args[7]) != knn_mod.RING_OFFSETS:
             fail(f"knn_ring was called with ring offsets {args[7]}")
-        rows[name] = knn_case(torch, knn_mod, name, tuple(args[:nargs]), args[nargs],
-                              "odometry stage, round 0")
+        rows[name] = knn_case(torch, knn_mod, name, tuple(args[:nargs]), args[nargs], label)
     return rows
 
 
@@ -487,26 +512,89 @@ def make_room(root: str, n: int, seed: int = 0):
     return cfg, poses, sum(len(s) for s in scans) / n
 
 
-class _FirstCall:
-    """Wraps the KNN functions that models/association.py imports and keeps
-    a device copy of the arguments of each one's first call."""
+def _copy(x):
+    return x.clone() if hasattr(x, "clone") else (x.copy() if hasattr(x, "copy") else x)
 
-    def __init__(self, module, names):
-        self.module, self.names, self.args = module, names, {}
+
+class _Held:
+    """A tensor kept in host memory, with the device it came from."""
+
+    def __init__(self, t):
+        self.t, self.device = t.detach().to("cpu", copy=True), t.device
+
+
+def _hold(x):
+    """A copy of x with every tensor in it (also in tuples, lists and dicts)
+    held in host memory."""
+    if hasattr(x, "detach"):
+        return _Held(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_hold(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _hold(v) for k, v in x.items()}
+    return _copy(x)
+
+
+def _restore(x):
+    """_hold's copy with every tensor back on its device."""
+    if isinstance(x, _Held):
+        return x.t.to(x.device, copy=True)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_restore(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _restore(v) for k, v in x.items()}
+    return x
+
+
+class _FirstCall:
+    """Wraps functions that a module imports and keeps a copy of the
+    arguments of each one's first call (keep="last": of its last call),
+    with that call's result. host=True keeps both in host memory, so that
+    the capture adds nothing to the card's peak memory."""
+
+    def __init__(self, module, names, keep: str = "first", host: bool = False):
+        self.module, self.names, self.keep, self.host = module, names, keep, host
+        self.args, self.kwargs, self.out = {}, {}, {}
 
     def __enter__(self):
         self.saved = {n: getattr(self.module, n) for n in self.names}
+        keep = _hold if self.host else _copy
         for name, fn in self.saved.items():
-            def wrapped(*a, _name=name, _fn=fn):
-                if _name not in self.args:
-                    self.args[_name] = [x.clone() if hasattr(x, "clone") else x for x in a]
-                return _fn(*a)
+            def wrapped(*a, _name=name, _fn=fn, **kw):
+                if self.keep == "last" or _name not in self.args:
+                    self.args[_name] = [keep(x) for x in a]
+                    self.kwargs[_name] = {k: keep(v) for k, v in kw.items()}
+                    res = _fn(*a, **kw)
+                    self.out[_name] = _hold(res) if self.host else res
+                    return res
+                return _fn(*a, **kw)
             setattr(self.module, name, wrapped)
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.module, name, fn)
+
+
+class _EveryCall:
+    """Wraps module.name and appends measure(args, result) of every call to
+    .values (calls from several threads too)."""
+
+    def __init__(self, module, name, measure):
+        self.module, self.name, self.measure, self.values = module, name, measure, []
+
+    def __enter__(self):
+        self.saved = fn = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            res = fn(*a, **kw)
+            self.values.append(self.measure(a, res))
+            return res
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
 
 
 def run_odometry(torch, knn_mod, n_scans: int):
@@ -670,7 +758,7 @@ class _RangeFit(logging.Handler):
 
 def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
     """Phase 6. Returns (K3 launches, the PatchMatchConfig of the sweep the
-    stage ran)."""
+    stage ran, the capture of its last voxel_downsample call: the fuse)."""
     import numpy as np
     from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
@@ -687,12 +775,13 @@ def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
     vs_mod.volscore.launches = 0
     t0 = time.time()
     try:
-        if profile:
-            from torch.profiler import ProfilerActivity, profile as tprofile
-            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _FirstCall(mvs, ("voxel_downsample",), keep="last", host=True) as vox:
+            if profile:
+                from torch.profiler import ProfilerActivity, profile as tprofile
+                with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
+            else:
                 rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
-        else:
-            rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
     finally:
         logging.getLogger("panovlm").removeHandler(fit)
     wall = time.time() - t0
@@ -751,7 +840,7 @@ def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
             fail(f"MVS [{key}]: coverage {cover:.3f} < {MVS_MIN_COVERAGE[key]}")
     if not med["geo (post-processed)"] < 0.08:
         fail(f"MVS median relative depth error {med['geo (post-processed)']:.4f} >= 0.08")
-    return launches, pm_run
+    return launches, pm_run, vox
 
 
 # ----------------------------------------------------------------------------
@@ -834,12 +923,13 @@ def sfm_pose_errors(path, gt):
 
 
 def run_sfm(torch, knn_mod, cfg_path, gt):
-    """Phase 8. Returns (K1-D128 launches, the stage's match batch, config)."""
+    """Phase 8. Returns (K1-D128 launches, the stage's match batch, config,
+    the captures of its rotation and translation averaging calls)."""
     import numpy as np
     from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
     from panovlm_tpu_torch.io import artifacts
-    from panovlm_tpu_torch.models import sfm
+    from panovlm_tpu_torch.models import rotation_averaging, sfm, translation_averaging
     from panovlm_tpu_torch.utils.timing import TimeReport
 
     cfg = load_config(cfg_path)
@@ -848,7 +938,9 @@ def run_sfm(torch, knn_mod, cfg_path, gt):
     knn_mod.knn_mutual.launches = 0
     knn_mod.knn.desc_launches = 0
     t0 = time.time()
-    rc = port_main(["init_camera_pose", cfg_path, "--device", "cuda"], tr=tr)
+    with _FirstCall(rotation_averaging, ("rotation_averaging",), host=True) as ra_cap, \
+            _FirstCall(translation_averaging, ("translation_averaging",), host=True) as ta_cap:
+        rc = port_main(["init_camera_pose", cfg_path, "--device", "cuda"], tr=tr)
     wall = time.time() - t0
     launches = knn_mod.knn_mutual.launches
     if rc != 0:
@@ -882,7 +974,8 @@ def run_sfm(torch, knn_mod, cfg_path, gt):
         fail("init_camera_pose left frames invalid")
     if not (rot < 1.0 and dist < 0.08):
         fail(f"SfM poses off ground truth: {rot:.3f} deg, {dist:.4f} m (bounds 1 deg, 0.08 m)")
-    return launches, batch, cfg
+    return launches, batch, cfg, {"rotation averaging (L1-ADMM)": (rotation_averaging, ra_cap),
+                                  "translation averaging": (translation_averaging, ta_cap)}
 
 
 def sfm_reproducibility(torch, cfg):
@@ -1039,6 +1132,240 @@ def write_profile(prof, wall):
     log(table)
 
 
+# ----------------------------------------------------------------------------
+# phase 10: the joint stage on the port's own SfM and odometry outputs; F9
+# ----------------------------------------------------------------------------
+
+# configs/Room.txt:36,58,66,69-73: image lines and joint optimization
+ROOM_JOINT_KEYS = """\
+ncc_threshold                = 0
+num_iteration_joint          = 5
+neighbor_size_joint          = 1
+camera_weight                = 1
+lidar_weight                 = 0.01
+camera_lidar_weight          = 25
+"""
+JOINT_ARTIFACTS = ("camera_pose_joint.txt", "lidar_pose_joint.txt", "points.npz",
+                   "camera_center_joint.pcd", "lidar_center_joint.pcd",
+                   "camera_pose_joint.ply", "lidar_pose_joint.ply")
+# fused image arcs per frame before the cap of 128 cuts them: about 80 %
+# of the mean first measured on the H100 at the phase's 48 frames (193.0;
+# 353.8 LSD segments per frame), so that a detector or a fusion that finds
+# fewer lines cannot pass on the pose bounds alone
+JOINT_MIN_ARCS = 154.0
+# consecutive-scan distance error (m; max, median) of the LiDAR poses that
+# the JAX package's joint_optimize gives on this phase's joint_optimize
+# arguments (tests/joint_chain_reference.py on the CPU, 8 devices, from the
+# chiprun_out/joint_chain.npz that this phase keeps). With the Room weights
+# the reference moves the LiDAR poses off the odometry's (8.65 mm) by this
+# much, so the port's joint output is held to JOINT_LIDAR_MARGIN times it.
+JOINT_LIDAR_REF = (0.56605, 0.02716)
+JOINT_LIDAR_MARGIN = 1.25
+
+
+def _bits(x):
+    """Every leaf of a nested result as bytes, for bit-equality."""
+    import numpy as np
+    if isinstance(x, (tuple, list)):
+        return b"".join(_bits(v) for v in x)
+    if isinstance(x, dict):
+        return b"".join(k.encode() + _bits(x[k]) for k in sorted(x))
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy().tobytes()
+    if isinstance(x, np.ndarray):
+        return x.tobytes()
+    return repr(x).encode()
+
+
+def f9_reruns(torch, captures):
+    """ROADMAP F9: each captured stage call (captured with host=True) runs
+    twice more on its own inputs, each back on its device; both results
+    must equal the stage's bit for bit."""
+    for name, (module, cap) in captures.items():
+        (fn_name,) = cap.args
+        fn = getattr(module, fn_name)
+        t0 = time.time()
+        args, kwargs = _restore(cap.args[fn_name]), _restore(cap.kwargs[fn_name])
+        runs = [fn(*args, **kwargs) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = [_bits(r) == _bits(_restore(cap.out[fn_name])) for r in runs]
+        log(f"F9 rerun of {name} ({fn_name}) on the stage's inputs, twice "
+            f"({time.time() - t0:.1f} s): {'bit-equal to the stage' if all(same) else 'DIFFERS'}")
+        if not all(same):
+            fail(f"F9: {name} is not reproducible on the card")
+
+
+def _joint_outputs(cfg):
+    from panovlm_tpu_torch.io import artifacts
+    out = []
+    for name in JOINT_ARTIFACTS[:2]:
+        with open(os.path.join(cfg.joint_result_path, name), "rb") as f:
+            out.append(f.read())
+    out.append(artifacts.read_point_tracks(
+        os.path.join(cfg.joint_result_path, "points.npz"))["points"].tobytes())
+    return out
+
+
+def save_joint_chain(cap, gt, path):
+    """The arguments and the card's result of the joint stage's
+    joint_optimize call, with ground truth, as one npz: the input of
+    tests/joint_chain_reference.py, which runs the JAX joint_optimize and
+    the port's on the CPU on them."""
+    import numpy as np
+
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    (arcs, feats, *arrays, jcfg), kw = cap.args["joint_optimize"], cap.kwargs["joint_optimize"]
+    names = ("cam_poses0", "lidar_poses0", "track_img", "track_feat", "track_mask",
+             "bearings", "points0", "point_ok")
+    cam, lidar, points, _ = cap.out["joint_optimize"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(
+        path, **{f"arc_{k}": host(v) for k, v in arcs.items()},
+        **{f"lidar_{k}": host(v) for k, v in feats.items()},
+        **{n: host(a) for n, a in zip(names, arrays)}, lidar_valid=host(kw["lidar_valid"]),
+        out_cam=host(cam), out_lidar=host(lidar), out_points=host(points),
+        gt_R=gt[0], gt_C=gt[1], jcfg=json.dumps(jcfg._asdict()))
+    log(f"joint_optimize inputs and card result kept in {os.path.relpath(path, HERE)} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB)")
+
+
+def run_joint_chain(torch, knn_mod, sfm_cfg_path, gt):
+    """Phase 10: the odometry stage on the SfM dataset's scans, seeded from
+    the SfM stage's sfm/lidar_pose.txt, then the joint stage with the Room
+    joint keys, twice (F9). Returns (kernel launches of the joint run,
+    the arguments of its first knn and knn_ring calls)."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import association, camera_lidar
+    from panovlm_tpu_torch.solver import lm
+    from panovlm_tpu_torch.utils import panorama_line
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    root = os.path.dirname(sfm_cfg_path)
+    cfg_path = os.path.join(root, "chain_config.txt")
+    with open(sfm_cfg_path) as f:
+        text = f.read()
+    # the SfM scans carry no sweep distortion: a data gap of 9.9 s puts the
+    # undistortion's sweep fraction at 0.1 / (0.1 + 9.9) = 1 %
+    with open(cfg_path, "w") as f:
+        f.write(f"{text}lidar_path_undistort = {root}/result/undis\ndata_gap_time = 9.9\n"
+                f"{ROOM_ODOMETRY_KEYS}{ROOM_JOINT_KEYS}")
+    cfg = load_config(cfg_path)
+    R_gt, C_gt = gt
+    d_gt = np.linalg.norm(np.diff(C_gt, axis=0), axis=1)
+
+    def lidar_error(path, bound, median_bound=None):
+        _, t, _, ok = artifacts.read_pose_t(path)
+        if not (ok.all() and np.isfinite(t).all()):
+            fail(f"{path}: invalid poses")
+        err = np.abs(np.linalg.norm(np.diff(t, axis=0), axis=1) - d_gt)
+        log(f"{os.path.basename(path)}: consecutive-scan distance error vs ground truth: "
+            f"max {err.max() * 1000:.2f} mm (scan {int(err.argmax())}), "
+            f"median {np.median(err) * 1000:.2f} mm")
+        if not err.max() < bound:
+            fail(f"{path}: error {err.max():.4f} m >= {bound} m at scan {int(err.argmax())}")
+        if median_bound is not None and not np.median(err) < median_bound:
+            fail(f"{path}: median error {np.median(err):.4f} m >= {median_bound} m")
+
+    t0 = time.time()
+    if port_main(["init_lidar_pose", cfg_path, "--device", "cuda"]) != 0:
+        fail("init_lidar_pose on the SfM dataset failed")
+    log(f"odometry on the SfM dataset's {len(d_gt) + 1} scans: {time.time() - t0:.1f} s")
+    lidar_error(os.path.join(cfg.odo_result_path, "lidar_pose_undis_refined.txt"), 0.05)
+
+    tr = TimeReport()
+    largest = {}
+    exact_sum = lm.index_sum
+
+    def keep_largest(n, index, src):   # the biggest scattered sum of the solve
+        if src.numel() > largest.get("src", src.new_zeros(0)).numel():
+            largest.update(n=n, index=index, src=src)
+        return exact_sum(n, index, src)
+
+    torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn.launches = 0
+    knn_mod.knn_ring.launches = 0
+    lm.index_sum = keep_largest
+    t0 = time.time()
+    try:
+        with _FirstCall(association, ("knn", "knn_ring")) as first, \
+                _FirstCall(panorama_line, ("extract_panorama_lines_batch",)) as lines, \
+                _EveryCall(panorama_line, "detect_lsd", lambda a, res: len(res)) as segs, \
+                _EveryCall(panorama_line, "pad_arcs", lambda a, res: len(a[0]["arc"])) as fused, \
+                _FirstCall(camera_lidar, ("joint_optimize",)) as joint:
+            rc = port_main(["joint_optimization", cfg_path, "--device", "cuda"], tr=tr)
+    finally:
+        lm.index_sum = exact_sum
+    wall = time.time() - t0
+    launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
+    if rc != 0:
+        fail(f"joint_optimization exited {rc}")
+    log(f"joint stage wall {wall:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, sec in tr.time_spent.items():
+        if name != "joint_optimization":
+            log(f"  {name}: {sec:.2f} s")
+    for name in JOINT_ARTIFACTS:
+        if not os.path.exists(os.path.join(cfg.joint_result_path, name)):
+            fail(f"missing artifact result/joint/{name}")
+    arcs = lines.out["extract_panorama_lines_batch"]["mask"].sum(axis=1)
+    segs, fused = np.asarray(segs.values), np.asarray(fused.values)
+    log(f"image lines per frame: LSD segments mean {segs.mean():.1f} (min {segs.min()}, "
+        f"max {segs.max()}), fused arcs mean {fused.mean():.1f} (min {fused.min()}, "
+        f"max {fused.max()}), kept arcs mean {arcs.mean():.1f} (cap "
+        f"{lines.out['extract_panorama_lines_batch']['mask'].shape[1]})")
+    if not fused.mean() >= JOINT_MIN_ARCS:
+        fail(f"{fused.mean():.1f} fused arcs per frame < {JOINT_MIN_ARCS}")
+    log(f"kernel launches on the joint path: {launches} in {cfg.num_iteration_joint} rounds")
+    if set(launches.values()) != {cfg.num_iteration_joint}:
+        fail(f"launches {launches} differ from the {cfg.num_iteration_joint} joint rounds")
+    rot, dist, all_ok = sfm_pose_errors(
+        os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"), gt)
+    log(f"camera_pose_joint.txt vs ground truth: max rotation error {rot:.4f} deg, "
+        f"max camera-centre error {dist * 1000:.2f} mm, every frame valid: {all_ok}")
+    if not (all_ok and rot < 1.0 and dist < 0.08):
+        fail(f"joint camera poses off ground truth: {rot:.3f} deg, {dist:.4f} m, "
+             f"all valid {all_ok} (bounds 1 deg, 0.08 m)")
+    save_joint_chain(joint, gt, os.path.join(HERE, "chiprun_out", "joint_chain.npz"))
+    del joint
+    # not the 0.05 m of the odometry output: on these inputs the JAX
+    # joint_optimize itself moves the LiDAR poses that far (JOINT_LIDAR_REF)
+    ref_max, ref_median = JOINT_LIDAR_REF
+    log(f"LiDAR error of the JAX joint_optimize on the same inputs: max {ref_max * 1000:.2f} "
+        f"mm, median {ref_median * 1000:.2f} mm; bounds {JOINT_LIDAR_MARGIN} x those")
+    lidar_error(os.path.join(cfg.joint_result_path, "lidar_pose_joint.txt"),
+                JOINT_LIDAR_MARGIN * ref_max, JOINT_LIDAR_MARGIN * ref_median)
+
+    # F9: the stage again on the same inputs, every output bit-equal
+    first_out = _joint_outputs(cfg)
+    t0 = time.time()
+    if port_main(["joint_optimization", cfg_path, "--device", "cuda"]) != 0:
+        fail("joint_optimization (second run) failed")
+    same = [a == b for a, b in zip(first_out, _joint_outputs(cfg))]
+    log(f"F9: joint stage rerun ({time.time() - t0:.1f} s): camera poses, LiDAR poses, "
+        f"points {'bit-equal' if all(same) else f'DIFFER {same}'}")
+    if not all(same):
+        fail(f"F9: the joint stage is not reproducible on the card: {same}")
+    # control: the float index_add_ this PR replaced, twice on the same terms
+    n, index, src = largest["n"], largest["index"], largest["src"]
+    a = torch.zeros((n, *src.shape[1:]), dtype=src.dtype, device=src.device).index_add_(0, index, src)
+    b = torch.zeros_like(a).index_add_(0, index, src)
+    e1, e2 = exact_sum(n, index, src), exact_sum(n, index, src)
+    touched = torch.zeros(n, dtype=torch.bool, device=src.device)
+    touched[index] = True
+    log(f"F9 control: float index_add_ of the solve's largest sum ({src.numel()} terms "
+        f"into {int(touched.sum())} entries) twice: {float((a != b)[touched].double().mean()):.4%} "
+        f"of the entries differ; index_sum twice: "
+        f"{'bit-equal' if torch.equal(e1, e2) else 'DIFFERS'}")
+    if not torch.equal(e1, e2):
+        fail("F9: index_sum differs between two runs")
+    return launches, first.args
+
+
 def with_shapes(main, parts, **extra):
     """A kernel's row of the JSON line: the headline shape's numbers, the
     largest error over its shapes and each shape's numbers."""
@@ -1131,15 +1458,15 @@ def main():
 
             # 5. K1 and K2 on the stage's own inputs
             t0 = time.time()
-            for name, row in knn_at_stage(torch, knn_mod, captured).items():
-                rows[name] = with_shapes(row, [rows[name], row])
+            knn_parts = {name: [rows[name], row]
+                         for name, row in knn_at_stage(torch, knn_mod, captured).items()}
             del captured
             torch.cuda.empty_cache()
             log(f"phase 5 (K1 and K2 at the stage's inputs): {time.time() - t0:.1f} s")
 
             # 6. the MVS stage
-            launches["volscore"], pm_run = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
-                                                   args.profile_mvs)
+            launches["volscore"], pm_run, vox = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
+                                                        args.profile_mvs)
 
             # 7. K3 at the shapes of phase 6
             vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
@@ -1147,13 +1474,30 @@ def main():
                                            library_ms=None)
 
         # 8. the SfM stage, then its reproducibility (F8)
-        launches["knn_desc"], match_batch, sfm_config = run_sfm(torch, knn_mod, sfm_cfg,
-                                                                sfm_gt)
+        launches["knn_desc"], match_batch, sfm_config, f9_calls = run_sfm(
+            torch, knn_mod, sfm_cfg, sfm_gt)
         sfm_reproducibility(torch, sfm_config)
 
         # 9. K1 at D = 128 on the stage's descriptors
         drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
         rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
+
+        if not args.only_sfm:
+            # 10. the odometry and joint stages on the SfM stage's outputs;
+            # F9 reruns of the averaging and fuse calls the stages made
+            from panovlm_tpu_torch.models import mvs as mvs_mod
+            t0 = time.time()
+            joint_launches, jargs = run_joint_chain(torch, knn_mod, sfm_cfg, sfm_gt)
+            for name, row in knn_at_stage(torch, knn_mod, jargs,
+                                          "joint stage, round 0").items():
+                knn_parts[name].append(row)
+                rows[name] = with_shapes(knn_parts[name][1], knn_parts[name],
+                                         launches_joint=joint_launches[name])
+            del jargs
+            f9_reruns(torch, {**f9_calls, "voxel_downsample (MVS fuse)": (mvs_mod, vox)})
+            del vox
+            torch.cuda.empty_cache()
+            log(f"phase 10 (odometry + joint chain, F9): {time.time() - t0:.1f} s")
     finally:
         pool.terminate()
         pool.join()
@@ -1178,7 +1522,8 @@ def main():
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], **({"shapes": r["shapes"]} if "shapes" in r else {})}
+         "library_ms": r["library_ms"],
+         **{k: r[k] for k in ("launches_joint", "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

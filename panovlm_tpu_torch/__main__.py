@@ -2,9 +2,9 @@
 
     python -m panovlm_tpu_torch <stage> <config.txt> [--device cuda|cpu]
 
-Ported: init_camera_pose, init_lidar_pose and joint_mvs. The other stages
-(joint_optimization, colorize_lidar_map) exit non-zero: they run only in the
-JAX package (`python -m panovlm_tpu`) until their slices land.
+Ported: init_camera_pose, init_lidar_pose, joint_optimization and joint_mvs.
+colorize_lidar_map exits non-zero: it runs only in the JAX package
+(`python -m panovlm_tpu`) until its slice lands.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import argparse
 import logging
 import sys
 
-PORTED = ("init_camera_pose", "init_lidar_pose", "joint_mvs")
-NOT_PORTED = ("joint_optimization", "colorize_lidar_map")
+PORTED = ("init_camera_pose", "init_lidar_pose", "joint_optimization", "joint_mvs")
+NOT_PORTED = ("colorize_lidar_map",)
 
 
 def main(argv=None, infos: list | None = None, tr=None) -> int:
@@ -42,6 +42,8 @@ def main(argv=None, infos: list | None = None, tr=None) -> int:
             pipeline.init_camera_pose(cfg, tr, device=device)
         elif args.stage == "joint_mvs":
             pipeline.joint_mvs(cfg, tr, device=device)
+        elif args.stage == "joint_optimization":
+            pipeline.joint_optimization(cfg, tr, device=device)
         else:
             pipeline.init_lidar_pose(cfg, tr, device=device, infos=infos)
     print(tr.report())

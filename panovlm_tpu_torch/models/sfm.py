@@ -9,6 +9,7 @@ of the reference), batched over image pairs on the card:
   SetTranslationScaleDepthMap -> translation_scale_from_depth (host numpy)
   FilterByTriplet / LargestBiconnectedGraph -> host graph code (utils/graph.py)
   EstimateStructure -> estimate_structure
+  FilterTracksToFar -> filter_tracks_too_far (the joint stage's filter)
   GlobalBundleAdjustment -> global_ba (LM with the Schur tier)
   SetToOrigin -> set_to_origin
 
@@ -315,6 +316,42 @@ def estimate_structure(poses_cw, bearings, track_img, track_feat, track_mask,
         return (torch.zeros((0, 3), device=bearings.device),
                 torch.zeros(0, dtype=torch.bool, device=bearings.device))
     return torch.cat(Xs), torch.cat(oks)
+
+
+def filter_tracks_too_far(poses_cw, track_img, track_mask, X, ok,
+                          threshold: float = 8.0, chunk: int = 512):
+    """FilterTracksToFar (sfm/Structure.cpp:87-119): drop points whose mean
+    distance to their observing cameras exceeds threshold x the track's
+    baseline (its furthest pair of camera centres). Tensors on one device;
+    returns ok (T,). The pairwise centre distances use the Gram identity
+    |a-b|^2 = |a|^2 + |b|^2 - 2ab on centres taken relative to each
+    track's mean centre: with raw coordinates the identity cancels
+    catastrophically in float32 when the baseline is small against the
+    distance from the world origin. Chunked over tracks to bound the
+    (chunk, L, L) Gram blocks."""
+    R_cw = se3.exp_so3(poses_cw[:, :3])
+    C = -torch.einsum("nji,nj->ni", R_cw, poses_cw[:, 3:])     # camera centres
+    good = []
+    for sl in _track_chunks(track_img.shape[0], chunk):
+        m, x = track_mask[sl], X[sl]
+        c_obs = C[track_img[sl].long()]                          # (c, L, 3)
+        w = m.to(c_obs.dtype)
+        mean_c = (torch.sum(c_obs * w[..., None], dim=1)
+                  / torch.clamp_min(torch.sum(w, dim=1), 1.0)[:, None])
+        c_obs = c_obs - mean_c[:, None, :]
+        sq = torch.sum(c_obs * c_obs, dim=-1)                    # (c, L)
+        G = torch.einsum("tla,tma->tlm", c_obs, c_obs)
+        d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * G
+        pair_ok = m[:, :, None] & m[:, None, :]
+        baseline = torch.sqrt(torch.clamp_min(
+            torch.amax(torch.where(pair_ok, d2, torch.zeros_like(d2)), dim=(1, 2)), 0.0))
+        dist = torch.linalg.vector_norm((x - mean_c)[:, None] - c_obs, dim=-1)
+        mean_d = (torch.sum(torch.where(m, dist, torch.zeros_like(dist)), dim=1)
+                  / torch.clamp_min(torch.sum(m, dim=1), 1))
+        good.append(mean_d <= threshold * baseline)
+    if not good:
+        return ok
+    return ok & torch.cat(good)
 
 
 def filter_tracks_pixel_residual(poses_cw, X, track_img, track_feat, track_mask,

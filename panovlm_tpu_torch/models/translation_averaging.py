@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as ScR
 
+from ..ops.exact import index_sum
 from ..solver import residuals
 from ..solver.lm import LMOptions, ResidualBlock, solve_lm
 
@@ -44,8 +45,8 @@ def translation_averaging_dlt(aa_global, pair_i, pair_j, rel_aa, rel_t,
     w = t(np.asarray(mask, np.float32))
 
     def At(r):
-        gt = torch.zeros((n, 3), device=device).index_add_(0, pj, r)
-        gt = gt.index_add_(0, pi, -torch.einsum("mji,mj->mi", Rji, r))
+        gt = index_sum(n, torch.cat([pj, pi]),
+                       torch.cat([r, -torch.einsum("mji,mj->mi", Rji, r)]))
         gt[0] = 0.0
         return gt, -torch.sum(r * u, dim=1)
 

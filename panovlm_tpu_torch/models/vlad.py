@@ -10,8 +10,8 @@ can inject jax.random's; without it they come from a `torch.Generator` on
 the descriptors' device (ROADMAP F5: the two generators give different
 numbers from one seed).
 
-The residual and centre sums go through `ops/exact.index_sum` (fixed-point
-int64 sums), so the codebook, the embeddings and the pair set are the same
+The residual and centre sums go through `ops/exact.index_sum` (exact int64
+fixed-point sums), so the codebook, the embeddings and the pair set are the same
 on every run: float atomics on the card are not (ROADMAP F8).
 """
 

@@ -4,7 +4,8 @@
 `build/native/` at the repository root (listed in .gitignore), named by a
 hash of the source, and loaded with ctypes. Every entry point has a numpy
 fallback (io/pointcloud.py), so the port still reads scans where no
-compiler is available.
+compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`)
+is built the same way and has no fallback.
 """
 
 from __future__ import annotations
@@ -28,30 +29,39 @@ _lib = None
 _tried = False
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libpvruntime_{h}.so"
+def library_path(src: Path = _SRC) -> Path:
+    h = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
-def build() -> Path | None:
-    """Compile the library if missing. Returns its path, or None when the
-    compiler fails."""
-    out = library_path()
+def compile_library(src: Path) -> Path:
+    """Compile `src` into build/native/ unless its hash is built already.
+    Raises when the compiler fails."""
+    out = library_path(src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
+        # no FMA contraction: the LSD reproduces OpenCV's float arithmetic
         subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                        "-pthread", str(_SRC), "-o", tmp],
+                        "-ffp-contract=off", "-pthread", str(src), "-o", tmp],
                        check=True, capture_output=True, timeout=240)
         os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial file
         return out
-    except Exception as e:  # toolchain missing: the numpy readers take over
-        log.warning("native build failed: %s", e)
+    finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def build() -> Path | None:
+    """Compile the scan reader if missing. Returns its path, or None when
+    the compiler fails."""
+    try:
+        return compile_library(_SRC)
+    except Exception as e:  # toolchain missing: the numpy readers take over
+        log.warning("native build failed: %s", e)
         return None
 
 

@@ -12,23 +12,22 @@ vectorized CPU sqrt is not; the JAX package's is). XLA also rewrites
 `x / const` as `x * (1 / const)` (`div_const`), while PyTorch's `c / tensor`
 multiplies by the reciprocal where JAX divides (`rdiv`).
 
-`index_sum` and `scatter_sum` make scattered float sums
-reproducible: `index_add_` and `scatter_add_` of float32 on the card add
-with atomics in an order that changes from run to run (ROADMAP F8). Here
-every term is rounded to a multiple of 2^-40 and summed as int64, which is
-exact and so does not depend on the order; the sum is then rounded once to
-float32. The result is the same on the card and on the CPU, within
-2^-40 per term of the exact sum (terms must stay below 2^22 in magnitude,
-sums below 2^23).
+`index_sum` and `scatter_sum` make scattered float sums reproducible:
+`index_add_` and `scatter_add_` of float32 on the card add with atomics in
+an order that changes from run to run (ROADMAP F8, F9). Here every term is
+rounded to a fixed point scaled by the largest |term| of the call, split
+into two int64 words and summed exactly, so the integer sums do not depend
+on the order of the terms (up to 2^32 terms per destination); the two sums
+are joined in float64 and rounded once. The result is the same on the card
+and on the CPU, within (terms) x 2^-62 x max|term| of the exact sum before
+that rounding. The device SIFT and VLAD (F8), the LM normal equations,
+translation averaging, L1-ADMM and the voxel grid (F9) sum through them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-
-FIXED_BITS = 40
 
 
 def f32(v: float) -> float:
@@ -87,30 +86,72 @@ def sum_of_products(pairs):
     return acc
 
 
-def to_fixed(x):
-    """float tensor -> int64 multiples of 2^-FIXED_BITS (round to nearest)."""
-    return torch.round(x.double() * 2.0 ** FIXED_BITS).to(torch.int64)
+# terms converted to fixed point at a time: bounds the int64 temporaries
+# of a sum to CHUNK x 16 bytes whatever its number of terms
+CHUNK = 1 << 22
+LO_MASK = (1 << 31) - 1
 
 
-def from_fixed(n, dtype=torch.float32):
-    """int64 fixed-point sums -> dtype, rounded once."""
-    return (n.double() * 2.0 ** -FIXED_BITS).to(dtype)
+def _fixed_scale(srcs):
+    """2^(62 - e), where 2^e bounds the largest |term| of every src."""
+    big = torch.zeros((), dtype=torch.float64, device=srcs[0].device)
+    for s in srcs:
+        if s.numel():
+            lo, hi = torch.aminmax(s)
+            big = torch.maximum(big, torch.maximum(lo.abs(), hi.abs()).double())
+    e = torch.frexp(big).exponent
+    return torch.ldexp(torch.ones((), dtype=torch.float64, device=big.device),
+                       torch.clamp(62 - e, max=1000))
+
+
+def _add_fixed(acc_hi, acc_lo, add, src, scale):
+    """Adds the low and high int64 words of src in fixed point into acc_lo
+    and acc_hi, about CHUNK terms at a time: add(acc, words, r0, r1)
+    scatters the words of src's rows r0:r1."""
+    rows = max(1, CHUNK // max(1, src[0].numel()))
+    for r0 in range(0, src.shape[0], rows):
+        q = src[r0:r0 + rows].to(torch.float64, copy=True).mul_(scale).round_().to(torch.int64)
+        lo = torch.bitwise_and(q, LO_MASK)
+        add(acc_lo, lo, r0, r0 + rows)
+        del lo
+        add(acc_hi, q.bitwise_right_shift_(31), r0, r0 + rows)
+
+
+def _join(acc_hi, acc_lo, scale, dtype):
+    return (acc_hi.double().mul_(2.0 ** 31).add_(acc_lo.double()).div_(scale)).to(dtype)
 
 
 def index_sum(n: int, index, src):
-    """zeros((n, *src.shape[1:])).index_add_(0, index, src), summed in fixed
-    point: the same bits on every run and device."""
-    acc = torch.zeros((n, *src.shape[1:]), dtype=torch.int64, device=src.device)
-    return from_fixed(acc.index_add_(0, index, to_fixed(src)), src.dtype)
+    """zeros((n, *src.shape[1:])).index_add_(0, index, src) for finite float
+    terms: the same bits on every run, device and order of the terms. Each
+    term is rounded to a multiple of 2^(e - 62), where 2^e bounds the
+    largest |term|, split into a high and a low int64 word and summed
+    exactly; the two sums are joined in float64 and rounded once."""
+    out_shape = (n, *src.shape[1:])
+    if src.numel() == 0:
+        return torch.zeros(out_shape, dtype=src.dtype, device=src.device)
+    scale = _fixed_scale([src])
+    acc_hi, acc_lo = (torch.zeros(out_shape, dtype=torch.int64, device=src.device)
+                      for _ in range(2))
+    _add_fixed(acc_hi, acc_lo, lambda acc, w, r0, r1: acc.index_add_(0, index[r0:r1], w),
+               src, scale)
+    return _join(acc_hi, acc_lo, scale, src.dtype)
 
 
 def scatter_sum(n: int, parts):
     """The sum over (index, src) in parts of
-    zeros((*src.shape[:-1], n)).scatter_add_(-1, index, src), in fixed point:
-    the same bits on every run and device."""
-    acc = None
+    zeros((*src.shape[:-1], n)).scatter_add_(-1, index, src), in the words
+    of `index_sum` with one scale for every part."""
+    parts = list(parts)
+    lead = parts[0][1].shape[:-1]
+    parts = [(index.reshape(-1, index.shape[-1]), src.reshape(-1, src.shape[-1]))
+             for index, src in parts]
+    scale = _fixed_scale([src for _, src in parts])
+    dev = parts[0][1].device
+    acc_hi, acc_lo = (torch.zeros((parts[0][1].shape[0], n), dtype=torch.int64, device=dev)
+                      for _ in range(2))
     for index, src in parts:
-        if acc is None:
-            acc = torch.zeros((*src.shape[:-1], n), dtype=torch.int64, device=src.device)
-        acc.scatter_add_(-1, index, to_fixed(src))
-    return from_fixed(acc, src.dtype)
+        _add_fixed(acc_hi, acc_lo,
+                   lambda acc, w, r0, r1, index=index:
+                   acc[r0:r1].scatter_add_(-1, index[r0:r1].long(), w), src, scale)
+    return _join(acc_hi, acc_lo, scale, parts[0][1].dtype).reshape(*lead, n)

@@ -18,7 +18,7 @@ axis (2 frames above 4096 features) exists for TPU memory; here a chunk of
 frames is sized for the card (`frame_chunk`).
 
 The orientation histogram and the descriptor bins are scattered sums; they
-are summed in fixed point (`exact.scatter_sum`, int64 scatter-adds), so the descriptors are the same on every run: float
+are summed exactly (`exact.scatter_sum`, int64 fixed point), so the descriptors are the same on every run: float
 `scatter_add_` on the card adds with atomics in a varying order (ROADMAP
 F8).
 """

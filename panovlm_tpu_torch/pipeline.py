@@ -6,8 +6,8 @@ as its JAX stage in panovlm_tpu/pipeline.py.
   <frame_path>/frames_sift.npz            (frame cache: uv, desc, fmask)
   <match_pair_path>/match_pairs.npz, rel_poses.npz   (row caches)
   <depth_path>/{i}.npy                    (u16 LiDAR depth)
-  result/sfm/depth_visualize/depth_{i}.png  (PNG: the JAX stage writes JPEG
-                                            through cv2, which the port lacks)
+  result/sfm/depth_visualize/depth_{i}.jpg  (the port's own JPEG encoder,
+                                            io/jpeg.py, at cv2's defaults)
   result/sfm/after_sift_match.txt, match_pair.txt, rotations_after_L1.txt,
              camera_pose_beforeBA.{txt,ply}, camera_center_beforeBA.pcd,
              camera_pose_refine.txt, camera_pose_final.{txt,ply},
@@ -22,6 +22,15 @@ as its JAX stage in panovlm_tpu/pipeline.py.
   <lidar_path_undistort>/*.pcd            (undistorted clouds)
   result/odometry/lidar_pose_undis_refined.txt, lidar_center_undis_refined.pcd
 
+`joint_optimization` (JointOptimization, main.cpp:454-522; JAX pipeline.py:833-926):
+
+  result/sfm/frames.npz, points.npz        (input, stage 1)
+  result/odometry/lidar_pose_undis_refined.txt + <lidar_path_undistort>/*.pcd,
+    or lidar_pose_refined.txt + <lidar_path>  (input, stage 2)
+  result/joint/camera_pose_joint.txt, lidar_pose_joint.txt, points.npz,
+               camera_center_joint.pcd, lidar_center_joint.pcd,
+               camera_pose_joint.ply, lidar_pose_joint.ply
+
 `joint_mvs` (JointMVS, main.cpp:553-678; JAX pipeline.py:968-1320):
 
   result/joint/{camera,lidar}_pose_joint.txt  (input, stage 3's poses)
@@ -35,6 +44,7 @@ import glob
 import logging
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -224,6 +234,87 @@ def _undistort_round(cfg: Config, scans, valid, names, poses, device, infos):
         os.path.join(cfg.odo_result_path, "lidar_center_undis_refined.pcd"),
         poses2, valid)
     return poses2, valid
+
+
+def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda"):
+    """Camera-LiDAR joint refinement (JointOptimization, main.cpp:454-522).
+    Reads stage 1's frames.npz / points.npz and stage 2's LiDAR poses: the
+    undistortion round's poses with the undistorted clouds when both exist
+    (main.cpp:469-472), else the raw clouds with lidar_pose_refined.txt.
+    Returns (camera poses, LiDAR poses) (N, 6) numpy."""
+    from .io import images
+    from .models import camera_lidar as cl
+    from .models import sfm as sfm_mod
+    from .utils import panorama_line as pl
+
+    device = torch.device(device)
+    tr = tr or TimeReport()
+    os.makedirs(cfg.joint_result_path, exist_ok=True)
+    grays, names = images.load_images(cfg.image_path, cfg.scale)
+    frames = artifacts.load_npz(os.path.join(cfg.sfm_result_path, "frames.npz"))
+    tracks = artifacts.read_point_tracks(os.path.join(cfg.sfm_result_path, "points.npz"))
+    undis_pose = os.path.join(cfg.odo_result_path, "lidar_pose_undis_refined.txt")
+    use_undis = bool(os.path.exists(undis_pose) and cfg.lidar_path_undistort
+                     and os.path.isdir(cfg.lidar_path_undistort)
+                     and _list_files(cfg.lidar_path_undistort, ("pcd", "ply")))
+    scans, lidar_valid, lidar_names = load_scans(
+        cfg, path=cfg.lidar_path_undistort if use_undis else None)
+    jcfg = cl.JointConfig(
+        num_iteration_joint=cfg.num_iteration_joint,
+        neighbor_size_joint=cfg.neighbor_size_joint,
+        camera_weight=cfg.camera_weight, lidar_weight=cfg.lidar_weight,
+        camera_lidar_weight=cfg.camera_lidar_weight,
+        angle_residual=cfg.angle_residual, normalize_distance=cfg.normalize_distance,
+        use_image_track=cfg.use_image_track, use_lidar_track=cfg.use_lidar_track,
+        use_track_associate=cfg.use_track_associate,
+        min_track_length=cfg.min_track_length)
+    with tr.phase("extract image lines"):
+        line_mask = images.load_mask(cfg.mask_path, *grays[0].shape[:2])
+        arc_batch = {k: torch.from_numpy(v).to(device) for k, v in
+                     pl.extract_panorama_lines_batch(
+                         grays, mask=line_mask, num_threads=cfg.num_threads).items()}
+    with tr.phase("extract lidar features"):
+        lidar_batch = extract_all_features(scans, _scan_cap(scans), cfg, device)
+    with tr.phase("load poses"):
+        odo = undis_pose if use_undis else os.path.join(cfg.odo_result_path,
+                                                        "lidar_pose_refined.txt")
+        R_wl, t_wl, _, pose_ok = artifacts.read_pose_t(odo)
+        lidar_poses0 = pose_util.world_to_params(
+            np.where(pose_ok[:, None, None], R_wl, np.eye(3)),
+            np.where(pose_ok[:, None], t_wl, 0.0))
+        cam_poses0 = frames["poses"]
+    with tr.phase("joint optimize"):
+        def on_dev(a):
+            return torch.as_tensor(np.asarray(a), device=device)
+        # baseline-ratio structure filter (EstimateStructure ->
+        # FilterTracksToFar(8), CameraLidarOptimizer.cpp:720-729)
+        point_ok = sfm_mod.filter_tracks_too_far(
+            on_dev(np.asarray(cam_poses0, np.float32)), on_dev(tracks["track_img"]),
+            on_dev(tracks["track_mask"]), on_dev(np.asarray(tracks["points"], np.float32)),
+            on_dev(tracks["point_ok"]), 8.0)
+        cam_t, lidar_t, points_t, _ = cl.joint_optimize(
+            arc_batch, lidar_batch, cam_poses0, lidar_poses0, tracks["track_img"],
+            tracks["track_feat"], tracks["track_mask"], frames["bearings"],
+            tracks["points"], point_ok, jcfg,
+            lidar_valid=lidar_valid & pose_ok[:len(lidar_valid)])
+        cam_poses, lidar_poses = cam_t.cpu().numpy(), lidar_t.cpu().numpy()
+        points, point_ok = points_t.cpu().numpy(), point_ok.cpu().numpy()
+    with tr.phase("export"):
+        R_c, t_c = pose_util.params_to_world(cam_poses)
+        artifacts.export_pose_t(os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"),
+                                R_c, t_c, names)
+        R_l, t_l = pose_util.params_to_world(lidar_poses)
+        artifacts.export_pose_t(os.path.join(cfg.joint_result_path, "lidar_pose_joint.txt"),
+                                R_l, t_l, lidar_names)
+        artifacts.export_point_tracks(
+            os.path.join(cfg.joint_result_path, "points.npz"), tracks["track_img"],
+            tracks["track_feat"], tracks["track_mask"], points, point_ok)
+        for kind, poses in (("camera", cam_poses), ("lidar", lidar_poses)):
+            viz.camera_centers_pcd(
+                os.path.join(cfg.joint_result_path, f"{kind}_center_joint.pcd"), poses)
+            viz.camera_pose_ply(
+                os.path.join(cfg.joint_result_path, f"{kind}_pose_joint.ply"), poses)
+    return cam_poses, lidar_poses
 
 
 def _pose_T(R, t):
@@ -605,7 +696,7 @@ def _gps_in_use(cfg: Config) -> bool:
 def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
     """LiDAR-assisted global SfM (InitCameraPose, main.cpp:91-370). Returns
     (poses (N,6) [aa_cw, t_cw] numpy, frame_valid (N,))."""
-    from .io import images
+    from .io import images, jpeg
     from .models import rotation_averaging as ra
     from .models import sfm as sfm_mod
     from .models import translation_averaging as ta
@@ -677,12 +768,16 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
                 [depth_maps, np.zeros((n - len(depth_maps), H, W), np.float32)])
         viz_dir = os.path.join(cfg.sfm_result_path, "depth_visualize")
         os.makedirs(viz_dir, exist_ok=True)
-        for i in range(n):
-            color = viz.depth_to_color(depth_maps[i], cfg.max_depth_visual)
+
+        def write_viz(i):
+            color = viz.depth_to_color(depth_maps[i], cfg.max_depth_visual)   # BGR
             blend = (0.5 * color + 0.5 * (grays[i][..., None] * 255)).astype(np.uint8)
-            images.write_png(os.path.join(viz_dir, f"depth_{i}.png"), blend[..., ::-1])
-            if cfg.depth_path:
-                os.makedirs(cfg.depth_path, exist_ok=True)
+            jpeg.write_jpeg(os.path.join(viz_dir, f"depth_{i}.jpg"), blend[..., ::-1])
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+            list(pool.map(write_viz, range(n)))
+        if cfg.depth_path:
+            os.makedirs(cfg.depth_path, exist_ok=True)
+            for i in range(n):
                 artifacts.export_depth_u16(os.path.join(cfg.depth_path, f"{i}.npy"),
                                            depth_maps[i])
 

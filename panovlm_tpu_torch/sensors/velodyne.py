@@ -570,7 +570,9 @@ def voxel_downsample(pts, mask, aux=None, leaf: float = 0.2, weights=None,
     entry per occupied voxel in ascending key order (a stable sort, as
     jnp.argsort is), padded with zeros. aux (N,) or (N,A) is averaged per
     voxel too (returned third); weights (N,) make the means weighted;
-    return_counts appends the per-voxel weight sums."""
+    return_counts appends the per-voxel weight sums. The per-voxel sums are
+    exact (`ops/exact.index_sum`), so the centroids do not change from run
+    to run on the card (ROADMAP F9)."""
     n = pts.shape[0]
     vox = torch.floor(pts / leaf).to(torch.int32)
     vmin = torch.min(torch.where(mask[:, None], vox, torch.full_like(vox, 2**30)), dim=0).values
@@ -588,10 +590,19 @@ def voxel_downsample(pts, mask, aux=None, leaf: float = 0.2, weights=None,
     first = torch.ones(1, dtype=torch.bool, device=pts.device)
     uniq = torch.cat([first, ks[1:] != ks[:-1]]) & ms
     seg = torch.clamp_min(torch.cumsum(uniq.to(torch.int64), 0) - 1, 0)
-    sums = torch.zeros((n, 3), dtype=pts.dtype, device=pts.device).index_add_(
-        0, seg, ws[:, None] * ps)
-    cnts = torch.zeros(n, dtype=pts.dtype, device=pts.device).index_add_(0, seg, ws)
-    out_mask = torch.arange(n, device=pts.device) < uniq.sum()
+    n_vox = int(uniq.sum())
+    rows = max(1, n_vox)
+
+    def voxel_sum(src):
+        """Exact per-voxel sums, their int64 words sized to the occupied
+        voxels, padded with zeros to n rows."""
+        out = src.new_zeros((n, *src.shape[1:]))
+        out[:rows] = exact.index_sum(rows, seg, src)
+        return out
+
+    sums = voxel_sum(ws[:, None] * ps)
+    cnts = voxel_sum(ws)
+    out_mask = torch.arange(n, device=pts.device) < n_vox
     safe = torch.clamp_min(cnts, 1e-9)[:, None]
     centroids = torch.where(out_mask[:, None], sums / safe, torch.zeros_like(sums))
     out_cnts = torch.where(out_mask, cnts, torch.zeros_like(cnts))
@@ -602,8 +613,7 @@ def voxel_downsample(pts, mask, aux=None, leaf: float = 0.2, weights=None,
     squeeze = aux2.dim() == 1
     if squeeze:
         aux2 = aux2[:, None]
-    aux_sum = torch.zeros((n, aux2.shape[1]), dtype=pts.dtype,
-                          device=pts.device).index_add_(0, seg, ws[:, None] * aux2[order])
+    aux_sum = voxel_sum(ws[:, None] * aux2[order])
     aux_out = torch.where(out_mask[:, None], aux_sum / safe, torch.zeros_like(aux_sum))
     aux_out = aux_out[:, 0] if squeeze else aux_out
     if return_counts:

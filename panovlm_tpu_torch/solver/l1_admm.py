@@ -5,8 +5,9 @@ ADMM L1 solver of sfm/l1_solver_admm.hpp in the reference).
 
 The system matrix is the signed incidence of the pair graph with the start
 camera's column deleted, times I_3, so A^T A is the reduced graph Laplacian
-per coordinate: A x is a gather-subtract over edge endpoints, A^T v two
-index-adds, and one Cholesky factor of the unweighted Laplacian serves every
+per coordinate: A x is a gather-subtract over edge endpoints, A^T v one
+exact scattered sum (ops/exact.index_sum, ROADMAP F9), and one Cholesky
+factor of the unweighted Laplacian serves every
 ADMM iteration. The loops read their stopping tests each iteration, as the
 JAX while_loops do.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import se3
+from ..ops.exact import index_sum
 
 
 def _shrinkage(v, kappa):
@@ -42,20 +44,17 @@ def _apply_A(x, gi, gj, mi, mj):
 
 
 def _apply_At(v, gi, gj, mi, mj, n_red):
-    out = torch.zeros((n_red, v.shape[1]), dtype=v.dtype, device=v.device)
-    out.index_add_(0, gj, v * mj[:, None])
-    out.index_add_(0, gi, -v * mi[:, None])
-    return out
+    return index_sum(n_red, torch.cat([gj, gi]),
+                     torch.cat([v * mj[:, None], -v * mi[:, None]]))
 
 
 def _laplacian(gi, gj, mi, mj, n_red, w):
     """Reduced Laplacian per channel: w (M, C) -> (C, n_red, n_red)."""
     w = w.T                                                  # (C, M)
     C = w.shape[0]
-    L = torch.zeros((C, n_red * n_red), dtype=torch.float32, device=w.device)
-    for a, b, m in ((gi, gi, mi * mi), (gj, gj, mj * mj), (gi, gj, -mi * mj),
-                    (gj, gi, -mi * mj)):
-        L.index_add_(1, a * n_red + b, w * m[None])
+    parts = ((gi, gi, mi * mi), (gj, gj, mj * mj), (gi, gj, -mi * mj), (gj, gi, -mi * mj))
+    L = index_sum(n_red * n_red, torch.cat([a * n_red + b for a, b, _ in parts]),
+                  torch.cat([(w * m[None]).T for _, _, m in parts])).T
     eye = torch.eye(n_red, device=w.device)
     return L.reshape(C, n_red, n_red) + 1e-8 * eye
 

@@ -24,6 +24,11 @@ the reduced matrix sum_t U_t V_t^-1 U_t^T is scattered from the pairs of
 rows that share a point, in chunks of `_SCHUR_PAIR_CHUNK` pairs. Problems
 whose dense (or reduced) system has more than `dense_max_params`
 parameters raise: the PCG tier is not ported (ROADMAP.md).
+
+Every scattered sum (gradients, Hessian blocks, the Schur complement) goes
+through `ops/exact.index_sum`: float `index_add_` on the card adds
+with atomics in a varying order, and the solve amplifies its last-bit
+differences into different poses from run to run (ROADMAP F9).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import jacrev, vmap
 
+from ..ops.exact import index_sum
 from . import robust
 
 _SCHUR_PAIR_CHUNK = 1 << 21   # row pairs per scatter into the reduced matrix
@@ -156,16 +162,14 @@ def _linearize(x: dict, all_rows, offs: dict, P: int):
                           + torch.arange(Jk.shape[-1], device=dev)
                           for gr, i, Jk in zip(block.groups, rows.indices, Js)],
                          dim=-1)                                     # (m, sum W)
-        g.index_add_(0, fidx.reshape(-1),
-                     torch.einsum("mri,mr->mi", J, r * w[:, None]).reshape(-1))
+        g = g + index_sum(P, fidx.reshape(-1),
+                          torch.einsum("mri,mr->mi", J, r * w[:, None]).reshape(-1))
         outer = torch.einsum("mri,mrj->mij", J, J)      # (m, sum W, sum W)
         if rows.run is not None:   # sum each run before the scatter
-            outer = torch.zeros((rows.run_first.shape[0],) + outer.shape[1:],
-                                dtype=outer.dtype, device=dev).index_add_(
-                0, rows.run, outer)
+            outer = index_sum(rows.run_first.shape[0], rows.run, outer)
             fidx = fidx[rows.run_first]
         flat = fidx[:, :, None] * P + fidx[:, None, :]
-        Hf.index_add_(0, flat.reshape(-1), outer.reshape(-1))
+        Hf = Hf + index_sum(P * P, flat.reshape(-1), outer.reshape(-1))
     return cost, g, Hf.reshape(P, P)
 
 
@@ -216,23 +220,23 @@ def _schur_linearize(x: dict, all_rows, offs_r: dict, Pr: int, eg: str, free: di
         for k, (gname, idx) in enumerate(zip(block.groups, rows.indices)):
             gk = torch.einsum("mri,mr->mi", Js[k], rw)
             if gname == eg:
-                gE.index_add_(0, idx, gk)
+                gE = gE + index_sum(gE.shape[0], idx, gk)
             else:
                 Wk = Js[k].shape[-1]
                 fids[k] = offs_r[gname] + idx[:, None] * Wk + torch.arange(Wk, device=dev)
-                g_r.index_add_(0, fids[k].reshape(-1), gk.reshape(-1))
+                g_r = g_r + index_sum(Pr, fids[k].reshape(-1), gk.reshape(-1))
         if not rest:
             continue
         J = torch.cat([Js[k] for k in rest], dim=-1)
         fidx = torch.cat([fids[k] for k in rest], dim=-1)
         outer = torch.einsum("mri,mrj->mij", J, J)
         if rows.run is not None and eg not in block.groups:
-            outer = torch.zeros((rows.run_first.shape[0],) + outer.shape[1:],
-                                dtype=outer.dtype, device=dev).index_add_(0, rows.run, outer)
+            outer = index_sum(rows.run_first.shape[0], rows.run, outer)
             fl = fidx[rows.run_first]
         else:
             fl = fidx
-        Hf.index_add_(0, (fl[:, :, None] * Pr + fl[:, None, :]).reshape(-1), outer.reshape(-1))
+        Hf = Hf + index_sum(Pr * Pr, (fl[:, :, None] * Pr + fl[:, None, :]).reshape(-1),
+                            outer.reshape(-1))
         if eg in block.groups:
             ke = block.groups.index(eg)
             eidx = rows.indices[ke]
@@ -314,8 +318,7 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
         rhs = -g
         if schur is not None:
             eidx, JE, U, fidx = part
-            V = torch.zeros((T,) + JE.shape[-1:] * 2, dtype=torch.float32,
-                            device=dev).index_add_(0, eidx, torch.einsum("mra,mrb->mab", JE, JE))
+            V = index_sum(T, eidx, torch.einsum("mra,mrb->mab", JE, JE))
             dV = torch.diagonal(V, dim1=-2, dim2=-1)
             Vinv = _inv3(V + torch.diag_embed(lam * (dV + eps) + (1.0 - fE)))
             Y = U @ Vinv[eidx]                                      # (m, Wr, WE)
@@ -325,18 +328,18 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
             for c0 in range(0, pp.shape[0], _SCHUR_PAIR_CHUNK):
                 p_, q_ = pp[c0:c0 + _SCHUR_PAIR_CHUNK], qq[c0:c0 + _SCHUR_PAIR_CHUNK]
                 blk = Ys[p_] @ Us[q_].transpose(-1, -2)
-                Sf.index_add_(0, (fs[p_][:, :, None] * P + fs[q_][:, None, :]).reshape(-1),
-                              blk.reshape(-1))
+                Sf = Sf + index_sum(
+                    P * P, (fs[p_][:, :, None] * P + fs[q_][:, None, :]).reshape(-1),
+                    blk.reshape(-1))
             A = A - Sf.reshape(P, P)
-            rhs = rhs.index_add(0, fidx.reshape(-1),
-                                torch.einsum("mab,mb->ma", Y, gE[eidx]).reshape(-1))
+            rhs = rhs + index_sum(P, fidx.reshape(-1),
+                                  torch.einsum("mab,mb->ma", Y, gE[eidx]).reshape(-1))
         Lc, fail = torch.linalg.cholesky_ex(A)
         dflat = torch.cholesky_solve(rhs[:, None], Lc)[:, 0] * fvec
         delta = unflatten(dflat)
         pred = 0.5 * torch.dot(dflat, lam * (D2 + eps) * dflat - g)
         if schur is not None:
-            acc = -gE - torch.zeros_like(gE).index_add_(
-                0, eidx, torch.einsum("mab,ma->mb", U, dflat[fidx]))
+            acc = -gE - index_sum(T, eidx, torch.einsum("mab,ma->mb", U, dflat[fidx]))
             dp = (Vinv @ acc[..., None])[..., 0] * fE
             delta[schur] = dp
             pred = pred + 0.5 * torch.sum(dp * (lam * (dV + eps) * dp - gE))

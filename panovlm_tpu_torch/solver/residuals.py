@@ -1,8 +1,9 @@
 """Residual functions, ported from `panovlm_tpu/solver/residuals.py`: the
 odometry families (point-to-plane, point-to-line and line-to-line,
-base/CostFunction.h:567-1022 in the reference) and the SfM families
+base/CostFunction.h:567-1022 in the reference), the SfM families
 (chordal and pixel reprojection, pairwise rotation and translation, scale
-bounds).
+bounds) and the camera-LiDAR line families of the joint stage
+(plane-to-plane and plane IoU, base/CostFunction.h:350-506).
 
 Each function is the un-batched residual of ONE observation; the solver
 maps it over the observation axis with `torch.func.vmap` and differentiates
@@ -166,3 +167,40 @@ def scale_factor(scale, lower, upper):
     below = torch.clamp_min(lower - scale[0], 0.0)
     above = torch.clamp_min(scale[0] - upper, 0.0)
     return (below + above).reshape(1)
+
+
+# ----------------------------------------------------------------------------
+# camera-LiDAR line residuals (base/CostFunction.h:350-506)
+# ----------------------------------------------------------------------------
+
+def _transform_pair(pose_r, pose_n, p):
+    """Neighbour local -> world -> reference local (the functors' transform)."""
+    aa_n, t_n = split_pose(pose_n)
+    aa_r, t_r = split_pose(pose_r)
+    R_wn = se3.exp_so3(-aa_n)
+    p_w = R_wn @ p - R_wn @ t_n
+    return se3.exp_so3(aa_r) @ p_w + t_r
+
+
+def plane2plane_global(pose_r, pose_n, plane_ref_n3, point_a_n, point_b_n):
+    """Plane2Plane_Global (base/CostFunction.h:350-426): the angle, folded
+    to [0, pi/2], between the image line's plane (unit normal in the camera
+    frame) and the plane through the camera centre and the LiDAR line's
+    endpoints (LiDAR frame, mapped into the camera frame). (1,)."""
+    a_ref = _transform_pair(pose_r, pose_n, point_a_n)
+    b_ref = _transform_pair(pose_r, pose_n, point_b_n)
+    n1 = torch.linalg.cross(a_ref, b_ref, dim=-1)
+    return plane_angle(plane_ref_n3, n1)[None]
+
+
+def plane_iou(pose_r, pose_n, ref_plane4, middle_n, middle_ref, half_angle):
+    """PlaneIOUResidual (base/CostFunction.h:433-506): hinge on the angle
+    between the LiDAR line's midpoint, projected into the image line's
+    plane, and the image line's midpoint ray, beyond the image line's half
+    arc. (1,)."""
+    m_ref = _transform_pair(pose_r, pose_n, middle_n)
+    n = ref_plane4[:3]
+    dis = torch.sum(n * m_ref) + ref_plane4[3]
+    m_proj = m_ref - dis * n
+    ang = vector_angle(m_proj, middle_ref)
+    return torch.clamp_min(ang - half_angle, 0.0)[None]

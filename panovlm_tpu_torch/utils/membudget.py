@@ -1,4 +1,5 @@
-"""Host-memory budget assertion — fail in seconds, not at hour two.
+"""Host-memory budget assertion — fail in seconds, not at hour two — and
+the chunk size of batched device work.
 
 The port's copy of `assert_host_budget` from panovlm_tpu/utils/membudget.py.
 A stage declares its dominant host arrays up front; if the plan alone
@@ -57,3 +58,16 @@ def assert_host_budget(stage: str, plan: dict, limit_frac: float = 0.85,
             "transient copies", stage, slack, slack * total / 2**30,
             limit_frac * avail / 2**30)
     return total
+
+
+def device_chunk(item_bytes: int, device, frac: float = 0.25,
+                 max_items: int = 1 << 16) -> int:
+    """How many items of `item_bytes` temporaries fit in `frac` of the free
+    memory of `device` (of physical RAM on the CPU); at least 1."""
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0]
+    else:
+        free = host_total_bytes()
+    return int(max(1, min(max_items, frac * free // max(item_bytes, 1))))

@@ -38,6 +38,8 @@ for m in mods + ["chip_smoke"]:
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 assert len(mods) > 30, mods
+for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg"):
+    assert "panovlm_tpu_torch." + m in mods, m
 print("ok")
 """
 
@@ -56,6 +58,20 @@ def test_port_imports_without_jax_or_cv2():
 def test_unported_stages_exit_nonzero(stage, capsys):
     assert main([stage, "config.txt", "--device", "cpu"]) != 0
     assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
+
+
+def test_native_libraries_build_from_the_checkout():
+    """The scan reader and the LSD compile with g++ into build/native/ at
+    first use (the scan reader has a numpy fallback, the LSD none)."""
+    import shutil
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    from panovlm_tpu_torch import native
+    from panovlm_tpu_torch.native import lsd
+    assert native.build() is not None
+    lib = lsd.get()
+    assert lib is not None and lsd._SRC.name == "lsd.cpp"
+    assert native.library_path(lsd._SRC).exists()
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():

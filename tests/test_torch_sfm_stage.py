@@ -83,8 +83,8 @@ def _listing(cfg):
 
 def test_port_writes_the_jax_stage_artifacts(runs):
     a_j, a_t = _listing(runs["jax"]), _listing(runs["port"])
-    # depth visualisations are PNG in the port (no cv2 JPEG encoder there)
-    assert {a.replace(".jpg", ".png") for a in a_j} == a_t
+    # the same names: the depth visualisations are JPEG in both (ROADMAP F10)
+    assert a_j == a_t
     for name in ("camera_pose_final.txt", "lidar_pose.txt", "points.npz", "frames.npz",
                  "match_pair.txt", "after_sift_match.txt", "camera_pose_beforeBA.txt",
                  "camera_pose_refine.txt", "structure.pcd"):
