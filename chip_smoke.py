@@ -6,7 +6,8 @@
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. card: nvidia-smi name and power limit, torch's device name; the MVS
-     dataset's panoramas start rendering in worker processes meanwhile;
+     dataset's panoramas (gray PNG and colour JPEG) start rendering in
+     worker processes meanwhile;
   2. build: the CUDA kernels of panovlm_tpu_torch/csrc, compiled from this
      checkout (ops/_build.py, one nvcc per source, in parallel); then the
      script waits for the renders (the MVS and the SfM panoramas) and stops
@@ -91,6 +92,26 @@ Run from the root of a checkout. Phases, each fatal on failure:
      captured inputs, give the stage's bits; as a control, the float
      index_add_ that the solver used before runs twice on the joint solve's
      largest scattered sum. Prints the stage's TimeReport and peak memory.
+  11. the colorize stage (`python -m panovlm_tpu_torch colorize_lidar_map`,
+     in-process) on phase 6's dataset with colour panoramas: the render
+     workers of phase 1 also write each of its frames as a colour JPEG
+     (quality 95, 4:2:0, the port's own encoder) at 2880 x 5760, each
+     channel a function of the world point hit (COLOR_OFFSETS), so that the
+     true colour of any fused point is known; the stage reads them at scale
+     -2 (720 x 1440 RGB) with the full-width undistorted scans (16 rings x
+     1800 azimuths, cap 32,768) and the ground-truth joint poses, leaf
+     0.04. Checked: the port's decoder gives cv2's bits on an embedded
+     cv2-written probe; one decoded panorama within the q95 round-trip
+     bounds of its source array (JPEG_Q95_MEAN / _MAX, held in tier-1);
+     colorized_map.pcd has an rgb field; the fused points reach a floor;
+     the median |colour - true colour| per channel is under a bound set by
+     a CPU rehearsal at the same scale; a rerun writes the same bytes.
+     Then the stage on phase 10's outputs (its 48 PNG frames at 720 x 1440,
+     the port's joint poses and undistorted scans): the artifact and a
+     fused-points floor only (those LiDAR poses carry the reference's own
+     error, JOINT_LIDAR_REF). Prints the TimeReports, the decode time of one
+     2880 x 5760 JPEG on one thread and the peak device memory. Cut: 16 of
+     Room's 454 frames (render time), 48 in the chain; nothing in width.
 --only-sfm runs phases 1-2, 8 and 9 alone (for iterating on the SfM
 slice). Prints the card line, the kernel table as one JSON line, then, as
 the last line, {"ok": true, "device": {...}}. In the kernel table, the
@@ -697,15 +718,56 @@ def write_png_gray(path: str, img):
         f.write(chunk(b"IEND", b""))
 
 
+# phase 11's colour: channel k of a world point p (LiDAR z-up frame) is
+# synthetic._texture(p + COLOR_OFFSETS[k]); channel 0 is the gray texture
+COLOR_OFFSETS = ((0.0, 0.0, 0.0), (0.37, -0.21, 0.13), (-0.29, 0.17, 0.41))
+
+
+def true_color(p_l):
+    """The colour of world points (..., 3) in the LiDAR z-up frame, in [0, 1]."""
+    import numpy as np
+    import synthetic
+    p_l = np.asarray(p_l, np.float64)
+    return np.clip(np.stack([synthetic._texture(p_l + np.asarray(o)) for o in COLOR_OFFSETS],
+                            axis=-1), 0.0, 1.0)
+
+
+def render_color(C, H: int, W: int, R_wc):
+    """A colour panorama (H, W, 3) uint8 of the room seen from C (camera
+    convention), each pixel true_color of the point its ray hits, as
+    synthetic.render_panorama casts the rays (its gray is channel 0);
+    rendered 240 rows at a time, so that a 2880 x 5760 frame needs a few
+    hundred MB."""
+    import numpy as np
+    import synthetic
+    band = 240
+    Sm = np.asarray(S)
+    o_l = Sm.T @ np.asarray(C, np.float64)
+    rays = synthetic.pano_rays(H, W).reshape(-1, 3)
+    out = np.empty((H * W, 3), np.uint8)
+    for r0 in range(0, H, band):
+        rays_l = (rays[r0 * W:(r0 + band) * W] @ np.asarray(R_wc).T) @ Sm
+        t = synthetic.raycast_room(o_l, rays_l)
+        hit = o_l + rays_l * np.where(np.isfinite(t), t, 0.0)[:, None]
+        out[r0 * W:(r0 + band) * W] = np.clip(
+            true_color(hit).astype(np.float32) * 255, 0, 255).astype(np.uint8)
+    return out.reshape(H, W, 3)
+
+
 def _render_frame(args):
-    """Worker: render frame i at panorama size into a PNG, and its
-    ground-truth depth at the working size (returned)."""
-    path, C, R_wc, pano_hw, work_hw = args
+    """Worker: render frame i at panorama size, as a gray PNG (phase 6) and
+    as a colour JPEG at quality 95, 4:2:0 (phase 11; frame 0's source array
+    also as .npy), and return its ground-truth depth at the working size."""
+    path, jpg_path, C, R_wc, pano_hw, work_hw = args
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
     import numpy as np
     import synthetic
-    gray, _ = synthetic.render_panorama(C, *pano_hw, R_wc=R_wc)
-    write_png_gray(path, np.clip(gray * 255, 0, 255).astype(np.uint8))
+    from panovlm_tpu_torch.io import jpeg
+    rgb = render_color(C, *pano_hw, R_wc)
+    write_png_gray(path, rgb[..., 0])
+    jpeg.write_jpeg(jpg_path, rgb, quality=95)
+    if jpg_path.endswith("000000.jpg"):
+        np.save(jpg_path[:-4] + "_source.npy", rgb)
     return synthetic.render_panorama(C, *work_hw, R_wc=R_wc)[1]
 
 
@@ -719,7 +781,7 @@ def start_mvs_dataset(root: str, n: int, pool, pano_hw=(PANO_H, PANO_W)):
 
     scans, poses = room_loop(n, sweep_alpha=0.0)
     R, t = _camera_convention(poses)   # T_cl = identity: camera at the LiDAR
-    for d in ("images", "undis", "result/joint"):
+    for d in ("images", "color", "undis", "result/joint"):
         os.makedirs(os.path.join(root, d))
     for i, scan in enumerate(scans):
         write_pcd(os.path.join(root, "undis", f"{i:06d}.pcd"), scan,
@@ -732,7 +794,8 @@ def start_mvs_dataset(root: str, n: int, pool, pano_hw=(PANO_H, PANO_W)):
                 f"lidar_path_undistort = {root}/undis\nresult_path = {root}/result\n"
                 f"mvs_data_path = {root}/mvs\n{ROOM_MVS_KEYS}")
     work = (pano_hw[0] // 4, pano_hw[1] // 4)      # scale -2
-    jobs = [(os.path.join(root, "images", f"{i:06d}.png"), t[i], R[i], pano_hw, work)
+    jobs = [(os.path.join(root, "images", f"{i:06d}.png"),
+             os.path.join(root, "color", f"{i:06d}.jpg"), t[i], R[i], pano_hw, work)
             for i in range(n)]
     return cfg, pool.map_async(_render_frame, jobs)
 
@@ -1366,6 +1429,190 @@ def run_joint_chain(torch, knn_mod, sfm_cfg_path, gt):
     return launches, first.args
 
 
+# ----------------------------------------------------------------------------
+# phase 11: the colorize stage on colour JPEG panoramas, and on phase 10's
+# outputs
+# ----------------------------------------------------------------------------
+
+# the port's q95 4:2:0 JPEG of a colour panorama, decoded, against the
+# array it was encoded from: mean and max |difference| (u8 levels), the
+# bounds that tests/test_torch_jpeg.py holds the round trip to on frames 0
+# and 8 at 360 x 720 (measured there: mean 2.38 and 2.38, max 56 and 62).
+# The mean falls as the panorama grows, the texture then varying less per
+# pixel (0.548 at 2880 x 5760, frame 0, in a CPU rehearsal); the max is set
+# by colour edges, where one 4:2:0 chroma sample spans both sides (63 there)
+JPEG_Q95_MEAN, JPEG_Q95_MAX = 2.5, 80
+# a cv2-written JPEG (37 x 53, 4:2:0, quality 90, restart interval 2) and
+# the SHA-256 of what cv2.imread gives for it in colour (RGB order) and in
+# gray; tests/test_torch_jpeg.py checks both against cv2 and the port
+JPEG_PROBE_B64 = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAMCAgMCAgMDAwMEAwMEBQgFBQQEBQoHBwYIDAoMDAsKCwsNDhIQDQ4R"
+    "DgsLEBYQERMUFRUVDA8XGBYUGBIUFRT/2wBDAQMEBAUEBQkFBQkUDQsNFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQU"
+    "FBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBT/wAARCAAlADUDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+    "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAk"
+    "M2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKT"
+    "lJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QA"
+    "HwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdh"
+    "cRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+    "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/90ABAAC/9oADAMBAAIRAxEAPwDf+KfjKy0+BooW8u8LkokK5O3B+6cYB56cD2GTXyp4"
+    "i8aX+p6nHEhZIkOEZwRk845J4PHAYdPzq1F4j1XxjcRQyCSJdw/dFSic9ACM56kcY6nniva/AXwEkvc3c0SyfMu+"
+    "QpkFcnIBOR6jge3cV5OQcL4ThukvrKvJn1jy7D4qj9awE+Rpa+f9f1c5H4T/AA5XxM0U9/GMOPlQj5VXkeuD05+u"
+    "OM19T+G/hBZadpsLhA9zlZQ8agdAR8x7HqMnI7ZHIFbR/ByeCoYXit0hEQAWJkAV+CXPHA5OOo6fWmah8T4LK1Zi"
+    "1vbRqCCzngYxng4xwOeMYzjqa+1p5bi8zqc1B2h+Hz7afefmmacbU6k/7Jteo9L9+39f8A//0PWPEfilPDdu0SFY"
+    "praMsYlTaoABGMnO7Oc+/wCg8n8VfGwCMw2/72d4wRGdxAJHO7GCMZH4enJGR47+I6eI7VLfSEiZVAeUhiMNz93p"
+    "gcD5j69ua8Xm0S8mvnjBIjJAEbsQAhBbJGffue/1z6WK4nwmGg8DkiU6v2qrV0unuL7TV78z91dOa90+HfD7E5VL"
+    "+2s5nenuo+W/y/A6rWLKXxfcG8uL0n5jhUO0ITg7QMjoNvc/1JVvwh4T1J7Bms4RCTjes0alvY/Pzjrjn8AaK/Lc"
+    "Vl9fEVpVa1dyk9W29W/PU/SZeKXC2GbowpRSjpb3f1Vz/9Gv4D+Cj6YQ0kKbY2LBlTau7rnJPJIwcAH73OOa9t8O"
+    "6pD4dji8wtmOIN8rkndtxnHIzwB07+3G/bXFmmmgxiIkZQK+AgB45yM7snOOPyryH4j+KorCSaOzuGDOnEik5XkD"
+    "CE8dwOoAOcjrj6HE4nB4Gi8XnUuWN7Jbyk+0Vu2/uXVpanxmaY3M+IsS6PDF3B2vbovO39djr/Gnjm0gtHMkqSfL"
+    "mNYGwTzgtjAUDHOW9B24r5n8eeIJ9RVycMq7yo85sA/7RI55IGCOMk965bxB40vZj5kryGNyH5Xc4JI7Y6DOP6cc"
+    "6fhszeKY44YofNBASMZG85zjB6A46455b2NfD47McxzqPsqadLCJ/AnrJLbna378vwp93Zn7DkeQZBkeF+s5rZ4v"
+    "z37f1/wbH//S+f8Aw7qM817AoZjCJFO5t3LYwCSQcDqQf04GPoH4dfDZNbsRNPCucrIU4XHy/KCOMnpz0wfZa3PA"
+    "PwCiQm7W1TLZCLtyHyfTgeh7cBj616f9og+Htu4OYm4lUSdOCwwMnr+GMDtXz6p06/LRwUff/rqcOccUZnia7w9V"
+    "P6v09C9afCq30a3W3twyov8Azz4XGBgfM69sdqK4PU/2gI4Lx4t5lljysm4Jwcnj5uv16H2or6GnwTm04KTpt39T"
+    "y45NktZKotb+Z//Tl+InjO+i1IfZ5JLf5jHlZM5z1zxyOensO/NeV6t4rnOrR2XlgRyDYMNwGJOWwfcdM+lFFfmb"
+    "xNbNs2rVcdLnalJK/RKTSSS0SSS26673Z9j4U0KWDwihQiopxf5MyP8AhFINTu5RMy/ug8rERglxzkc9Mlc/ieDX"
+    "vfwo8A2GiXdubZmEkmELNzyfLOfXqw4z2PrRRX3NSpKOFjFbNRf3n5px/OUsdOTeqv8Amz//1Ppga4vh7SnFvaRg"
+    "EleDg5UDacnPY/1GDXzz8ZPFN3fX81kSUxIpVwQdrMeDgjt39dq4xjkor7bgLA4adWFWUE5a6+jZlh4qrheWaukn"
+    "+iPlvxZ4hm0f7LcAGZrkvu3OVIxtbqMZ+/8A5zRRRXXxrxpnuT59iMDgK/JShyWXJB2vCLeri3u29z6zLMiy6rhI"
+    "TnS1d+rXV9mf/9k=")
+JPEG_PROBE_SHA256 = {
+    "color": "92f8884dab025077ee415a04f6e9b744f974161f4fe1943f0f37630f85cdcd94",
+    "gray": "73b3c88f0e89bf69d0d2b7866b6a46680cebe153a085c2ac7dda1cda47d62f6c",}
+# fused points of the colorize stage: 80 % of the counts first measured on
+# the card (26,417 on the 16 MVS frames, as in the CPU rehearsal, and
+# 151,610 on phase 10's 48 frames), so that a stage that drops most scans
+# cannot pass on the colours of the rest
+COLOR_MIN_FUSED = 21133
+CHAIN_MIN_FUSED = 121288
+# median over the fused points of |colour - true colour| per channel: the
+# CPU rehearsal at the same scale (16 frames rendered at 2880 x 5760, read
+# at 720 x 1440) measured 0.0104, 0.0120 and 0.0105; a wrong camera or
+# channel order gives ~0.1 (the channels are independent textures)
+COLOR_MAX_MEDIAN_ERR = 0.02
+
+
+def read_colorized(path):
+    """The colorized map's points (N, 3) and colours (N, 3) uint8, or fail
+    when the pcd has no rgb field."""
+    import numpy as np
+    from panovlm_tpu_torch.io.pointcloud import read_pcd
+    with open(path, "rb") as f:
+        head = f.read(4096).decode("ascii", errors="replace")
+    fields = next(line.split()[1:] for line in head.splitlines() if line.startswith("FIELDS"))
+    if "rgb" not in fields:
+        fail(f"{path}: no rgb field (FIELDS {' '.join(fields)})")
+    data = read_pcd(path)
+    rgb = np.ascontiguousarray(data[:, fields.index("rgb")]).view(np.uint32)
+    return data[:, :3], np.stack([(rgb >> 16) & 255, (rgb >> 8) & 255, rgb & 255],
+                                 axis=1).astype(np.uint8)
+
+
+def color_errors(points, rgb):
+    """Per channel, the median over the points of |colour - true colour|
+    (points in the camera-convention world of the poses)."""
+    import numpy as np
+    truth = true_color(np.asarray(points, np.float64) @ np.asarray(S))
+    return np.median(np.abs(rgb / 255.0 - truth), axis=0)
+
+
+def run_colorize(torch, cfg_path, label: str, device: str = "cuda"):
+    """`python -m panovlm_tpu_torch colorize_lidar_map` in-process. Prints
+    the stage's TimeReport and peak device memory; returns the pcd's
+    bytes, points and colours."""
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    cfg = load_config(cfg_path)
+    tr = TimeReport()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rc = port_main(["colorize_lidar_map", cfg_path, "--device", device], tr=tr)
+    wall = time.time() - t0
+    if rc != 0:
+        fail(f"colorize_lidar_map ({label}) exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    log(f"colorize stage ({label}): wall {wall:.2f} s, peak device memory {peak:.2f} GiB")
+    for name, sec in tr.time_spent.items():
+        if name != "colorize_lidar_map":
+            log(f"  {name}: {sec:.2f} s")
+    path = os.path.join(cfg.texture_result_path, "colorized_map.pcd")
+    if not os.path.exists(path):
+        fail(f"missing result/texture/colorized_map.pcd ({label})")
+    with open(path, "rb") as f:
+        blob = f.read()
+    return (blob, *read_colorized(path))
+
+
+def check_jpeg_decoder():
+    """The port's decoder on this machine: the embedded cv2-written probe
+    gives cv2's bits (by hash)."""
+    import base64
+    import hashlib
+    from panovlm_tpu_torch.native import jpeg as native_jpeg
+    probe = base64.b64decode(JPEG_PROBE_B64)
+    got = {kind: hashlib.sha256(native_jpeg.decode(probe, kind == "color").tobytes()).hexdigest()
+           for kind in ("color", "gray")}
+    log(f"JPEG probe (cv2-written 4:2:0 with restarts): "
+        f"{'cv2 bits' if got == JPEG_PROBE_SHA256 else f'DIFFERS {got}'}")
+    if got != JPEG_PROBE_SHA256:
+        fail("the JPEG decoder built here does not give cv2's bits on the probe")
+
+
+def run_colorize_phase(torch, mvs_cfg_path, device: str = "cuda"):
+    """Phase 11 on the MVS dataset: the colour JPEG panoramas (2880 x 5760,
+    read at scale -2), its undistorted scans and ground-truth joint poses."""
+    import numpy as np
+    from panovlm_tpu_torch.io.jpeg import read_jpeg
+
+    root = os.path.dirname(mvs_cfg_path)
+    cfg_path = os.path.join(root, "color_config.txt")
+    with open(mvs_cfg_path) as f:
+        text = f.read().replace(f"image_path = {root}/images", f"image_path = {root}/color")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    check_jpeg_decoder()
+    jpg = os.path.join(root, "color", "000000.jpg")
+    t0 = time.time()
+    img = read_jpeg(jpg, color=True)
+    dt = time.time() - t0
+    diff = np.abs(img.astype(np.int16) - np.load(jpg[:-4] + "_source.npy").astype(np.int16))
+    log(f"JPEG decode of one {img.shape[0]} x {img.shape[1]} colour panorama on one thread: "
+        f"{dt * 1000:.1f} ms ({os.path.getsize(jpg) / 2**20:.2f} MiB); against its source "
+        f"array: mean {diff.mean():.4f}, max {diff.max()} (bounds {JPEG_Q95_MEAN}, "
+        f"{JPEG_Q95_MAX})")
+    if not (diff.mean() <= JPEG_Q95_MEAN and diff.max() <= JPEG_Q95_MAX):
+        fail("decoded panorama off its source beyond the q95 round-trip bounds")
+    blob, pts, rgb = run_colorize(torch, cfg_path, "MVS frames, colour JPEG", device)
+    err = color_errors(pts, rgb)
+    log(f"colorized map: {len(pts)} fused points (floor {COLOR_MIN_FUSED}); median |colour - "
+        f"true colour| per channel {np.array2string(err, precision=5)} (bound "
+        f"{COLOR_MAX_MEDIAN_ERR})")
+    if not len(pts) >= COLOR_MIN_FUSED:
+        fail(f"{len(pts)} fused points < {COLOR_MIN_FUSED}")
+    if not (err < COLOR_MAX_MEDIAN_ERR).all():
+        fail(f"colour error {err} not under {COLOR_MAX_MEDIAN_ERR}")
+    again = run_colorize(torch, cfg_path, "rerun", device)[0]
+    log(f"colorize stage rerun: colorized_map.pcd {'bit-equal' if again == blob else 'DIFFERS'}")
+    if again != blob:
+        fail("the colorize stage is not reproducible")
+
+
+def run_colorize_chain(torch, sfm_cfg_path, device: str = "cuda"):
+    """Phase 11's chain: the stage on phase 10's outputs (its PNG frames, the
+    port's own joint poses and undistorted scans). The joint LiDAR poses
+    carry the reference's own error there (JOINT_LIDAR_REF), so only the
+    artifact and the fused points are checked."""
+    cfg_path = os.path.join(os.path.dirname(sfm_cfg_path), "chain_config.txt")
+    _, pts, _ = run_colorize(torch, cfg_path, "phase 10's outputs", device)
+    log(f"colorized map of the chain: {len(pts)} fused points (floor {CHAIN_MIN_FUSED})")
+    if not len(pts) >= CHAIN_MIN_FUSED:
+        fail(f"{len(pts)} fused points < {CHAIN_MIN_FUSED} on phase 10's outputs")
+
+
 def with_shapes(main, parts, **extra):
     """A kernel's row of the JSON line: the headline shape's numbers, the
     largest error over its shapes and each shape's numbers."""
@@ -1439,7 +1686,8 @@ def main():
         sfm_async.get(timeout=900)
         if not args.only_sfm:
             d_gt = gt_async.get(timeout=900)
-            log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}")
+            log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, gray PNG "
+                f"and colour JPEG")
         pool.close()
         pool.join()
         log(f"SfM dataset: {args.sfm_frames} panoramas at {SFM_HW}; renders ready "
@@ -1498,6 +1746,13 @@ def main():
             del vox
             torch.cuda.empty_cache()
             log(f"phase 10 (odometry + joint chain, F9): {time.time() - t0:.1f} s")
+
+            # 11. the colorize stage on the MVS dataset's colour JPEGs, then
+            # on phase 10's outputs
+            t0 = time.time()
+            run_colorize_phase(torch, mvs_cfg)
+            run_colorize_chain(torch, sfm_cfg)
+            log(f"phase 11 (colorize): {time.time() - t0:.1f} s")
     finally:
         pool.terminate()
         pool.join()

@@ -2,9 +2,8 @@
 
     python -m panovlm_tpu_torch <stage> <config.txt> [--device cuda|cpu]
 
-Ported: init_camera_pose, init_lidar_pose, joint_optimization and joint_mvs.
-colorize_lidar_map exits non-zero: it runs only in the JAX package
-(`python -m panovlm_tpu`) until its slice lands.
+All five stages: init_camera_pose, init_lidar_pose, joint_optimization,
+colorize_lidar_map and joint_mvs.
 """
 
 from __future__ import annotations
@@ -13,19 +12,16 @@ import argparse
 import logging
 import sys
 
-PORTED = ("init_camera_pose", "init_lidar_pose", "joint_optimization", "joint_mvs")
-NOT_PORTED = ("colorize_lidar_map",)
+STAGES = ("init_camera_pose", "init_lidar_pose", "joint_optimization",
+         "colorize_lidar_map", "joint_mvs")
 
 
 def main(argv=None, infos: list | None = None, tr=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m panovlm_tpu_torch")
-    parser.add_argument("stage", choices=PORTED + NOT_PORTED)
+    parser.add_argument("stage", choices=STAGES)
     parser.add_argument("config")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.stage in NOT_PORTED:
-        print(f"{args.stage}: not ported yet (ROADMAP.md)", file=sys.stderr)
-        return 2
 
     from . import pipeline
     from .config import load_config
@@ -44,6 +40,8 @@ def main(argv=None, infos: list | None = None, tr=None) -> int:
             pipeline.joint_mvs(cfg, tr, device=device)
         elif args.stage == "joint_optimization":
             pipeline.joint_optimization(cfg, tr, device=device)
+        elif args.stage == "colorize_lidar_map":
+            pipeline.colorize_lidar_map(cfg, tr, device=device)
         else:
             pipeline.init_lidar_pose(cfg, tr, device=device, infos=infos)
     print(tr.report())

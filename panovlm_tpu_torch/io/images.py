@@ -10,10 +10,16 @@
     ((9798 R + 19235 G + 3735 B + 16384) >> 15) and differs on ~half the
     pixels; load_images reads with imread, so the port follows imread;
   * `pyr_down` / `pyr_up`: cv2.pyrDown / cv2.pyrUp on u8 images — the 5-tap
-    [1 4 6 4 1] kernel in integer arithmetic, rounded to u8 at each level,
+    [1 4 6 4 1] kernel in integer arithmetic (pyr_down in numpy uint16),
+    rounded to u8 at each level,
     BORDER_REFLECT_101 (pyrUp repeats the last row and column, as cv2's
     does);
-  * JPEG raises NotImplementedError (ROADMAP.md).
+  * JPEG through `io/jpeg.read_jpeg` (the host C++ decoder
+    native/jpeg.cpp), with cv2.imread's bits: a gray read is libjpeg's Y
+    plane, not `rgb_to_gray` of the colour result.
+
+`load_images` decodes and pyramids the frames on threads (the decoder's
+C call and numpy's loops release the GIL).
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ import glob
 import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from .jpeg import read_jpeg
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples
@@ -132,19 +140,19 @@ def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
             >> 15).astype(np.uint8)
 
 
-def _read(path: str) -> np.ndarray:
+def _read_png(path: str) -> np.ndarray:
     """uint8 (H,W) gray or (H,W,3) RGB (alpha dropped) of a PNG file."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: JPEG decoding is not ported; convert the images to PNG "
-            "(ROADMAP.md)")
-    if ext != ".png":
-        raise ValueError(f"{path}: unknown image format {ext}")
     img = read_png(path)
     if img.ndim == 3:
         img = img[..., 0] if img.shape[2] == 2 else img[..., :3]
     return img
+
+
+def _is_jpeg(path: str) -> bool:
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".jpg", ".jpeg", ".png"):
+        raise ValueError(f"{path}: unknown image format {ext}")
+    return ext != ".png"
 
 
 def _as(img: np.ndarray, color: bool) -> np.ndarray:
@@ -156,7 +164,9 @@ def _as(img: np.ndarray, color: bool) -> np.ndarray:
 def read_image(path: str, color: bool = False) -> np.ndarray:
     """imread: uint8 gray (H,W), or RGB (H,W,3) with color=True (a gray
     file gives three equal channels; alpha is dropped)."""
-    return _as(_read(path), color)
+    if _is_jpeg(path):
+        return read_jpeg(path, color)
+    return _as(_read_png(path), color)
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:
@@ -171,25 +181,26 @@ def _unplanes(t: torch.Tensor, like: np.ndarray) -> np.ndarray:
     return out[..., 0] if like.ndim == 2 else out
 
 
-_K5 = torch.tensor([1, 4, 6, 4, 1], dtype=torch.int32)
+def _down_axis(x: np.ndarray, axis: int) -> np.ndarray:
+    """Every second output of the [1 4 6 4 1] filter along `axis` of an
+    array padded by 2 on both sides of it: (n + 1) // 2 of them."""
+    m = (x.shape[axis] - 3) // 2
+
+    def tap(k):
+        return x[(slice(None),) * axis + (slice(k, k + 2 * m - 1, 2),)]
+    return tap(0) + 4 * tap(1) + 6 * tap(2) + 4 * tap(3) + tap(4)
 
 
 def pyr_down(img: np.ndarray) -> np.ndarray:
     """cv2.pyrDown of a uint8 image: 5x5 Gaussian (outer product of
     [1 4 6 4 1]), BORDER_REFLECT_101, every second row and column of the
-    result, (sum + 128) >> 8. Output ((H+1)//2, (W+1)//2)."""
-    x = _planes(img)
-    H, W = x.shape[-2:]
-    if H < 3 or W < 3:
-        raise ValueError(f"pyr_down needs at least 3x3 pixels, got {H}x{W}")
-    # float32 holds every partial sum exactly (<= 255 * 256 < 2^24); the
-    # strided convolutions compute the kept rows and columns only
-    x = F.pad(x.float(), (2, 2, 2, 2), mode="reflect")    # reflect = REFLECT_101
-    k = _K5.float()
-    x = F.conv2d(x, k.view(1, 1, 5, 1), stride=(2, 1))
-    x = F.conv2d(x, k.view(1, 1, 1, 5), stride=(1, 2))
-    x = (x.to(torch.int64) + 128) >> 8
-    return _unplanes(x, img)
+    result, (sum + 128) >> 8. Output ((H+1)//2, (W+1)//2). The sums fit
+    uint16 (at most 255 * 256 + 128), which keeps numpy's loops narrow."""
+    if min(img.shape[:2]) < 3:
+        raise ValueError(f"pyr_down needs at least 3x3 pixels, got {img.shape[:2]}")
+    pad = ((2, 2), (2, 2)) + ((0, 0),) * (img.ndim - 2)
+    x = np.pad(img, pad, mode="reflect").astype(np.uint16)   # reflect = REFLECT_101
+    return ((_down_axis(_down_axis(x, 0), 1) + 128) >> 8).astype(np.uint8)
 
 
 def _up_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -234,21 +245,31 @@ def list_images(path: str):
     return sorted(out)
 
 
-def load_images(image_path: str, scale: int = 0, color: bool = False):
-    """Panoramas as float32 [0,1]: gray (H,W) by default, RGB (H,W,3) with
-    color=True, each through the `scale` pyramid. Returns (images, names).
-    A gray file read in colour goes through the pyramid once, then gets its
-    three equal channels (the pyramid works per channel)."""
+def _load(path: str, scale: int, color: bool) -> np.ndarray:
+    if _is_jpeg(path):
+        return apply_scale(read_jpeg(path, color), scale)
+    img = _read_png(path)
+    if color and img.ndim == 2:   # the pyramid (per channel) once, then three channels
+        return _as(apply_scale(img, scale), True)
+    return apply_scale(_as(img, color), scale)
+
+
+def load_images_u8(image_path: str, scale: int = 0, color: bool = False):
+    """The panoramas of image_path as uint8: gray (H,W) by default, RGB
+    (H,W,3) with color=True, each through the `scale` pyramid, decoded on
+    a thread per core (at most 8). Returns (images, names)."""
     files = list_images(image_path)
-    imgs = []
-    for f in files:
-        img = _read(f)
-        if color and img.ndim == 2:
-            img = _as(apply_scale(img, scale), True)
-        else:
-            img = apply_scale(_as(img, color), scale)
-        imgs.append(img.astype(np.float32) / 255.0)
+    workers = min(8, os.cpu_count() or 1, len(files) or 1)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        imgs = list(ex.map(lambda f: _load(f, scale, color), files))
     return imgs, [os.path.basename(f) for f in files]
+
+
+def load_images(image_path: str, scale: int = 0, color: bool = False):
+    """load_images_u8 as float32 [0,1], as the JAX package's load_images
+    returns them."""
+    imgs, names = load_images_u8(image_path, scale, color)
+    return [img.astype(np.float32) / 255.0 for img in imgs], names
 
 
 def load_mask(mask_path: str, H: int, W: int):

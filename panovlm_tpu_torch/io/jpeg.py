@@ -1,8 +1,13 @@
-"""Baseline JPEG encoder (ITU-T T.81), numpy only: the port writes the
-SfM stage's depth visualisations as `depth_{i}.jpg`, as the JAX stage does
-through cv2.imwrite, on a machine without cv2.
+"""JPEG for the port, on a machine without cv2 (ITU-T T.81).
 
-The choices are cv2's defaults: quality 95 (the Annex K quantisation tables
+`read_jpeg` decodes as cv2.imread does (libjpeg-turbo at its defaults), bit
+for bit: baseline and extended sequential Huffman, 8-bit, one or three
+components, through the host C++ decoder `native/jpeg.cpp`. The image
+stages read the Room and Floor panoramas and their masks with it.
+
+`encode` / `write_jpeg` are a numpy baseline encoder: the port writes the
+SfM stage's depth visualisations as `depth_{i}.jpg`, as the JAX stage does
+through cv2.imwrite. Its choices are cv2's defaults: quality 95 (the Annex K quantisation tables
 scaled by libjpeg's rule), the standard Huffman tables of Annex K.3, JFIF
 YCbCr with 4:2:0 chroma for colour (one component for gray), edge pixels
 replicated to whole MCUs. The DCT is the exact float transform; entropy
@@ -239,3 +244,18 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 95):
     """Write a uint8 gray or RGB image as a baseline JPEG file."""
     with open(path, "wb") as f:
         f.write(encode(img, quality))
+
+
+def read_jpeg(path: str, color: bool = False) -> np.ndarray:
+    """cv2.imread of a JPEG file: uint8 (H, W) gray, the Y plane of a colour
+    file (IMREAD_GRAYSCALE), or (H, W, 3) RGB with color=True (IMREAD_COLOR,
+    then BGR -> RGB); turned by the EXIF orientation as imread does. Raises
+    NotImplementedError naming ROADMAP.md for progressive, arithmetic,
+    lossless, 12-bit, CMYK/YCCK and multi-scan sequential files."""
+    from ..native import jpeg as native_jpeg
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return native_jpeg.decode(data, color)
+    except (NotImplementedError, ValueError) as e:
+        raise type(e)(f"{path}: {e}") from None

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -121,21 +122,42 @@ def _lerp(taps, fu, fv):
     return top * (1 - fv) + bot * fv
 
 
-def bilinear_sample(img, uv):
-    """Bilinear sample img (H,W) or (H,W,C) at pixel coords uv (...,2):
-    longitude (u) wraps around the seam, the row index clamps. Returns
-    (...) or (...,C)."""
-    H, W = img.shape[0], img.shape[1]
+def _footprint(uv, H: int, W: int):
+    """The 2x2 footprint of bilinear_sample: rows v0, v1 clamped to
+    [0, H-1], columns u0, u1 wrapped around the seam, weights fu, fv."""
     u = uv[..., 0] - 0.5            # sample at pixel centers
     v = uv[..., 1] - 0.5
     u0, v0 = torch.floor(u), torch.floor(v)
     fu, fv = u - u0, v - v0
     u0i, v0i = u0.to(torch.int64), v0.to(torch.int64)
-    taps = _taps(img, torch.clamp(v0i, 0, H - 1), torch.clamp(v0i + 1, 0, H - 1),
-                 torch.remainder(u0i, W), torch.remainder(u0i + 1, W))
+    return (torch.clamp(v0i, 0, H - 1), torch.clamp(v0i + 1, 0, H - 1),
+            torch.remainder(u0i, W), torch.remainder(u0i + 1, W), fu, fv)
+
+
+def bilinear_sample(img, uv):
+    """Bilinear sample img (H,W) or (H,W,C) at pixel coords uv (...,2):
+    longitude (u) wraps around the seam, the row index clamps. Returns
+    (...) or (...,C)."""
+    v0, v1, u0, u1, fu, fv = _footprint(uv, img.shape[0], img.shape[1])
     if img.dim() == 3:
         fu, fv = fu[..., None], fv[..., None]
-    return _lerp(taps, fu, fv)
+    return _lerp(_taps(img, v0, v1, u0, u1), fu, fv)
+
+
+def bilinear_sample_u8(imgs, index, uv):
+    """bilinear_sample of the uint8 image imgs[index[b]] (imgs (M,H,W,C),
+    index (B,)) at uv (B,...,2), each tap read as the float32 u8 / 255 that
+    a float image loaded from it holds. Returns (B,...,C) float32."""
+    M, H, W = imgs.shape[:3]
+    v0, v1, u0, u1, fu, fv = _footprint(uv, H, W)
+    row0 = (index.to(torch.int64) * H).reshape(-1, *[1] * (v0.dim() - 1))
+    # numpy's float32 division is correctly rounded, as the reference's
+    # u8.astype(float32) / 255 is; a torch divide by a scalar on the card
+    # multiplies by the reciprocal
+    unit = torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)).to(imgs.device)
+    taps = [unit[t.to(torch.int64)] for t in
+            _taps(imgs.reshape(M * H, W, -1), row0 + v0, row0 + v1, u0, u1)]
+    return _lerp(taps, fu[..., None], fv[..., None])
 
 
 def bilinear_sample_clamped(img, uv):

@@ -31,6 +31,13 @@ as its JAX stage in panovlm_tpu/pipeline.py.
                camera_center_joint.pcd, lidar_center_joint.pcd,
                camera_pose_joint.ply, lidar_pose_joint.ply
 
+`colorize_lidar_map` (ColorizeLidarMap, main.cpp:524-551; JAX pipeline.py:929-965):
+
+  <image_path>/*.{jpg,png}                 (input, read in colour)
+  <lidar_path_undistort>/*.pcd, else <lidar_path>  (input)
+  result/joint/{camera,lidar}_pose_joint.txt  (input, stage 3's poses)
+  result/texture/colorized_map.pcd         (x y z rgb; intensity for gray)
+
 `joint_mvs` (JointMVS, main.cpp:553-678; JAX pipeline.py:968-1320):
 
   result/joint/{camera,lidar}_pose_joint.txt  (input, stage 3's poses)
@@ -315,6 +322,50 @@ def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda")
             viz.camera_pose_ply(
                 os.path.join(cfg.joint_result_path, f"{kind}_pose_joint.ply"), poses)
     return cam_poses, lidar_poses
+
+
+def colorize_lidar_map(cfg: Config, tr: TimeReport | None = None, device="cuda"):
+    """ColorizeLidarMap (main.cpp:524-551): every scan coloured from its
+    nearest camera at the joint poses, the scans fused in a 0.04 m voxel
+    grid. The reference's phases "colorize" and "export", plus "load images"
+    (the colour panoramas, decoded on threads), which the reference leaves
+    in its unlabelled time; reading the scans and poses stays unlabelled,
+    as there. Returns (fused points (N*P,3), their mask) numpy."""
+    from .io import images
+    from .models import texture
+
+    device = torch.device(device)
+    tr = tr or TimeReport()
+    os.makedirs(cfg.texture_result_path, exist_ok=True)
+    with tr.phase("load images"):
+        colors, _ = images.load_images_u8(cfg.image_path, cfg.scale, color=True)
+    # the joint poses belong to the undistorted clouds when the undistortion
+    # round ran (main.cpp:432-434); load_scans falls back to the raw ones
+    scans, valid, _ = load_scans(cfg, path=cfg.lidar_path_undistort)
+    R_l, t_l, _, l_ok = artifacts.read_pose_t(
+        os.path.join(cfg.joint_result_path, "lidar_pose_joint.txt"))
+    # the camera validity flags are not read, as in the reference (ROADMAP)
+    R_c, t_c, _, _ = artifacts.read_pose_t(
+        os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"))
+    lidar_params = pose_util.world_to_params(R_l, t_l)
+    cam_params = pose_util.world_to_params(R_c, t_c)
+    cap = _scan_cap(scans)
+    pts = np.zeros((len(scans), cap, 3), np.float32)
+    msk = np.zeros((len(scans), cap), bool)
+    for i, s in enumerate(scans):
+        p, m = vd.pad_points(s, cap)
+        pts[i], msk[i] = p, m & valid[i] & l_ok[i]
+    with tr.phase("colorize"):
+        pw, col, ok = texture.colorize_lidar_map(pts, msk, lidar_params, np.stack(colors),
+                                                 cam_params, device=device)
+        fused, fmask, fcol = (t.cpu().numpy() for t in texture.fuse_cloud(pw, col, ok))
+    with tr.phase("export"):
+        rgb = np.clip(fcol[fmask] * 255, 0, 255)
+        pointcloud.write_pcd(
+            os.path.join(cfg.texture_result_path, "colorized_map.pcd"), fused[fmask],
+            rgb=rgb if rgb.shape[1] == 3 else None,
+            intensity=None if rgb.shape[1] == 3 else rgb[:, 0] / 255)
+    return fused, fmask
 
 
 def _pose_T(R, t):

@@ -1,6 +1,7 @@
 """The port's image loading (panovlm_tpu_torch/io/images.py) against cv2,
-which the JAX package's load_images uses: PNG decoding, the u8 pyramid and
-the gray conversion are all bit-equal (integer arithmetic on both sides)."""
+which the JAX package's load_images uses: PNG and JPEG decoding, the u8
+pyramid and the gray conversion are all bit-equal (integer arithmetic on
+both sides), and so are load_images and load_mask on JPEG files."""
 
 import struct
 import zlib
@@ -119,8 +120,42 @@ def test_load_images_matches_jax_package(tmp_path, color, scale):
         np.testing.assert_array_equal(a, b)
 
 
-def test_jpeg_is_not_ported(tmp_path):
-    path = str(tmp_path / "a.jpg")
-    cv2.imwrite(path, np.zeros((8, 8), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        images.read_image(path)
+def _jpeg_dir(tmp_path):
+    """Three JPEG frames of 75 x 151 (odd: partial MCUs): 4:2:0 colour at
+    quality 90, a one-component file, and 4:2:2 colour at quality 95."""
+    d = tmp_path / "jpg"
+    d.mkdir()
+    for i, flags in enumerate(([cv2.IMWRITE_JPEG_QUALITY, 90], [],
+                               [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x211111])):
+        img = _image((75, 151, 3), 20 + i)
+        cv2.imwrite(str(d / f"{i:06d}.jpg"), img[..., 0] if i == 1 else img, flags)
+    return d
+
+
+@pytest.mark.parametrize("color", [False, True])
+@pytest.mark.parametrize("scale", [-2, 0, 1])
+def test_load_images_jpeg_matches_jax_package(tmp_path, color, scale):
+    """Decoded like cv2.imread (the gray read is libjpeg's Y plane) and
+    pyramided like cv2.pyrDown / pyrUp: bit-equal to the JAX package."""
+    d = _jpeg_dir(tmp_path)
+    ref, names = jpipe.load_images(Config(image_path=str(d), scale=scale), color=color)
+    out, names_t = images.load_images(str(d), scale, color=color)
+    assert names_t == names
+    for a, b in zip(out, ref):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("hw", [(50, 101), (33, 77), (150, 302), (13, 7)])
+def test_load_mask_jpeg_matches_jax_package(tmp_path, hw):
+    """A binary JPEG mask (ringing around its edges) read gray, thresholded
+    at > 0 and nearest-resized at a non-integer ratio from 75 x 151, as
+    cv2.resize(INTER_NEAREST) does it in the JAX package."""
+    rng = np.random.default_rng(4)
+    m = np.kron(rng.random((15, 31)) > 0.5, np.ones((5, 5), bool))[:75, :151]
+    path = str(tmp_path / "mask.jpg")
+    cv2.imwrite(path, m.astype(np.uint8) * 255)
+    ref = jpipe.load_mask(Config(mask_path=path), *hw)
+    out = images.load_mask(path, *hw)
+    assert out.shape == hw and out.dtype == bool
+    np.testing.assert_array_equal(out, ref)

@@ -1,7 +1,8 @@
-"""The port imports neither jax, cv2, networkx nor the JAX package
+"""The port imports neither jax, cv2, PIL, networkx nor the JAX package
 panovlm_tpu (the machine with the card has no jax, no cv2 and no networkx,
-and the port keeps its own copies of the host code it needs); the same
-holds for chip_smoke.py. The CLI refuses what it does not run."""
+and the port keeps its own copies of the host code it needs, its own PNG
+and JPEG codecs among them); the same holds for chip_smoke.py. The port's
+CLI runs each of the reference's five verbs."""
 
 import os
 import subprocess
@@ -10,7 +11,9 @@ import sys
 import pytest
 import torch
 
-from panovlm_tpu_torch.__main__ import NOT_PORTED, main
+from panovlm_tpu import pipeline as jax_pipeline
+from panovlm_tpu_torch import pipeline
+from panovlm_tpu_torch.__main__ import STAGES, main
 
 torch.set_num_threads(2)
 
@@ -21,7 +24,7 @@ import importlib
 import pkgutil
 import sys
 
-BLOCKED = ("jax", "jaxlib", "cv2", "networkx", "panovlm_tpu")   # top-level names, exact
+BLOCKED = ("jax", "jaxlib", "cv2", "PIL", "networkx", "panovlm_tpu")   # top-level names, exact
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -38,7 +41,8 @@ for m in mods + ["chip_smoke"]:
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 assert len(mods) > 30, mods
-for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg"):
+for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg",
+          "native.jpeg", "models.texture"):
     assert "panovlm_tpu_torch." + m in mods, m
 print("ok")
 """
@@ -54,24 +58,33 @@ def test_port_imports_without_jax_or_cv2():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("stage", NOT_PORTED)
-def test_unported_stages_exit_nonzero(stage, capsys):
-    assert main([stage, "config.txt", "--device", "cpu"]) != 0
-    assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
+@pytest.mark.parametrize("stage", sorted(jax_pipeline.STAGES))
+def test_cli_runs_every_reference_verb(stage, tmp_path, monkeypatch):
+    """Each verb of `python -m panovlm_tpu` reaches its stage function in
+    the port (stubbed here), with the config and the device asked for."""
+    assert set(STAGES) == set(jax_pipeline.STAGES)
+    calls = []
+    monkeypatch.setattr(pipeline, stage,
+                        lambda cfg, tr, device, **kw: calls.append((cfg.result_path, device)))
+    cfg = tmp_path / "config.txt"
+    cfg.write_text(f"result_path = {tmp_path}/result\n")
+    assert main([stage, str(cfg), "--device", "cpu"]) == 0
+    assert calls == [(f"{tmp_path}/result", torch.device("cpu"))]
 
 
 def test_native_libraries_build_from_the_checkout():
-    """The scan reader and the LSD compile with g++ into build/native/ at
-    first use (the scan reader has a numpy fallback, the LSD none)."""
+    """The scan reader, the LSD and the JPEG decoder compile with g++ into
+    build/native/ at first use (the scan reader has a numpy fallback, the
+    LSD and the decoder none)."""
     import shutil
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this machine")
     from panovlm_tpu_torch import native
-    from panovlm_tpu_torch.native import lsd
+    from panovlm_tpu_torch.native import jpeg, lsd
     assert native.build() is not None
-    lib = lsd.get()
-    assert lib is not None and lsd._SRC.name == "lsd.cpp"
-    assert native.library_path(lsd._SRC).exists()
+    for mod, name in ((lsd, "lsd.cpp"), (jpeg, "jpeg.cpp")):
+        assert mod.get() is not None and mod._SRC.name == name
+        assert native.library_path(mod._SRC).exists()
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():
