@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--scans N] [--mvs-frames N] [--sfm-frames N]
-                          [--profile-mvs] [--only-sfm]
+                          [--profile-mvs] [--only-sfm | --only-floor]
 
 Run from the root of a checkout. Phases, each fatal on failure:
-  1. card: nvidia-smi name and power limit, torch's device name; the MVS
-     dataset's panoramas (gray PNG and colour JPEG) start rendering in
-     worker processes meanwhile;
+  1. card: nvidia-smi name and power limit, torch's device name; the
+     Floor-1593 scans of phase 12 (one worker) and the MVS dataset's
+     panoramas (gray PNG and colour JPEG) start in worker processes
+     meanwhile;
   2. build: the CUDA kernels of panovlm_tpu_torch/csrc, compiled from this
      checkout (ops/_build.py, one nvcc per source, in parallel); then the
      script waits for the renders (the MVS and the SfM panoramas) and stops
@@ -112,12 +113,31 @@ Run from the root of a checkout. Phases, each fatal on failure:
      error, JOINT_LIDAR_REF). Prints the TimeReports, the decode time of one
      2880 x 5760 JPEG on one thread and the peak device memory. Cut: 16 of
      Room's 454 frames (render time), 48 in the chain; nothing in width.
+  12. the LM solver's PCG tier (above 6144 parameters): (a) the odometry
+     stage (`python -m panovlm_tpu_torch init_lidar_pose`, in-process) on
+     1593 scans (Floor's count) of the Room-454 loop
+     continued at the same yaw step (~8.8 revolutions; 9,558 pose
+     parameters), built as phase 4's: checked for the artifacts, valid
+     poses, consecutive-scan distance error < 0.05 m in both pose files,
+     one knn and one knn_ring launch per round, every solve on the PCG
+     tier, and the first round's LM problem re-solved on its captured
+     inputs with the stage's bits; that problem is solved once more with
+     the dense tier forced per call (LMOptions(dense_max_params=P)) and
+     the two are compared; prints the stage's phases, peak device memory,
+     pairs, LM and CG iterations per round; then K1 and K2 on the first
+     round's inputs as in phase 5 (B ~12,000 pairs). (b) translation
+     averaging (softl1) on the 454 cameras of the loop, each paired with
+     its 40 nearest centres (~9,000 pairs, P = 3 x 454 + pairs), 0.5 deg of
+     seeded direction noise and 5 % on the scales: the PCG tier, centres
+     within 0.08 m of ground truth after a similarity, a bit-equal rerun,
+     and the dense tier forced per call for comparison.
 --only-sfm runs phases 1-2, 8 and 9 alone (for iterating on the SfM
-slice). Prints the card line, the kernel table as one JSON line, then, as
+slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card). Prints the card line, the kernel table as one JSON line, then, as
 the last line, {"ok": true, "device": {...}}. In the kernel table, the
 headline numbers of knn and knn_ring are those at the odometry stage's
-inputs (phase 5; the joint stage's, phase 10, are a further shape, and
-`launches_joint` their launches there), volscore's those of the D=64
+inputs (phase 5; the joint stage's, phase 10, and the Floor stage's,
+phase 12, are further shapes, and `launches_joint` and `launches_floor`
+their launches there), volscore's those of the D=64
 full-scoring shape of phase
 3 and knn_desc's those of the fused search at the stage's batch; each
 row's max_abs_err is the largest over its shapes, and its "shapes" list
@@ -545,26 +565,33 @@ class _Held:
 
 
 def _hold(x):
-    """A copy of x with every tensor in it (also in tuples, lists and dicts)
-    held in host memory."""
+    """A copy of x with every tensor in it held in host memory."""
+    return _map_tensors(x, _Held, _hold, _copy)
+
+
+def _map_tensors(x, on_tensor, recurse, other):
+    """x with on_tensor applied to each tensor in it (also in tuples, named
+    tuples, lists, dicts and dataclasses such as the solver's blocks)."""
+    import dataclasses
     if hasattr(x, "detach"):
-        return _Held(x)
+        return on_tensor(x)
+    if hasattr(x, "_fields"):
+        return type(x)(*(recurse(v) for v in x))
     if isinstance(x, (tuple, list)):
-        return type(x)(_hold(v) for v in x)
+        return type(x)(recurse(v) for v in x)
     if isinstance(x, dict):
-        return {k: _hold(v) for k, v in x.items()}
-    return _copy(x)
+        return {k: recurse(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: recurse(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return other(x)
 
 
 def _restore(x):
     """_hold's copy with every tensor back on its device."""
     if isinstance(x, _Held):
         return x.t.to(x.device, copy=True)
-    if isinstance(x, (tuple, list)):
-        return type(x)(_restore(v) for v in x)
-    if isinstance(x, dict):
-        return {k: _restore(v) for k, v in x.items()}
-    return x
+    return _map_tensors(x, lambda t: t, _restore, lambda v: v)
 
 
 class _FirstCall:
@@ -1613,6 +1640,239 @@ def run_colorize_chain(torch, sfm_cfg_path, device: str = "cuda"):
         fail(f"{len(pts)} fused points < {CHAIN_MIN_FUSED} on phase 10's outputs")
 
 
+# ----------------------------------------------------------------------------
+# phase 12: the LM solver's PCG tier at Floor-1593 and at Room-454's pair
+# graph
+# ----------------------------------------------------------------------------
+
+FLOOR_SCANS = 1593          # the reference's Floor dataset (_floor_scale.sh)
+TA_FRAMES = 454
+TA_NEIGHBOURS = 40          # nearest camera centres per frame: ~9,000 pairs
+TA_DIR_NOISE_DEG = 0.5
+TA_SCALE_NOISE = 0.05
+
+
+def _timed(torch, fn):
+    """(fn(), seconds), synchronised on the card (where there is one: the
+    phase's functions also run on the CPU, at a small size)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.time()
+    out = fn()
+    sync()
+    return out, time.time() - t0
+
+
+def _pose_diff(a, b):
+    """Max position (m) and rotation (deg) difference of two (N, 6) pose
+    parameter arrays [aa, t]."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as ScR
+    rot = ScR.from_rotvec(np.asarray(a[:, :3], np.float64)).inv() * ScR.from_rotvec(
+        np.asarray(b[:, :3], np.float64))
+    return (float(np.abs(np.asarray(a[:, 3:]) - np.asarray(b[:, 3:])).max()),
+            float(np.degrees(rot.magnitude()).max()))
+
+
+def run_floor_odometry(torch, knn_mod, cfg_path, gt, device: str = "cuda"):
+    """Phase 12 (a): the odometry stage through the CLI on the Floor-1593
+    dataset (make_room: the Room-454 loop's yaw step, ~8.8 revolutions),
+    on the PCG tier. Checks the artifacts, the ground-truth bound, one K1
+    and one K2 launch per round, the tier, and a bit-equal re-solve of the
+    first round's LM problem; compares that problem's PCG solve with the
+    dense tier forced per call. Returns (launches, the first knn and
+    knn_ring arguments)."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import association, lidar_odometry
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    on_card = device == "cuda"
+    n_scans = len(gt)
+    infos, tr = [], TimeReport()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn.launches = 0
+    knn_mod.knn_ring.launches = 0
+    t0 = time.time()
+    with _FirstCall(association, ("knn", "knn_ring")) as first, \
+            _FirstCall(lidar_odometry, ("solve_lm",), host=True) as solve:
+        rc = port_main(["init_lidar_pose", cfg_path, "--device", device], infos=infos, tr=tr)
+    wall = time.time() - t0
+    launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
+    if rc != 0:
+        fail(f"init_lidar_pose at Floor-{n_scans} exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    log(f"Floor-{n_scans} odometry stage wall {wall:.1f} s, peak device memory "
+        f"{peak:.2f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30 if on_card else 0:.1f}")
+    for name, sec in tr.time_spent.items():
+        if name != "init_lidar_pose":
+            log(f"  {name}: {sec:.2f} s")
+    for r, info in enumerate(infos):
+        cg = info["cg_iterations"]
+        log(f"Floor round {r}: {info['pairs']} pairs, {info['tier']} tier, cost "
+            f"{info['initial_cost']:.6g} -> {info['final_cost']:.6g}, "
+            f"{info['iterations']} LM iterations, CG iterations per LM iteration {cg} "
+            f"(mean {np.mean(cg) if cg else 0:.1f})")
+    log(f"kernel launches on the Floor odometry path: {launches} in {len(infos)} "
+        f"association rounds")
+    if on_card and (min(launches.values()) <= 0 or set(launches.values()) != {len(infos)}):
+        fail(f"launches {launches} differ from the {len(infos)} association rounds")
+    tiers = {info["tier"] for info in infos}
+    if tiers != {"pcg"}:
+        fail(f"the Floor odometry solves ran on the {tiers} tier, not PCG")
+
+    cfg = load_config(cfg_path)
+    for name in ("lidar_pose_refined.txt", "lidar_center_refined.pcd",
+                 "lidar_pose_refined.ply", "lidar_pose_undis_refined.txt",
+                 "lidar_center_undis_refined.pcd"):
+        if not os.path.exists(os.path.join(cfg.odo_result_path, name)):
+            fail(f"missing artifact {name}")
+    n_und = len(os.listdir(cfg.lidar_path_undistort))
+    if n_und != n_scans:
+        fail(f"{n_und} undistorted clouds for {n_scans} scans")
+    d_gt = np.linalg.norm(np.diff(np.stack([p[1] for p in gt]), axis=0), axis=1)
+    for name in ("lidar_pose_refined.txt", "lidar_pose_undis_refined.txt"):
+        _, t, _, ok = artifacts.read_pose_t(os.path.join(cfg.odo_result_path, name))
+        if not (ok.all() and np.isfinite(t).all()):
+            fail(f"Floor {name}: invalid poses")
+        err = np.abs(np.linalg.norm(np.diff(t, axis=0), axis=1) - d_gt)
+        log(f"Floor {name}: consecutive-scan distance error vs ground truth: "
+            f"max {err.max() * 1000:.2f} mm (scan {int(err.argmax())}), "
+            f"median {np.median(err) * 1000:.2f} mm")
+        if not err.max() < 0.05:
+            fail(f"Floor {name}: error {err.max():.4f} m >= 0.05 m at scan "
+                 f"{int(err.argmax())}")
+
+    # the first round's LM problem again on its captured inputs: the same
+    # bits; then the dense tier forced per call on the same problem
+    args, kwargs = solve.args["solve_lm"], solve.kwargs["solve_lm"]
+    stage_out = _restore(solve.out["solve_lm"])
+    (out, info), t_pcg = _timed(torch, lambda: lidar_odometry.solve_lm(
+        *_restore(args), **_restore(kwargs)))
+    same = _bits((out, info)) == _bits(stage_out)
+    P = out["poses"].numel()
+    log(f"Floor round 0 re-solved on its inputs (P = {P}, {info['tier']} tier, "
+        f"{info['iterations']} LM iterations, CG {info['cg_iterations']}): {t_pcg:.2f} s, "
+        f"{'bit-equal to the stage' if same else 'DIFFERS from the stage'}")
+    if not same:
+        fail("the Floor round-0 LM solve is not reproducible")
+    dargs = list(_restore(args))
+    dargs[3] = dargs[3]._replace(dense_max_params=P)
+    (dout, dinfo), t_dense = _timed(torch, lambda: lidar_odometry.solve_lm(*dargs))
+    dpos, drot = _pose_diff(out["poses"].cpu().numpy(), dout["poses"].cpu().numpy())
+    log(f"Floor round 0 on the dense tier forced per call ({dinfo['tier']}, P = {P}, "
+        f"{dinfo['iterations']} LM iterations): {t_dense:.2f} s against PCG {t_pcg:.2f} s; "
+        f"poses PCG - dense: max {dpos * 1000:.3f} mm, {drot:.5f} deg; final cost "
+        f"{float(info['final_cost']):.6g} (PCG) vs {float(dinfo['final_cost']):.6g} (dense)")
+    if dinfo["tier"] != "dense":
+        fail(f"the forced dense solve ran on the {dinfo['tier']} tier")
+    return launches, first.args
+
+
+def ta_room_inputs(n: int = TA_FRAMES, k: int = TA_NEIGHBOURS, seed: int = 0):
+    """Translation averaging inputs at Room-454's pair graph: the cameras of
+    room_loop(n) (T_cl = identity), each frame paired with its k nearest
+    camera centres (the loop's other revolutions included), relative
+    rotations exact, directions with TA_DIR_NOISE_DEG of Gaussian noise and
+    scales the true distances with TA_SCALE_NOISE of relative noise.
+    Returns (kwargs of translation_averaging, ground-truth centres (n, 3),
+    camera rotations R_cw (n, 3, 3))."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as ScR
+    import synthetic
+    yaw = 2.5 * 2 * math.pi / 454
+    # the poses of room_loop(n); a few azimuths per scan, the rays unused
+    _, poses = synthetic.make_trajectory_scans(
+        n_scans=n, step=(0.8 * yaw, 0.0, 0.0), yaw_step=yaw, origin=(0.0, 0.0, -1.0),
+        noise=0.0, h_steps=4, sweep_alpha=0.5, body_step=True)
+    R_wc, C = _camera_convention(poses)
+    R_cw = np.transpose(R_wc, (0, 2, 1))
+    t_cw = -np.einsum("nij,nj->ni", R_cw, C)
+    d = np.linalg.norm(C[:, None] - C[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    nn = np.argsort(d, axis=1)[:, :k]
+    pairs = np.unique(np.sort(np.stack([np.repeat(np.arange(n), k), nn.ravel()], 1), 1), axis=0)
+    pi, pj = pairs[:, 0], pairs[:, 1]
+    R_ji = R_cw[pj] @ np.transpose(R_cw[pi], (0, 2, 1))
+    t_ji = t_cw[pj] - np.einsum("mij,mj->mi", R_ji, t_cw[pi])
+    dist = np.linalg.norm(t_ji, axis=1)
+    rng = np.random.default_rng(seed)
+    u = t_ji / dist[:, None] + rng.normal(size=t_ji.shape) * np.radians(TA_DIR_NOISE_DEG)
+    kwargs = dict(aa_global=ScR.from_matrix(R_cw).as_rotvec().astype(np.float32),
+                  pair_i=pi, pair_j=pj,
+                  rel_aa=ScR.from_matrix(R_ji).as_rotvec().astype(np.float32),
+                  rel_t=(u / np.linalg.norm(u, axis=1, keepdims=True)).astype(np.float32),
+                  scales=(dist * (1 + TA_SCALE_NOISE * rng.normal(size=len(dist)))
+                          ).astype(np.float32))
+    return kwargs, C, R_cw
+
+
+def _similarity_error(est, ref):
+    """Max |s R est + t - ref| after the least-squares similarity (Umeyama)."""
+    import numpy as np
+    mu_e, mu_r = est.mean(0), ref.mean(0)
+    e, r = est - mu_e, ref - mu_r
+    U, S, Vt = np.linalg.svd(r.T @ e / len(est))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / (e ** 2).sum(1).mean()
+    return float(np.linalg.norm(s * e @ R.T + mu_r - ref, axis=1).max())
+
+
+def run_ta_room(torch, device: str = "cuda"):
+    """Phase 12 (b): translation averaging (softl1) at Room-454's pair
+    graph, P = 3 x 454 + pairs > 6144, so the PCG tier; camera centres
+    within 0.08 m of ground truth after a similarity, a bit-equal rerun, and
+    the dense tier forced per call for comparison."""
+    import functools
+    import numpy as np
+    from panovlm_tpu_torch.models import translation_averaging as ta_mod
+
+    kwargs, C, R_cw = ta_room_inputs()
+    m = len(kwargs["pair_i"])
+    P = 3 * len(C) + m
+
+    def solve():
+        with _EveryCall(ta_mod, "solve_lm", lambda a, res: res[1]["tier"]) as tiers:
+            t, s = ta_mod.translation_averaging(**kwargs, device=device)
+        return (t, s), tiers.values
+
+    ((t, s), tiers), t_pcg = _timed(torch, solve)
+    centres = -np.einsum("nji,nj->ni", R_cw, t)
+    err = _similarity_error(centres, C)
+    log(f"translation averaging at Room-{len(C)}: {m} pairs ({TA_NEIGHBOURS} nearest "
+        f"centres per frame), direction noise {TA_DIR_NOISE_DEG} deg, scale noise "
+        f"{TA_SCALE_NOISE:.0%}; P = {P}, tiers {tiers}, {t_pcg:.2f} s; camera-centre error "
+        f"after a similarity: max {err * 1000:.2f} mm")
+    if tiers != ["pcg"]:
+        fail(f"translation averaging ran on the {tiers} tier(s), not PCG")
+    if not err < 0.08:
+        fail(f"translation averaging centre error {err:.4f} m >= 0.08 m")
+    ((t2, s2), _), t_again = _timed(torch, solve)
+    same = t.tobytes() == t2.tobytes() and s.tobytes() == s2.tobytes()
+    log(f"translation averaging rerun ({t_again:.2f} s): "
+        f"{'bit-equal' if same else 'DIFFERS'}")
+    if not same:
+        fail("translation averaging is not reproducible")
+    saved = ta_mod.LMOptions
+    ta_mod.LMOptions = functools.partial(saved, dense_max_params=P)
+    try:
+        ((td, sd), dtiers), t_dense = _timed(torch, solve)
+    finally:
+        ta_mod.LMOptions = saved
+    cd = -np.einsum("nji,nj->ni", R_cw, td)
+    log(f"translation averaging on the dense tier forced per call ({dtiers}): "
+        f"{t_dense:.2f} s against PCG {t_pcg:.2f} s; centres PCG - dense: max "
+        f"{np.linalg.norm(centres - cd, axis=1).max() * 1000:.3f} mm, scales max "
+        f"{np.abs(s - sd).max():.3g}; dense centre error {_similarity_error(cd, C) * 1000:.2f} mm")
+    if dtiers != ["dense"]:
+        fail(f"the forced dense translation averaging ran on {dtiers}")
+
+
 def with_shapes(main, parts, **extra):
     """A kernel's row of the JSON line: the headline shape's numbers, the
     largest error over its shapes and each shape's numbers."""
@@ -1630,7 +1890,11 @@ def main():
     ap.add_argument("--sfm-frames", type=int, default=48)
     ap.add_argument("--profile-mvs", action="store_true")
     ap.add_argument("--only-sfm", action="store_true")
+    ap.add_argument("--only-floor", action="store_true")
     args = ap.parse_args()
+    if args.only_sfm and args.only_floor:
+        fail("--only-sfm and --only-floor exclude each other")
+    full = not (args.only_sfm or args.only_floor)   # phases 3-7, 10 and 11
 
     import torch
     if not torch.cuda.is_available():
@@ -1650,12 +1914,17 @@ def main():
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     mvs_root = tempfile.TemporaryDirectory(prefix="chip_smoke_mvs_")
     sfm_root = tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_")
+    floor_root = tempfile.TemporaryDirectory(prefix="chip_smoke_floor_")
     # three cores stay free for the three nvcc processes of the build
     pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 4) - 3))
     try:
-        if not args.only_sfm:
+        if not args.only_sfm:   # first in the queue: one worker writes the scans
+            floor_async = pool.apply_async(make_room, (floor_root.name, FLOOR_SCANS))
+        if full:
             mvs_cfg, gt_async = start_mvs_dataset(mvs_root.name, args.mvs_frames, pool)
-        sfm_cfg, sfm_async, sfm_gt = start_sfm_dataset(sfm_root.name, args.sfm_frames, pool)
+        if not args.only_floor:
+            sfm_cfg, sfm_async, sfm_gt = start_sfm_dataset(sfm_root.name, args.sfm_frames,
+                                                           pool)
 
         from panovlm_tpu_torch.device import resolve
         resolve("cuda")
@@ -1683,18 +1952,24 @@ def main():
             log(f"  {kernel}: {len(r)} instantiation(s), {min(r)}-{max(r)} registers per thread")
 
         t0 = time.time()
-        sfm_async.get(timeout=900)
-        if not args.only_sfm:
+        if not args.only_floor:
+            sfm_async.get(timeout=900)
+        if full:
             d_gt = gt_async.get(timeout=900)
             log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, gray PNG "
                 f"and colour JPEG")
+        if not args.only_sfm:
+            floor_cfg, floor_gt, floor_pts = floor_async.get(timeout=900)
+            log(f"Floor dataset: {FLOOR_SCANS} scans of the Room-454 loop, "
+                f"{floor_pts:.0f} points/scan")
         pool.close()
         pool.join()
-        log(f"SfM dataset: {args.sfm_frames} panoramas at {SFM_HW}; renders ready "
-            f"{time.time() - t0:.1f} s after the build")
+        if not args.only_floor:
+            log(f"SfM dataset: {args.sfm_frames} panoramas at {SFM_HW}")
+        log(f"datasets ready {time.time() - t0:.1f} s after the build")
 
-        rows, launches = {}, {}
-        if not args.only_sfm:
+        rows, launches, knn_parts, knn_extra = {}, {}, {}, {"knn": {}, "knn_ring": {}}
+        if full:
             # 3. kernel vs plain
             rows = knn_vs_plain(torch, knn_mod)
             vrows = volscore_vs_plain(torch, PatchMatchConfig(
@@ -1721,16 +1996,17 @@ def main():
             rows["volscore"] = with_shapes(vrows["full"], list(vrows.values()),
                                            library_ms=None)
 
-        # 8. the SfM stage, then its reproducibility (F8)
-        launches["knn_desc"], match_batch, sfm_config, f9_calls = run_sfm(
-            torch, knn_mod, sfm_cfg, sfm_gt)
-        sfm_reproducibility(torch, sfm_config)
+        if not args.only_floor:
+            # 8. the SfM stage, then its reproducibility (F8)
+            launches["knn_desc"], match_batch, sfm_config, f9_calls = run_sfm(
+                torch, knn_mod, sfm_cfg, sfm_gt)
+            sfm_reproducibility(torch, sfm_config)
 
-        # 9. K1 at D = 128 on the stage's descriptors
-        drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
-        rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
+            # 9. K1 at D = 128 on the stage's descriptors
+            drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
+            rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
 
-        if not args.only_sfm:
+        if full:
             # 10. the odometry and joint stages on the SfM stage's outputs;
             # F9 reruns of the averaging and fuse calls the stages made
             from panovlm_tpu_torch.models import mvs as mvs_mod
@@ -1739,8 +2015,7 @@ def main():
             for name, row in knn_at_stage(torch, knn_mod, jargs,
                                           "joint stage, round 0").items():
                 knn_parts[name].append(row)
-                rows[name] = with_shapes(knn_parts[name][1], knn_parts[name],
-                                         launches_joint=joint_launches[name])
+                knn_extra[name]["launches_joint"] = joint_launches[name]
             del jargs
             f9_reruns(torch, {**f9_calls, "voxel_downsample (MVS fuse)": (mvs_mod, vox)})
             del vox
@@ -1753,11 +2028,36 @@ def main():
             run_colorize_phase(torch, mvs_cfg)
             run_colorize_chain(torch, sfm_cfg)
             log(f"phase 11 (colorize): {time.time() - t0:.1f} s")
+
+        if not args.only_sfm:
+            # 12. the PCG tier: the odometry stage at Floor-1593, K1 and K2 on
+            # its first round's inputs, translation averaging at Room-454's
+            # pair graph
+            t0 = time.time()
+            floor_launches, fargs = run_floor_odometry(torch, knn_mod, floor_cfg, floor_gt)
+            for name, row in knn_at_stage(torch, knn_mod, fargs,
+                                          f"Floor-{FLOOR_SCANS} odometry, round 0"
+                                          ).items():
+                knn_parts.setdefault(name, []).append(row)
+                knn_extra[name]["launches_floor"] = floor_launches[name]
+                launches.setdefault(name, floor_launches[name])
+            del fargs
+            torch.cuda.empty_cache()
+            log(f"phase 12 (a) (Floor odometry, K1 and K2 at its inputs): "
+                f"{time.time() - t0:.1f} s")
+            t1 = time.time()
+            run_ta_room(torch)
+            log(f"phase 12 (b) (translation averaging at Room-{TA_FRAMES}): "
+                f"{time.time() - t1:.1f} s; phase 12 {time.time() - t0:.1f} s")
+        for name, parts in knn_parts.items():   # headline: the Room stage's inputs
+            rows[name] = with_shapes(parts[1] if full else parts[0], parts,
+                                     **knn_extra[name])
     finally:
         pool.terminate()
         pool.join()
         mvs_root.cleanup()
         sfm_root.cleanup()
+        floor_root.cleanup()
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "panovlm_tpu"))
@@ -1778,7 +2078,7 @@ def main():
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{k: r[k] for k in ("launches_joint", "shapes") if k in r}}
+         **{k: r[k] for k in ("launches_joint", "launches_floor", "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

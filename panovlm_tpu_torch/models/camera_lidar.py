@@ -286,7 +286,8 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
                              schur="pts")
         cam_poses, lidar_poses, points = out["cam"], out["lidar"], out["pts"]
         infos.append({"line_pairs": int(cl_assoc["mask"].sum()), "lidar_pairs": len(pr),
-                      **{k: float(v) for k, v in info.items()}})
+                      **{k: (v if k in ("tier", "cg_iterations") else float(v))
+                         for k, v in info.items()}})
         log.info("joint round %d: %d camera-LiDAR line pairs, cost %.6g -> %.6g "
                  "in %d LM iterations", len(infos), infos[-1]["line_pairs"],
                  infos[-1]["initial_cost"], infos[-1]["final_cost"], info["iterations"])

@@ -114,7 +114,8 @@ def estimate_poses(batch, poses0, valid, cfg: OdometryConfig = OdometryConfig())
         poses = out["poses"]
         cost = float(info["final_cost"])
         infos.append({"pairs": len(pr_np), "initial_cost": float(info["initial_cost"]),
-                      "final_cost": cost, "iterations": info["iterations"]})
+                      "final_cost": cost, "iterations": info["iterations"],
+                      "tier": info["tier"], "cg_iterations": info["cg_iterations"]})
         # early stop: < 1 % relative cost improvement (LidarOdometry.cpp:164-183)
         if prev_cost is not None and prev_cost > 0 and (prev_cost - cost) / prev_cost < 0.01:
             break

@@ -1,34 +1,55 @@
-"""Levenberg-Marquardt, dense tier — ported from `panovlm_tpu/solver/lm.py`.
+"""Levenberg-Marquardt — ported from `panovlm_tpu/solver/lm.py`.
 
-Same algorithm as the JAX solver's dense path (`lm.py:686-851`): residual
-families are ResidualBlocks (one per-observation function mapped over the
+Same algorithm as the JAX `solve_lm` (`lm.py:686-851`): residual families
+are ResidualBlocks (one per-observation function mapped over the
 observation axis, with validity masks); robust losses enter as IRLS weights
-sqrt(rho'(s)) frozen per iteration; the whitened normal equations
-H = J^T J are assembled densely (run-length sums before the scatter), damped
-by lam * (diag(H) + eps) and solved by Cholesky; lambda follows Nielsen's
-rule; gauge-fixed coordinates are projected out.
+sqrt(rho'(s)) frozen per iteration; each step solves the whitened normal
+equations (J^T J + lam D^2) delta = -g with D^2 = diag(J^T J); lambda
+follows Nielsen's rule; gauge-fixed coordinates are projected out. Three
+tiers, picked by JAX's rules (`lm.py:698-709`):
+
+- dense, P <= `dense_max_params` parameters: H = J^T J assembled as a
+  (P, P) matrix (run-length sums before the scatter), damped by
+  lam * (diag(H) + eps) and solved by Cholesky.
+- Schur (`lm.py:404-647`, `solve_lm(schur=...)`): a group that one block
+  references once per observation (the BA points) is eliminated per point,
+  and the reduced system over the other groups, Pr <= `dense_max_params`
+  parameters, is solved densely. The JAX module lays the points out as
+  padded (T, L) tracks and buckets short and long ones
+  (`bucket_schur_points`); here the valid rows are ragged, and the reduced
+  matrix sum_t U_t V_t^-1 U_t^T is scattered from the pairs of rows that
+  share a point, in chunks of `_SCHUR_PAIR_CHUNK` pairs. When Pr exceeds
+  `dense_max_params`, the elimination is dropped and PCG solves over every
+  group, the points included.
+- PCG (`_precond_blocks` :260, `_pcg` :655, the branch :780-818) for every
+  other problem, and for all when `dense_max_params` is 0: preconditioned
+  conjugate gradients on Hv(v) = P(J^T J P v) + lam (D^2 + eps) v, P the
+  projection onto the free coordinates, with a block-Jacobi
+  preconditioner (one W x W block of J^T J per parameter row, damped, 1 on
+  the diagonal of fixed coordinates). JAX applies J^T J matrix-free, a jvp
+  and a vjp through the residual functions in every CG iteration. Here the
+  problem is linearised once per LM iteration and J^T J kept block-sparse:
+  the W_t x W_t outer products of each row's Jacobian (W_t the width of
+  the row's parameters together), summed per run, beside the row's flat
+  parameter ids. A CG iteration is one gather, one batched small product
+  and one exact scatter; (P, P) is never allocated.
 
 PyTorch idiom: the LM loop is a Python loop whose exit test reads one flag
-per iteration; Jacobians come from `torch.func.vmap(jacrev)` over the
-valid observation rows only (masked rows contribute exactly zero, so they
-are dropped up front instead of being evaluated and zeroed). The JAX
-package's observation chunking (`obs_chunk`/`jac_chunk`) exists for TPU
-lane padding and is not carried over.
+per iteration; the CG loop reads its exit test every `_CG_CHECK`
+iterations, and the iterations after the stop leave its state as it was,
+so it returns the iterate of a test before each iteration. Jacobians come
+from `torch.func.vmap(jacrev)` over the valid observation rows only
+(masked rows contribute exactly zero, so they are dropped up front instead
+of being evaluated and zeroed). The JAX package's observation chunking
+(`obs_chunk`/`jac_chunk`) exists for TPU lane padding and is not carried
+over. `info["tier"]` names the tier that ran; `info["cg_iterations"]`
+lists the CG iterations of each LM iteration of the PCG tier.
 
-The Schur tier (`lm.py:404-647`, `solve_lm(schur=...)`): a group that one
-block references once per observation (the BA points) is eliminated per
-point, and the reduced system over the other groups is solved densely. The
-JAX module lays the points out as padded (T, L) tracks and buckets short
-and long ones (`bucket_schur_points`); here the valid rows are ragged, and
-the reduced matrix sum_t U_t V_t^-1 U_t^T is scattered from the pairs of
-rows that share a point, in chunks of `_SCHUR_PAIR_CHUNK` pairs. Problems
-whose dense (or reduced) system has more than `dense_max_params`
-parameters raise: the PCG tier is not ported (ROADMAP.md).
-
-Every scattered sum (gradients, Hessian blocks, the Schur complement) goes
-through `ops/exact.index_sum`: float `index_add_` on the card adds
-with atomics in a varying order, and the solve amplifies its last-bit
-differences into different poses from run to run (ROADMAP F9).
+Every scattered sum (gradients, Hessian blocks, the Schur complement, the
+preconditioner blocks and each CG iteration's J^T J v) goes through
+`ops/exact.index_sum`: float `index_add_` on the card adds with atomics in
+a varying order, and the solve amplifies its last-bit differences into
+different poses from run to run (ROADMAP F9).
 """
 
 from __future__ import annotations
@@ -43,6 +64,8 @@ from ..ops.exact import index_sum
 from . import robust
 
 _SCHUR_PAIR_CHUNK = 1 << 21   # row pairs per scatter into the reduced matrix
+_CG_CHECK = 10                # CG iterations between two host reads of the exit test
+_EPS = 1e-10                  # added to D^2 in the damping
 
 
 @dataclass
@@ -68,10 +91,14 @@ class ResidualBlock:
 
 class LMOptions(NamedTuple):
     max_iters: int = 20          # reference SetOptionsLidar: 20
+    cg_iters: int = 100          # reference max_linear_solver_iterations: 100
+    cg_tol: float = 1e-6
     ftol: float = 1e-9
     init_lambda: float = 1e-4
     max_lambda: float = 1e10
     min_lambda: float = 1e-12
+    # the dense tier up to this many parameters (the Schur tier: this many
+    # after the elimination), PCG above; 0 disables both
     dense_max_params: int = 6144
 
 
@@ -94,6 +121,16 @@ class _Rows(NamedTuple):
     weight: torch.Tensor  # (m,)
     run: torch.Tensor | None    # (m,) run of each row, None without runs
     run_first: torch.Tensor | None  # (R,) first row of each run
+
+
+class _Outer(NamedTuple):
+    """One block's share of J^T J: per row (or run) the flat parameter ids
+    (n, W_t) and the outer product of its Jacobian (n, W_t, W_t); per group
+    argument (group, its parameter rows (n,), its first column in W_t, its
+    width), which locate the block-diagonal parts."""
+    fidx: torch.Tensor
+    outer: torch.Tensor
+    args: tuple
 
 
 def _valid_rows(block: ResidualBlock) -> _Rows:
@@ -134,13 +171,13 @@ def _total_cost(x: dict, all_rows) -> torch.Tensor:
     return total
 
 
-def _linearize(x: dict, all_rows, offs: dict, P: int):
-    """Cost, gradient g = J^T F and dense H = J^T J of the IRLS-whitened
-    residual vector F at x."""
+def _linearize_blocks(x: dict, all_rows, offs: dict, P: int):
+    """Cost, gradient g = J^T F and the block-sparse J^T J (one _Outer per
+    block) of the IRLS-whitened residual vector F at x."""
     dev = next(iter(x.values())).device
     cost = torch.zeros((), dtype=torch.float32, device=dev)
     g = torch.zeros(P, dtype=torch.float32, device=dev)
-    Hf = torch.zeros(P * P, dtype=torch.float32, device=dev)
+    parts = []
     for rows in all_rows:
         block = rows.block
         if rows.weight.numel() == 0:
@@ -165,12 +202,80 @@ def _linearize(x: dict, all_rows, offs: dict, P: int):
         g = g + index_sum(P, fidx.reshape(-1),
                           torch.einsum("mri,mr->mi", J, r * w[:, None]).reshape(-1))
         outer = torch.einsum("mri,mrj->mij", J, J)      # (m, sum W, sum W)
+        idx = rows.indices
         if rows.run is not None:   # sum each run before the scatter
             outer = index_sum(rows.run_first.shape[0], rows.run, outer)
             fidx = fidx[rows.run_first]
-        flat = fidx[:, :, None] * P + fidx[:, None, :]
-        Hf = Hf + index_sum(P * P, flat.reshape(-1), outer.reshape(-1))
+            idx = tuple(i[rows.run_first] for i in idx)
+        c0 = [0]
+        for Jk in Js:
+            c0.append(c0[-1] + Jk.shape[-1])
+        parts.append(_Outer(fidx, outer, tuple(
+            (gr, i, c, Jk.shape[-1]) for gr, i, c, Jk in zip(block.groups, idx, c0, Js))))
+    return cost, g, parts
+
+
+def _linearize(x: dict, all_rows, offs: dict, P: int):
+    """Cost, gradient g = J^T F and dense H = J^T J (P, P) of the
+    IRLS-whitened residual vector F at x."""
+    cost, g, parts = _linearize_blocks(x, all_rows, offs, P)
+    Hf = torch.zeros(P * P, dtype=torch.float32, device=g.device)
+    for p in parts:
+        flat = p.fidx[:, :, None] * P + p.fidx[:, None, :]
+        Hf = Hf + index_sum(P * P, flat.reshape(-1), p.outer.reshape(-1))
     return cost, g, Hf.reshape(P, P)
+
+
+def _precond_blocks(x: dict, parts, free: dict):
+    """Block-diagonal J^T J: one (W, W) block per parameter row of each
+    group (JAX `_precond_blocks`: each group argument's own block, so a row
+    that one observation references twice gets no cross term), fixed
+    coordinates zeroed."""
+    out = {}
+    for g, v in x.items():
+        idx = [i for p in parts for gr, i, _, _ in p.args if gr == g]
+        blk = [p.outer[:, c:c + W, c:c + W]
+               for p in parts for gr, _, c, W in p.args if gr == g]
+        if idx:
+            B = index_sum(v.shape[0], torch.cat(idx), torch.cat(blk))
+        else:
+            B = torch.zeros(v.shape + v.shape[-1:], dtype=v.dtype, device=v.device)
+        f = free[g].to(B.dtype)
+        out[g] = B * f[:, :, None] * f[:, None, :]
+    return out
+
+
+def _pcg(Hv, b, Minv, iters: int, tol: float):
+    """Preconditioned conjugate gradients for H x = b from x = 0 (JAX
+    `_pcg`): stops at the first k with k == iters or |r| <= tol (|b| +
+    1e-30). The test is evaluated on the device before each iteration and
+    read by the host every _CG_CHECK iterations; an iteration after the
+    stop keeps the state as it was. Returns (x, k)."""
+    x = torch.zeros_like(b)
+    r = b
+    p = Minv(r)
+    rz = torch.dot(r, p)
+    thresh = tol * (torch.sqrt(torch.dot(b, b)) + 1e-30)
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = 0
+    while done < iters:
+        for _ in range(min(_CG_CHECK, iters - done)):
+            active = torch.sqrt(torch.dot(r, r)) > thresh
+            Hp = Hv(p)
+            alpha = rz / (torch.dot(p, Hp) + 1e-30)
+            r_new = r - alpha * Hp
+            z = Minv(r_new)
+            rz_new = torch.dot(r_new, z)
+            beta = rz_new / (rz + 1e-30)
+            x = torch.where(active, x + alpha * p, x)
+            p = torch.where(active, z + beta * p, p)
+            r = torch.where(active, r_new, r)
+            rz = torch.where(active, rz_new, rz)
+            k = k + active
+            done += 1
+        if not bool(torch.sqrt(torch.dot(r, r)) > thresh):
+            break
+    return x, int(k)
 
 
 def _inv3(A):
@@ -261,13 +366,27 @@ def _track_pairs(eidx, T: int):
     return order, p, q
 
 
+def _tier(groups: dict, options: LMOptions, schur: str | None):
+    """JAX's tier selection (`lm.py:698-709`): (tier, Schur group or None)."""
+    if schur is not None:
+        _, Pr = _flat_layout({k: v for k, v in groups.items() if k != schur})
+        if options.dense_max_params and Pr <= options.dense_max_params:
+            return "schur", schur
+    _, P = _flat_layout(groups)
+    if options.dense_max_params and P <= options.dense_max_params:
+        return "dense", None
+    return "pcg", None
+
+
 def solve_lm(groups: dict, blocks, fixed: dict | None = None,
              options: LMOptions = LMOptions(), schur: str | None = None):
     """Run LM. groups: {name: (N, W) float32}. fixed: {name: (N, W) bool}
     frozen coordinates (gauge fixing). schur: name of a group to eliminate
-    per row (it must appear in exactly one block, once, beside other
-    groups). Returns (groups, info) with info keys initial_cost,
-    final_cost, iterations, lambda, nu, done."""
+    per row (it must appear in exactly one block, once per row, beside
+    other groups); dropped, as in JAX, when the reduced system exceeds
+    `options.dense_max_params`. Returns (groups, info) with info keys
+    initial_cost, final_cost, iterations, lambda, nu, done, tier ("dense",
+    "schur" or "pcg") and cg_iterations (per LM iteration of the PCG tier)."""
     dev = next(iter(groups.values())).device
     if fixed is None:
         fixed = {g: torch.zeros(v.shape, dtype=torch.bool, device=dev)
@@ -280,16 +399,11 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
                 or groups[schur].shape[1] != 3):
             raise ValueError(f"group {schur!r} is not eliminable (one block, once "
                              "per row, beside other groups, width 3)")
+    tier, schur = _tier(groups, options, schur)
     rest = {k: v for k, v in groups.items() if k != schur}
     offs, P = _flat_layout(rest)
-    if P > options.dense_max_params:
-        raise NotImplementedError(
-            f"{P} parameters exceed dense_max_params="
-            f"{options.dense_max_params}: the PCG LM tier is not ported yet "
-            "(ROADMAP.md)")
     keys = sorted(rest)
     fvec = torch.cat([free[k].reshape(-1) for k in keys]).to(torch.float32)
-    eps = 1e-10
 
     def unflatten(v):
         return {k: v[offs[k]:offs[k] + groups[k].numel()].reshape(groups[k].shape)
@@ -304,45 +418,77 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
     if schur is not None:
         fE = free[schur].to(torch.float32)
         T = groups[schur].shape[0]
+    cg_counts = []
     it = 0
     while it < options.max_iters:
-        if schur is None:
-            cost, g, H = _linearize(x, all_rows, offs, P)
+        fail = 0
+        if tier == "pcg":
+            cost, g, parts = _linearize_blocks(x, all_rows, offs, P)
+            g = g * fvec
+            B = _precond_blocks(x, parts, free)
+            D2 = torch.cat([torch.diagonal(B[k], dim1=-2, dim2=-1).reshape(-1)
+                            for k in keys])
+            damp = lam * (D2 + _EPS)
+            fidx = torch.cat([p.fidx.reshape(-1) for p in parts])
+            # block-Jacobi of (J^T J + lam D^2), 1 on the diagonal of fixed
+            # coordinates; inverted once per LM iteration
+            Binv = {k: torch.linalg.inv(B[k] + torch.diag_embed(d + fixed[k].to(d.dtype)))
+                    for k, d in unflatten(damp).items()}
+
+            def Hv(v):
+                v = v * fvec
+                hv = index_sum(P, fidx, torch.cat([
+                    torch.einsum("nij,nj->ni", p.outer, v[p.fidx]).reshape(-1)
+                    for p in parts]))
+                return hv * fvec + damp * v
+
+            def Minv(r):
+                return torch.cat([(Binv[k] @ r_k[:, :, None])[:, :, 0].reshape(-1)
+                                  for k, r_k in unflatten(r).items()]) * fvec
+
+            dflat, k_cg = _pcg(Hv, -g, Minv, options.cg_iters, options.cg_tol)
+            cg_counts.append(k_cg)
+            dflat = dflat * fvec
+            delta = unflatten(dflat)
+            pred = 0.5 * torch.dot(dflat, damp * dflat - g)
         else:
-            cost, g, H, gE, part = _schur_linearize(x, all_rows, offs, P, schur, free)
-            gE = gE * fE
-        g = g * fvec
-        H = H * fvec[:, None] * fvec[None, :]
-        D2 = torch.diagonal(H)
-        A = H + torch.diag(lam * (D2 + eps) + (1.0 - fvec))
-        rhs = -g
-        if schur is not None:
-            eidx, JE, U, fidx = part
-            V = index_sum(T, eidx, torch.einsum("mra,mrb->mab", JE, JE))
-            dV = torch.diagonal(V, dim1=-2, dim2=-1)
-            Vinv = _inv3(V + torch.diag_embed(lam * (dV + eps) + (1.0 - fE)))
-            Y = U @ Vinv[eidx]                                      # (m, Wr, WE)
-            order, pp, qq = _track_pairs(eidx, T)
-            Ys, Us, fs = Y[order], U[order], fidx[order]
-            Sf = torch.zeros(P * P, dtype=torch.float32, device=dev)
-            for c0 in range(0, pp.shape[0], _SCHUR_PAIR_CHUNK):
-                p_, q_ = pp[c0:c0 + _SCHUR_PAIR_CHUNK], qq[c0:c0 + _SCHUR_PAIR_CHUNK]
-                blk = Ys[p_] @ Us[q_].transpose(-1, -2)
-                Sf = Sf + index_sum(
-                    P * P, (fs[p_][:, :, None] * P + fs[q_][:, None, :]).reshape(-1),
-                    blk.reshape(-1))
-            A = A - Sf.reshape(P, P)
-            rhs = rhs + index_sum(P, fidx.reshape(-1),
-                                  torch.einsum("mab,mb->ma", Y, gE[eidx]).reshape(-1))
-        Lc, fail = torch.linalg.cholesky_ex(A)
-        dflat = torch.cholesky_solve(rhs[:, None], Lc)[:, 0] * fvec
-        delta = unflatten(dflat)
-        pred = 0.5 * torch.dot(dflat, lam * (D2 + eps) * dflat - g)
-        if schur is not None:
-            acc = -gE - index_sum(T, eidx, torch.einsum("mab,ma->mb", U, dflat[fidx]))
-            dp = (Vinv @ acc[..., None])[..., 0] * fE
-            delta[schur] = dp
-            pred = pred + 0.5 * torch.sum(dp * (lam * (dV + eps) * dp - gE))
+            if schur is None:
+                cost, g, H = _linearize(x, all_rows, offs, P)
+            else:
+                cost, g, H, gE, part = _schur_linearize(x, all_rows, offs, P, schur, free)
+                gE = gE * fE
+            g = g * fvec
+            H = H * fvec[:, None] * fvec[None, :]
+            D2 = torch.diagonal(H)
+            A = H + torch.diag(lam * (D2 + _EPS) + (1.0 - fvec))
+            rhs = -g
+            if schur is not None:
+                eidx, JE, U, fidx = part
+                V = index_sum(T, eidx, torch.einsum("mra,mrb->mab", JE, JE))
+                dV = torch.diagonal(V, dim1=-2, dim2=-1)
+                Vinv = _inv3(V + torch.diag_embed(lam * (dV + _EPS) + (1.0 - fE)))
+                Y = U @ Vinv[eidx]                                      # (m, Wr, WE)
+                order, pp, qq = _track_pairs(eidx, T)
+                Ys, Us, fs = Y[order], U[order], fidx[order]
+                Sf = torch.zeros(P * P, dtype=torch.float32, device=dev)
+                for c0 in range(0, pp.shape[0], _SCHUR_PAIR_CHUNK):
+                    p_, q_ = pp[c0:c0 + _SCHUR_PAIR_CHUNK], qq[c0:c0 + _SCHUR_PAIR_CHUNK]
+                    blk = Ys[p_] @ Us[q_].transpose(-1, -2)
+                    Sf = Sf + index_sum(
+                        P * P, (fs[p_][:, :, None] * P + fs[q_][:, None, :]).reshape(-1),
+                        blk.reshape(-1))
+                A = A - Sf.reshape(P, P)
+                rhs = rhs + index_sum(P, fidx.reshape(-1),
+                                      torch.einsum("mab,mb->ma", Y, gE[eidx]).reshape(-1))
+            Lc, fail = torch.linalg.cholesky_ex(A)
+            dflat = torch.cholesky_solve(rhs[:, None], Lc)[:, 0] * fvec
+            delta = unflatten(dflat)
+            pred = 0.5 * torch.dot(dflat, lam * (D2 + _EPS) * dflat - g)
+            if schur is not None:
+                acc = -gE - index_sum(T, eidx, torch.einsum("mab,ma->mb", U, dflat[fidx]))
+                dp = (Vinv @ acc[..., None])[..., 0] * fE
+                delta[schur] = dp
+                pred = pred + 0.5 * torch.sum(dp * (lam * (dV + _EPS) * dp - gE))
         x_new = {k: x[k] + delta[k] for k in x}
         cost_new = _total_cost(x_new, all_rows)
         gain = (cost - cost_new) / torch.clamp_min(pred, 1e-30)
@@ -358,5 +504,6 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
         if bool(done):
             break
     info = {"initial_cost": init_cost, "final_cost": _total_cost(x, all_rows),
-            "iterations": it, "lambda": lam, "nu": nu, "done": done}
+            "iterations": it, "lambda": lam, "nu": nu, "done": done,
+            "tier": tier, "cg_iterations": cg_counts}
     return x, info

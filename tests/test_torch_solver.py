@@ -131,11 +131,3 @@ def test_masked_rows_and_run_lengths_do_not_change_the_solve():
     padded = solve(*[np.concatenate(c) for c in cols], 128)
     np.testing.assert_allclose(padded.numpy(), base.numpy(), atol=1e-5)
 
-
-def test_dense_tier_limit_raises():
-    blk = tlm.ResidualBlock(tres.point2plane_meter, ("poses", "poses"),
-                            (torch.zeros(1, dtype=torch.int64),) * 2,
-                            (torch.zeros(1, 3), torch.zeros(1, 4)),
-                            torch.ones(1), torch.ones(1, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.solve_lm({"poses": torch.zeros(1025, 6)}, (blk,))
