@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--scans N] [--mvs-frames N] [--sfm-frames N]
-                          [--profile-mvs] [--only-sfm | --only-floor]
+                          [--profile-mvs] [--only-sfm | --only-floor | --only-joint]
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. card: nvidia-smi name and power limit, torch's device name; the
@@ -131,13 +131,36 @@ Run from the root of a checkout. Phases, each fatal on failure:
      seeded direction noise and 5 % on the scales: the PCG tier, centres
      within 0.08 m of ground truth after a similarity, a bit-equal rerun,
      and the dense tier forced per call for comparison.
+  13. the joint stage's line-track modes and its CALIBRATION mode on phase
+     10's chain (after phase 11): (a) the joint stage through the CLI with
+     use_image_track, use_lidar_track and use_track_associate appended to
+     the chain config (the LBD descriptors on the card, the image-line
+     tracks with the port's LK flow, the LiDAR line tracks, the track
+     association). Checked: the artifact set, K1 and K2 once per round,
+     camera poses within 1 deg and 0.08 m, LiDAR consecutive-scan distance
+     error within 1.25 times (max and median) what the JAX joint_optimize
+     gives in the same modes on the same arguments (JOINT_TRACKS_LIDAR_REF),
+     every gate keeping lines in every round, a bit-equal rerun; prints per
+     round the lines on tracks, the line pairs before and after the track
+     association and the LK points with status 1. (b) on the frame/scan
+     pair with the most line pairs at the true T_cl (identity), from the
+     JAX test's start (1.2, -0.9, 0.7 deg; 0.06, -0.04, 0.05 m):
+     perturb_calibration_search, then calibrate, on the card and on the
+     CPU. Checked: the search keeps its pairs and does not turn the
+     rotation away from the truth, the card gives the CPU's pairs and T
+     within 1e-4 (rad, m), and the final error within 1.25 times the JAX
+     functions' (CALIB_REF). Both JAX references come from
+     tests/joint_chain_reference.py run on the host on the
+     chiprun_out/joint_chain_tracks.npz that the phase keeps.
 --only-sfm runs phases 1-2, 8 and 9 alone (for iterating on the SfM
-slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card). Prints the card line, the kernel table as one JSON line, then, as
-the last line, {"ok": true, "device": {...}}. In the kernel table, the
-headline numbers of knn and knn_ring are those at the odometry stage's
-inputs (phase 5; the joint stage's, phase 10, and the Floor stage's,
-phase 12, are further shapes, and `launches_joint` and `launches_floor`
-their launches there), volscore's those of the D=64
+slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
+--only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
+the kernel table as one JSON line, then, as the last line, {"ok": true,
+"device": {...}}. In the kernel table, the headline numbers of knn and
+knn_ring are those at the odometry stage's inputs (phase 5; the joint
+stage's, phase 10, and the Floor stage's, phase 12, are further shapes,
+and `launches_joint`, `launches_joint_tracks` (phase 13) and
+`launches_floor` their launches there), volscore's those of the D=64
 full-scoring shape of phase
 3 and knn_desc's those of the fused search at the stage's batch; each
 row's max_abs_err is the largest over its shapes, and its "shapes" list
@@ -1641,6 +1664,250 @@ def run_colorize_chain(torch, sfm_cfg_path, device: str = "cuda"):
 
 
 # ----------------------------------------------------------------------------
+# phase 13: the joint stage's line-track modes and the CALIBRATION mode on
+# phase 10's chain
+# ----------------------------------------------------------------------------
+
+JOINT_TRACK_KEYS = """\
+use_image_track              = true
+use_lidar_track              = true
+use_track_associate          = true
+"""
+# consecutive-scan distance error (m; max, median) of the LiDAR poses that
+# the JAX package's joint_optimize gives with the three track modes on this
+# phase's joint_optimize arguments (tests/joint_chain_reference.py on the
+# CPU, 8 devices, from the chiprun_out/joint_chain_tracks.npz that this
+# phase keeps; the port on the CPU there: 0.15907, 0.02757); the port's are
+# held to JOINT_LIDAR_MARGIN times it
+JOINT_TRACKS_LIDAR_REF = (0.28077, 0.03613)
+# the rotation error (deg) after the search, and the rotation (deg) and
+# translation (m) errors after calibrate, against the true T_cl (identity),
+# that the JAX package's perturb_calibration_search and calibrate give on
+# this phase's calibration pair (the same host run): frame 20, 4 line pairs
+# at the truth, too few to pin T_cl down, so the reference's own search
+# turns the rotation from 1.6593 deg away from the truth
+CALIB_REF = {"search_deg": 2.2653, "deg": 1.7689, "m": 1.19961}
+CALIB_MARGIN = 1.25
+# the JAX test's start (tests/test_camera_lidar.py:290-292)
+CALIB_START_DEG = (1.2, -0.9, 0.7)
+CALIB_START_M = (0.06, -0.04, 0.05)
+CALIB_SEARCH_ITERS = 8
+
+
+def _calib_errors(T):
+    """(rotation error deg, translation error m) of T_cl against the
+    truth, the identity."""
+    import numpy as np
+    cos = (np.trace(T[:3, :3]) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(cos, -1, 1)))), float(np.linalg.norm(T[:3, 3]))
+
+
+def save_joint_tracks(cap, grays, calib, gt, path):
+    """Phase 13's joint_optimize arguments (the arcs with their
+    descriptors), the frames as uint8, the card's result and the
+    calibration pair with its start and the card's results, as one npz:
+    the input of tests/joint_chain_reference.py."""
+    import numpy as np
+
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    (arcs, feats, *arrays, jcfg), kw = cap.args["joint_optimize"], cap.kwargs["joint_optimize"]
+    names = ("cam_poses0", "lidar_poses0", "track_img", "track_feat", "track_mask",
+             "bearings", "points0", "point_ok")
+    cam, lidar, points, _ = cap.out["joint_optimize"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(
+        path, **{f"arc_{k}": host(v) for k, v in arcs.items()},
+        **{f"lidar_{k}": host(v) for k, v in feats.items()},
+        **{n: host(a) for n, a in zip(names, arrays)}, lidar_valid=host(kw["lidar_valid"]),
+        grays_u8=np.stack([np.rint(g * 255).astype(np.uint8) for g in grays]),
+        out_cam=host(cam), out_lidar=host(lidar), out_points=host(points),
+        gt_R=gt[0], gt_C=gt[1], jcfg=json.dumps(jcfg._asdict()), **calib)
+    log(f"phase 13's joint_optimize inputs, frames, calibration pair and card results kept "
+        f"in {os.path.relpath(path, HERE)} ({os.path.getsize(path) / 2**20:.1f} MiB)")
+
+
+def run_calibration(torch, arcs_all, feats_all, device: str = "cuda"):
+    """Phase 13 (b): the CALIBRATION mode on the chain's frame/scan pair
+    with the most camera-LiDAR line pairs at the true T_cl (identity): the
+    grid search from the JAX test's start, then calibrate, on the card and
+    on the CPU; the search must keep its pairs and not turn away from the
+    truth, and the card must give the CPU's result. Returns the pair's
+    index, its start and the card's results (for the npz)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as ScR
+    from panovlm_tpu_torch.models import camera_lidar as cl
+
+    arcs_all = {k: v for k, v in arcs_all.items() if k in cl._ARCS}
+    feats_all = {k: v for k, v in feats_all.items() if k in cl._FEATS}
+    n = arcs_all["normal"].shape[0]
+    dev = arcs_all["normal"].device
+    eye = torch.eye(3, device=dev).expand(n, 3, 3)
+    at_truth = cl.associate_batch(arcs_all, {k: v[:n] for k, v in feats_all.items()}, eye,
+                                  torch.zeros((n, 3), device=dev))["mask"].sum(1).cpu().numpy()
+    f = int(np.argmax(at_truth))
+    log(f"calibration pair: frame/scan {f}, {at_truth[f]} camera-LiDAR line pairs at the "
+        f"true T_cl (median over the {n} frames {np.median(at_truth):.0f})")
+    arcs = {k: v[f] for k, v in arcs_all.items()}
+    feats = {k: v[f] for k, v in feats_all.items()}
+    T0 = np.eye(4)
+    T0[:3, :3] = ScR.from_euler("xyz", CALIB_START_DEG, degrees=True).as_matrix()
+    T0[:3, 3] = CALIB_START_M
+    def pairs_at(T):
+        R, t = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (T[:3, :3], T[:3, 3]))
+        return int(cl.associate_by_angle_pair(arcs, feats, R, t)["mask"].sum())
+    n0 = pairs_at(T0)
+    results = {}
+    for where in ("card", "cpu"):
+        t0 = time.time()
+        on = device if where == "card" else "cpu"
+        T_s, n_best = cl.perturb_calibration_search(arcs, feats, T0, device=on,
+                                                    max_iterations=CALIB_SEARCH_ITERS)
+        t1 = time.time()
+        T_c, info = cl.calibrate(arcs, feats, T_s, device=on)
+        results[where] = (T_s, n_best, T_c, info, t1 - t0, time.time() - t1)
+    T_s, n_best, T_c, info, ts, tc = results["card"]
+    for label, T, pairs in (("start", T0, n0), ("after the search", T_s, n_best),
+                            ("after calibrate", T_c, pairs_at(T_c))):
+        rot, trans = _calib_errors(T)
+        log(f"  T_cl {label}: rotation error {rot:.4f} deg, translation error "
+            f"{trans * 1000:.2f} mm, {pairs} line pairs")
+    log(f"  search {ts:.2f} s ({CALIB_SEARCH_ITERS} iterations at most, 729 candidates in "
+        f"chunks of 81), calibrate {tc:.2f} s, {int(info['iterations'])} LM iterations, "
+        f"cost {info['initial_cost']:.4g} -> {info['final_cost']:.4g}; on the CPU "
+        f"{results['cpu'][4]:.2f} s and {results['cpu'][5]:.2f} s")
+    if not n_best >= n0:
+        fail(f"calibration search lost line pairs: {n0} -> {n_best}")
+    T_s_c, n_c, T_c_c = results["cpu"][:3]
+    gap = [max(np.abs(ScR.from_matrix(a[:3, :3] @ b[:3, :3].T).as_rotvec()).max(),
+               np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in ((T_s, T_s_c), (T_c, T_c_c))]
+    log(f"  card vs CPU: pairs {n_best} vs {n_c}; T after the search {gap[0]:.2e}, after "
+        f"calibrate {gap[1]:.2e} (rad / m)")
+    if n_best != n_c or max(gap) > 1e-4:
+        fail(f"calibration on the card differs from the CPU: {n_best} vs {n_c} pairs, {gap}")
+    return {"calib_frame": f, "calib_T0": T0, "calib_T_search": T_s, "calib_n_search": n_best,
+            "calib_T": T_c}
+
+
+def run_joint_tracks(torch, knn_mod, sfm_cfg_path, gt, device: str = "cuda"):
+    """Phase 13 (a): the joint stage through the CLI on phase 10's chain
+    (its config with the three track flags), checked as phase 10 checks it
+    plus the gates; a rerun for the same bits; then (b). Returns the kernel
+    launches of the first run."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import camera_lidar
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    root = os.path.dirname(sfm_cfg_path)
+    cfg_path = os.path.join(root, "chain_tracks_config.txt")
+    with open(os.path.join(root, "chain_config.txt")) as f:
+        text = f.read()
+    with open(cfg_path, "w") as f:
+        f.write(text + JOINT_TRACK_KEYS)
+    cfg = load_config(cfg_path)
+    if not (cfg.use_image_track and cfg.use_lidar_track and cfg.use_track_associate):
+        fail("the track flags did not reach the config")
+    tr = TimeReport()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn.launches = 0
+    knn_mod.knn_ring.launches = 0
+    t0 = time.time()
+    with _FirstCall(camera_lidar, ("joint_optimize",)) as joint:
+        rc = port_main(["joint_optimization", cfg_path, "--device", device], tr=tr)
+    wall = time.time() - t0
+    launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
+    if rc != 0:
+        fail(f"joint_optimization with the track modes exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    log(f"joint stage with the track modes: wall {wall:.1f} s, peak device memory "
+        f"{peak:.2f} GiB")
+    for name, sec in tr.time_spent.items():
+        if name != "joint_optimization":
+            log(f"  {name}: {sec:.2f} s")
+    for name in JOINT_ARTIFACTS:
+        if not os.path.exists(os.path.join(cfg.joint_result_path, name)):
+            fail(f"missing artifact result/joint/{name}")
+    infos = joint.out["joint_optimize"][3]
+    for r, info in enumerate(infos):
+        log(f"  round {r}: image lines {info['image_lines_tracked']} of {info['image_lines']} "
+            f"on tracks, LiDAR lines {info['lidar_lines_tracked']} of {info['lidar_lines']}; "
+            f"line pairs {info['line_pairs_untracked']} -> {info['line_pairs_tracked']} by "
+            f"the track association; LK points {info.get('lk_points', 0)}, status 1 "
+            f"{info.get('lk_ok', 0) / max(info.get('lk_points', 0), 1):.3f}")
+        for key in ("image_lines_tracked", "lidar_lines_tracked", "line_pairs_tracked"):
+            if not info[key] > 0:
+                fail(f"round {r}: the gate keeps no lines ({key} = 0)")
+    log(f"kernel launches on the path: {launches} in {cfg.num_iteration_joint} rounds")
+    if on_card and set(launches.values()) != {cfg.num_iteration_joint}:
+        fail(f"launches {launches} differ from the {cfg.num_iteration_joint} joint rounds")
+    rot, dist, all_ok = sfm_pose_errors(
+        os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"), gt)
+    log(f"camera_pose_joint.txt vs ground truth: max rotation error {rot:.4f} deg, "
+        f"max camera-centre error {dist * 1000:.2f} mm, every frame valid: {all_ok}")
+    if not (all_ok and rot < 1.0 and dist < 0.08):
+        fail(f"joint camera poses off ground truth: {rot:.3f} deg, {dist:.4f} m, "
+             f"all valid {all_ok} (bounds 1 deg, 0.08 m)")
+
+    # the same bits on a rerun of the stage
+    first_out = _joint_outputs(cfg)
+    t1 = time.time()
+    if port_main(["joint_optimization", cfg_path, "--device", device]) != 0:
+        fail("joint_optimization with the track modes (second run) failed")
+    same = [a == b for a, b in zip(first_out, _joint_outputs(cfg))]
+    log(f"rerun ({time.time() - t1:.1f} s): camera poses, LiDAR poses, points "
+        f"{'bit-equal' if all(same) else f'DIFFER {same}'}")
+    if not all(same):
+        fail(f"the joint stage with the track modes is not reproducible: {same}")
+
+    # (b) the calibration on one frame/scan pair; then the bounds that the
+    # JAX functions' errors on the kept inputs set
+    t1 = time.time()
+    arcs, feats = joint.args["joint_optimize"][:2]
+    calib = run_calibration(torch, arcs, feats, device)
+    log(f"phase 13 (b) (calibration): {time.time() - t1:.1f} s")
+    save_joint_tracks(joint, joint.kwargs["joint_optimize"]["grays"], calib, gt,
+                      os.path.join(HERE, "chiprun_out", "joint_chain_tracks.npz"))
+    _, t, _, ok = artifacts.read_pose_t(os.path.join(cfg.joint_result_path,
+                                                     "lidar_pose_joint.txt"))
+    d_gt = np.linalg.norm(np.diff(gt[1], axis=0), axis=1)
+    err = np.abs(np.linalg.norm(np.diff(t, axis=0), axis=1) - d_gt)
+    ref_max, ref_median = JOINT_TRACKS_LIDAR_REF
+    log(f"lidar_pose_joint.txt: consecutive-scan distance error vs ground truth: max "
+        f"{err.max() * 1000:.2f} mm (scan {int(err.argmax())}), median "
+        f"{np.median(err) * 1000:.2f} mm; the JAX joint_optimize on the same inputs: "
+        f"{ref_max} m, {ref_median} m; bounds {JOINT_LIDAR_MARGIN} x those")
+    # on a weakly constrained pair the reference's own search may turn the
+    # rotation away from the truth: then the port may go as far (x 1.25)
+    rot_s, rot_0 = _calib_errors(calib["calib_T_search"])[0], _calib_errors(calib["calib_T0"])[0]
+    ref_s = CALIB_REF["search_deg"]
+    log(f"calibration search: rotation error {rot_0:.4f} -> {rot_s:.4f} deg; the JAX search "
+        f"on the same inputs: {ref_s} deg")
+    if not (rot_s <= rot_0 + 1e-6 or (ref_s is not None and rot_s <= CALIB_MARGIN * ref_s)):
+        fail(f"calibration search moved the rotation away from the truth: {rot_0:.4f} -> "
+             f"{rot_s:.4f} deg (the JAX search: {ref_s} deg)")
+    rot, trans = _calib_errors(calib["calib_T"])
+    log(f"calibration error of the JAX functions on the same inputs: {CALIB_REF['deg']} deg, "
+        f"{CALIB_REF['m']} m; bounds {CALIB_MARGIN} x those")
+    if CALIB_REF["deg"] is None or not (rot <= CALIB_MARGIN * CALIB_REF["deg"]
+                                        and trans <= CALIB_MARGIN * CALIB_REF["m"]):
+        fail(f"calibration error {rot:.4f} deg, {trans:.4f} m against {CALIB_MARGIN} x "
+             f"{CALIB_REF}")
+    if not (ok.all() and np.isfinite(t).all()):
+        fail("lidar_pose_joint.txt: invalid poses")
+    if ref_max is None or not (err.max() < JOINT_LIDAR_MARGIN * ref_max
+                               and np.median(err) < JOINT_LIDAR_MARGIN * ref_median):
+        fail(f"joint LiDAR poses with the track modes: {err.max():.4f} / "
+             f"{np.median(err):.4f} m against {JOINT_LIDAR_MARGIN} x {JOINT_TRACKS_LIDAR_REF}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # phase 12: the LM solver's PCG tier at Floor-1593 and at Room-454's pair
 # graph
 # ----------------------------------------------------------------------------
@@ -1891,10 +2158,12 @@ def main():
     ap.add_argument("--profile-mvs", action="store_true")
     ap.add_argument("--only-sfm", action="store_true")
     ap.add_argument("--only-floor", action="store_true")
+    ap.add_argument("--only-joint", action="store_true")
     args = ap.parse_args()
-    if args.only_sfm and args.only_floor:
-        fail("--only-sfm and --only-floor exclude each other")
-    full = not (args.only_sfm or args.only_floor)   # phases 3-7, 10 and 11
+    if args.only_sfm + args.only_floor + args.only_joint > 1:
+        fail("--only-sfm, --only-floor and --only-joint exclude each other")
+    full = not (args.only_sfm or args.only_floor or args.only_joint)   # phases 3-7, 9, 11
+    chain = full or args.only_joint                                     # phases 10 and 13
 
     import torch
     if not torch.cuda.is_available():
@@ -1918,7 +2187,7 @@ def main():
     # three cores stay free for the three nvcc processes of the build
     pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 4) - 3))
     try:
-        if not args.only_sfm:   # first in the queue: one worker writes the scans
+        if not (args.only_sfm or args.only_joint):   # first in the queue: one worker
             floor_async = pool.apply_async(make_room, (floor_root.name, FLOOR_SCANS))
         if full:
             mvs_cfg, gt_async = start_mvs_dataset(mvs_root.name, args.mvs_frames, pool)
@@ -1958,7 +2227,7 @@ def main():
             d_gt = gt_async.get(timeout=900)
             log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, gray PNG "
                 f"and colour JPEG")
-        if not args.only_sfm:
+        if not (args.only_sfm or args.only_joint):
             floor_cfg, floor_gt, floor_pts = floor_async.get(timeout=900)
             log(f"Floor dataset: {FLOOR_SCANS} scans of the Room-454 loop, "
                 f"{floor_pts:.0f} points/scan")
@@ -2002,11 +2271,12 @@ def main():
                 torch, knn_mod, sfm_cfg, sfm_gt)
             sfm_reproducibility(torch, sfm_config)
 
+        if not (args.only_floor or args.only_joint):
             # 9. K1 at D = 128 on the stage's descriptors
             drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
             rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
 
-        if full:
+        if chain:
             # 10. the odometry and joint stages on the SfM stage's outputs;
             # F9 reruns of the averaging and fuse calls the stages made
             from panovlm_tpu_torch.models import mvs as mvs_mod
@@ -2014,14 +2284,18 @@ def main():
             joint_launches, jargs = run_joint_chain(torch, knn_mod, sfm_cfg, sfm_gt)
             for name, row in knn_at_stage(torch, knn_mod, jargs,
                                           "joint stage, round 0").items():
-                knn_parts[name].append(row)
+                knn_parts.setdefault(name, []).append(row)
                 knn_extra[name]["launches_joint"] = joint_launches[name]
+                launches.setdefault(name, joint_launches[name])
             del jargs
-            f9_reruns(torch, {**f9_calls, "voxel_downsample (MVS fuse)": (mvs_mod, vox)})
-            del vox
+            if full:
+                f9_calls["voxel_downsample (MVS fuse)"] = (mvs_mod, vox)
+                del vox
+            f9_reruns(torch, f9_calls)
             torch.cuda.empty_cache()
             log(f"phase 10 (odometry + joint chain, F9): {time.time() - t0:.1f} s")
 
+        if full:
             # 11. the colorize stage on the MVS dataset's colour JPEGs, then
             # on phase 10's outputs
             t0 = time.time()
@@ -2029,7 +2303,19 @@ def main():
             run_colorize_chain(torch, sfm_cfg)
             log(f"phase 11 (colorize): {time.time() - t0:.1f} s")
 
-        if not args.only_sfm:
+        if chain:
+            # 13. the line-track modes and the CALIBRATION mode on phase 10's
+            # chain (after phase 11, which reads phase 10's joint poses)
+            t0 = time.time()
+            torch.cuda.reset_peak_memory_stats()
+            track_launches = run_joint_tracks(torch, knn_mod, sfm_cfg, sfm_gt)
+            for name in knn_extra:
+                knn_extra[name]["launches_joint_tracks"] = track_launches[name]
+            torch.cuda.empty_cache()
+            log(f"phase 13 (track modes, calibration): {time.time() - t0:.1f} s, peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        if not (args.only_sfm or args.only_joint):
             # 12. the PCG tier: the odometry stage at Floor-1593, K1 and K2 on
             # its first round's inputs, translation averaging at Room-454's
             # pair graph
@@ -2078,7 +2364,8 @@ def main():
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{k: r[k] for k in ("launches_joint", "launches_floor", "shapes") if k in r}}
+         **{k: r[k] for k in ("launches_joint", "launches_joint_tracks", "launches_floor",
+                              "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Camera-LiDAR joint optimization — the port of
 `panovlm_tpu/models/camera_lidar.py` (joint_optimization/CameraLidarOptimizer
-and CameraLidarLineAssociate of the reference), MAPPING mode.
+and CameraLidarLineAssociate of the reference): the MAPPING mode with its
+line-track modes, and the CALIBRATION mode.
 
   * associate_by_angle_pair: image lines (great-circle planes through the
     camera centre) against LiDAR line segments. The (image line x LiDAR
@@ -17,17 +18,29 @@ and CameraLidarLineAssociate of the reference), MAPPING mode.
     PlaneIOU, weight camera_lidar_weight), camera reprojection (weight
     camera_weight) and the LiDAR odometry families (weight lidar_weight);
     the first camera is fixed. The points are eliminated by the Schur tier
-    of `solver/lm.py`, since only the reprojection block touches them.
+    of `solver/lm.py`, since only the reprojection block touches them. The
+    line-track modes (AssociateLineMulti's flags, CameraLidarOptimizer.cpp:
+    331-671) gate the association each round: use_image_track keeps the
+    image lines on image-line tracks (models/line_tracks.py, matched with
+    the LBD descriptors when the arcs carry them and filtered by LK flow
+    when the frames are given), use_lidar_track the LiDAR lines on tracks
+    of the round's line-to-line associations, and use_track_associate (with
+    both) replaces the association by the track-level one.
+  * perturb_calibration_search (AssociateRandomDisturbance,
+    CameraLidarLineAssociate.cpp:477-622) and calibrate (CALIBRATION,
+    CameraLidarOptimizer.cpp:32-87): the extrinsic T_cl of one frame/scan
+    pair, by a grid search over 3^6 perturbations and an LM solve.
 
-Not ported (ROADMAP.md): the line-track modes (use_image_track,
-use_lidar_track, use_track_associate, with the LBD descriptors and LK flow
-they need) and the CALIBRATION mode (`calibrate`,
-`perturb_calibration_search`). The JAX module's chunked and sharded solves
-are TPU and multi-chip workarounds and are not carried over.
+The JAX module's chunked and sharded solves are TPU and multi-chip
+workarounds and are not carried over. Unlike the JAX module, the LiDAR pair
+list is not padded to a multiple of 64 with (0, 0) pairs; the LiDAR line
+tracks of the padded list are the same (tests/test_torch_camera_lidar.py).
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import logging
 import math
 from typing import NamedTuple
@@ -147,11 +160,15 @@ class JointConfig(NamedTuple):
     normalize_distance: bool = True
     ba_huber_deg: float = 4.0
     max_lm_iters: int = 30
-    # the line-track modes of the reference (AssociateLineMulti flags,
-    # CameraLidarOptimizer.cpp:331-671): not ported, they raise
+    # restrict the line association to lines on multi-view tracks
+    # (AssociateLineMulti's use_image_track / use_lidar_track flags and
+    # Image/LidarMaskByTrack, CameraLidarOptimizer.cpp:331-671)
     use_image_track: bool = False
     use_lidar_track: bool = False
     min_track_length: int = 3
+    # vote (image track, LiDAR track) pairs and distribute the validated
+    # ones to every pair (AssociateTrack, CameraLidarTrackAssociate.cpp:
+    # 103-204); only with both track kinds on
     use_track_associate: bool = False
 
 
@@ -225,16 +242,20 @@ def build_cl_blocks(cl_assoc, arc_batch, fi, li, weight,
 
 def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
                    track_img, track_feat, track_mask, bearings, points0,
-                   point_ok, cfg: JointConfig = JointConfig(), lidar_valid=None):
+                   point_ok, cfg: JointConfig = JointConfig(), lidar_valid=None, grays=None,
+                   tr=None):
     """JointOptimize, MAPPING mode (CameraLidarOptimizer.cpp:177-298).
     arc_batch / lidar_batch: stacked dicts of tensors on the working
-    device; the tracks (T, L), bearings (N, F, 3), points (T, 3) and
-    point_ok (T,) tensors or arrays; poses (N, 6) [aa_*w, t_*w]. Returns
-    (cam_poses, lidar_poses, points, infos), one info dict per round."""
-    if cfg.use_image_track or cfg.use_lidar_track or cfg.use_track_associate:
-        raise NotImplementedError(
-            "joint_optimize: the line-track modes (use_image_track, use_lidar_track, "
-            "use_track_associate) are not ported (ROADMAP.md)")
+    device (arc_batch with "desc" when the image-line matching should use
+    the descriptors); the tracks (T, L), bearings (N, F, 3), points (T, 3)
+    and point_ok (T,) tensors or arrays; poses (N, 6) [aa_*w, t_*w]; grays:
+    optional per-frame float [0, 1] images, which filter the image-line
+    matches by LK flow (MatchPanoramaLine, PanoramaLineMatch.cpp:48-118).
+    With a TimeReport `tr`, the image-line tracks are timed as its phase
+    "image line tracks". Returns (cam_poses, lidar_poses, points, infos),
+    one info dict per round, with the line counts before and after the
+    track gates and the LK points tracked."""
+    from . import line_tracks
     dev = arc_batch["normal"].device
 
     def on_dev(a, dtype=None):
@@ -267,6 +288,7 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
              "lidar": torch.zeros((n_lidars, 6), dtype=torch.bool, device=dev),
              "pts": (~point_ok)[:, None].repeat(1, 3)}
     fixed["cam"][0] = True                                 # first camera fixed
+    track_assoc = cfg.use_track_associate and cfg.use_image_track and cfg.use_lidar_track
 
     infos = []
     for _ in range(cfg.num_iteration_joint):
@@ -274,8 +296,40 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
         pair_r = torch.as_tensor(pr, device=dev)
         pair_n = torch.as_tensor(pn, device=dev)
         l_assoc = association.associate_all_pairs(lidar_batch, lidar_poses, pair_r, pair_n)
-        cl_assoc = associate_all_cl(arc_batch, lidar_batch, cam_poses, lidar_poses, fi, li)
-        blocks = (build_cl_blocks(cl_assoc, arc_batch, fi, li, cfg.camera_lidar_weight)
+        counts = {}
+        ab, lb = arc_batch, lidar_batch
+        if cfg.use_image_track:
+            with tr.phase("image line tracks") if tr is not None else contextlib.nullcontext():
+                tid_img = line_tracks.image_line_tracks(
+                    arc_batch, cam_poses, window=cfg.neighbor_size_joint,
+                    min_length=cfg.min_track_length, grays=grays, stats=counts)
+            ab = dict(arc_batch, mask=arc_batch["mask"] & torch.as_tensor(tid_img >= 0,
+                                                                           device=dev))
+            counts.update(image_lines=int(arc_batch["mask"].sum()),
+                          image_lines_tracked=int(ab["mask"].sum()))
+            log.info("image track gate: %d of %d lines survive",
+                     counts["image_lines_tracked"], counts["image_lines"])
+        if cfg.use_lidar_track:
+            tid_l = line_tracks.lidar_line_tracks(
+                {k: v.cpu().numpy() for k, v in l_assoc["l2l"].items() if k in ("mask", "seg_r")},
+                pr, pn, n_lidars, lidar_batch["line_mask"].shape[1],
+                min_length=cfg.min_track_length)
+            lb = dict(lidar_batch, line_mask=lidar_batch["line_mask"]
+                      & torch.as_tensor(tid_l >= 0, device=dev))
+            counts.update(lidar_lines=int(lidar_batch["line_mask"].sum()),
+                          lidar_lines_tracked=int(lb["line_mask"].sum()))
+            log.info("lidar track gate: %d of %d lines survive",
+                     counts["lidar_lines_tracked"], counts["lidar_lines"])
+        cl_assoc = associate_all_cl(ab, lb, cam_poses, lidar_poses, fi, li)
+        if track_assoc:
+            m2, l2 = line_tracks.camera_lidar_track_associate(cl_assoc, fi, li, tid_img, tid_l)
+            counts.update(line_pairs_untracked=int(cl_assoc["mask"].sum()),
+                          line_pairs_tracked=int(m2.sum()))
+            log.info("track associate: %d -> %d line pairs", counts["line_pairs_untracked"],
+                     counts["line_pairs_tracked"])
+            cl_assoc = dict(cl_assoc, mask=torch.as_tensor(m2, device=dev),
+                            img_line=torch.as_tensor(l2, device=dev))
+        blocks = (build_cl_blocks(cl_assoc, ab, fi, li, cfg.camera_lidar_weight)
                   + (cam_block,)
                   + lidar_odometry.build_blocks(
                       l_assoc, pair_r, pair_n, angle_residual=cfg.angle_residual,
@@ -286,9 +340,125 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
                              schur="pts")
         cam_poses, lidar_poses, points = out["cam"], out["lidar"], out["pts"]
         infos.append({"line_pairs": int(cl_assoc["mask"].sum()), "lidar_pairs": len(pr),
+                      **counts,
                       **{k: (v if k in ("tier", "cg_iterations") else float(v))
                          for k, v in info.items()}})
         log.info("joint round %d: %d camera-LiDAR line pairs, cost %.6g -> %.6g "
                  "in %d LM iterations", len(infos), infos[-1]["line_pairs"],
                  infos[-1]["initial_cost"], infos[-1]["final_cost"], info["iterations"])
     return cam_poses, lidar_poses, points, infos
+
+
+# the 3^6 extrinsic perturbations {-1, 0, 1} per degree of freedom, in the
+# JAX module's order (itertools.product), and the unperturbed one's index
+_DELTAS = np.asarray(list(itertools.product((-1.0, 0.0, 1.0), repeat=6)), np.float32)
+_CENTER = int(np.nonzero((_DELTAS == 0).all(1))[0][0])
+_SEARCH_CHUNK = 81
+
+
+def _pair_inputs(arcs, lidar_feats, device):
+    """One frame/scan pair's arc and feature dicts on `device`."""
+    def on(a):
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=device)
+    return ({k: on(arcs[k]) for k in _ARCS}, {k: on(lidar_feats[k]) for k in _FEATS})
+
+
+def _split_T(T_cl, device):
+    """(R, t, [log R, t]) float32 of a 4x4 T_cl."""
+    T = torch.as_tensor(np.asarray(T_cl, np.float32), device=device)
+    return T[:3, :3], T[:3, 3], torch.cat([se3.log_so3(T[:3, :3]), T[:3, 3]])
+
+
+def perturb_calibration_search(arcs, lidar_feats, T_cl0, rot_step_deg: float = 0.5,
+                               trans_step: float = 0.05, max_iterations: int = 15,
+                               device="cuda"):
+    """Extrinsic grid search (AssociateRandomDisturbance,
+    CameraLidarLineAssociate.cpp:477-622): T_cl is perturbed over the 3^6
+    grid of {-step, 0, +step} per degree of freedom, every candidate is
+    associated, and the one with the most line pairs, then the least mean
+    plane-line misalignment, is kept. When the centre wins the step halves;
+    a second stall ends the search. The candidates are scored 81 at a time
+    on `device`. arcs / lidar_feats: one frame's arc dict and one scan's
+    features (arrays or tensors). Returns (T_cl (4, 4), n_pairs)."""
+    a1, f1 = _pair_inputs(arcs, lidar_feats, device)
+    deltas = torch.as_tensor(_DELTAS, device=device)
+    C = _SEARCH_CHUNK
+    ab = {k: v[None].expand(C, *v.shape) for k, v in a1.items()}
+    fb = {k: v[None].expand(C, *v.shape) for k, v in f1.items()}
+
+    def score_all(pose, steps):
+        ns, mis = [], []
+        for c0 in range(0, len(deltas), C):
+            p = pose + deltas[c0:c0 + C] * steps                       # (C, 6)
+            R = se3.exp_so3(p[:, :3])
+            assoc = associate_batch(ab, fb, R, p[:, 3:])
+            n = assoc["mask"].sum(dim=1)
+            # misalignment of the accepted pairs: the LiDAR direction should
+            # lie in the image line's plane (|cos| to its normal 0)
+            n_img = torch.take_along_dim(ab["normal"], assoc["img_line"].long()[..., None], dim=1)
+            ends = assoc["endpoints_l"]
+            dir_c = _unit(torch.einsum("bij,blj->bli", R, ends[:, :, 1] - ends[:, :, 0]))
+            m = torch.abs(torch.sum(n_img * dir_c, dim=-1))
+            ns.append(n)
+            mis.append(torch.sum(torch.where(assoc["mask"], m, torch.zeros_like(m)), dim=1)
+                       / torch.clamp_min(n, 1))
+        return torch.cat(ns).cpu().numpy(), torch.cat(mis).cpu().numpy()
+
+    pose = _split_T(T_cl0, device)[2].cpu().numpy()
+    steps = np.array([np.radians(rot_step_deg)] * 3 + [trans_step] * 3, np.float32)
+    scale = 1.0
+    best_n = -1
+    for _ in range(max_iterations):
+        ns, mis = score_all(torch.as_tensor(pose, device=device),
+                            torch.as_tensor(steps * scale, device=device))
+        k = int(np.lexsort((mis, -ns))[0])   # most pairs, then least misaligned
+        if ns[k] > best_n or (ns[k] == best_n and k != _CENTER):
+            improved = k != _CENTER and ns[k] >= best_n
+            best_n = max(best_n, int(ns[k]))
+            pose = pose + _DELTAS[k] * steps * scale
+        else:
+            improved = False
+        if not improved:
+            if scale < 1.0:
+                break
+            scale *= 0.5
+    T = np.eye(4)
+    T[:3, :3] = se3.exp_so3(torch.as_tensor(pose[:3])).numpy()
+    T[:3, 3] = pose[3:]
+    return T, best_n
+
+
+def calibrate(arcs, lidar_feats, T_cl0, max_iters: int = 30, device="cuda"):
+    """CALIBRATION mode (CameraLidarOptimizer.cpp:32-87, :212-232): T_cl
+    refined from one frame/scan pair's line associations at T_cl0 by LM
+    over Plane2Plane_Relative and PlaneRelativeIOU (Huber 2 deg), on
+    `device`. Returns (T_cl (4, 4) float64, info)."""
+    from scipy.spatial.transform import Rotation as ScR
+    a1, f1 = _pair_inputs(arcs, lidar_feats, device)
+    R0, t0, pose0 = _split_T(T_cl0, device)
+    assoc = associate_by_angle_pair(a1, f1, R0, t0)
+    Ls = assoc["mask"].shape[0]
+    img_line = assoc["img_line"].long()
+    n_img = a1["normal"][img_line]
+    mid_img = a1["mid"][img_line]
+    arc_img = a1["arc"][img_line]
+    ends = assoc["endpoints_l"]
+    mids_l = 0.5 * (ends[:, 0] + ends[:, 1])
+    plane4 = torch.cat([n_img, torch.zeros_like(n_img[:, :1])], dim=1)
+    w = torch.ones((Ls,), dtype=torch.float32, device=device)
+    idx = (torch.zeros((Ls,), dtype=torch.long, device=device),)
+    scale = float(np.radians(2.0))
+    blocks = (
+        ResidualBlock(residuals.plane2plane_relative, ("tcl",), idx,
+                      (n_img, ends[:, 0], ends[:, 1]), w, assoc["mask"],
+                      loss="huber", loss_scale=scale),
+        ResidualBlock(residuals.plane_relative_iou, ("tcl",), idx,
+                      (plane4, mids_l, mid_img, arc_img / 2.0), w, assoc["mask"],
+                      loss="huber", loss_scale=scale),
+    )
+    out, info = solve_lm({"tcl": pose0[None]}, blocks, None, LMOptions(max_iters=max_iters))
+    pose = out["tcl"][0].cpu().numpy()
+    T = np.eye(4)
+    T[:3, :3] = ScR.from_rotvec(pose[:3]).as_matrix()
+    T[:3, 3] = pose[3:]
+    return T, info

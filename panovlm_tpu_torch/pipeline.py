@@ -277,9 +277,11 @@ def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda")
         min_track_length=cfg.min_track_length)
     with tr.phase("extract image lines"):
         line_mask = images.load_mask(cfg.mask_path, *grays[0].shape[:2])
+        # the descriptors serve the image-line matching alone
         arc_batch = {k: torch.from_numpy(v).to(device) for k, v in
                      pl.extract_panorama_lines_batch(
-                         grays, mask=line_mask, num_threads=cfg.num_threads).items()}
+                         grays, mask=line_mask, num_threads=cfg.num_threads,
+                         with_descriptors=cfg.use_image_track, device=device).items()}
     with tr.phase("extract lidar features"):
         lidar_batch = extract_all_features(scans, _scan_cap(scans), cfg, device)
     with tr.phase("load poses"):
@@ -303,7 +305,7 @@ def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda")
             arc_batch, lidar_batch, cam_poses0, lidar_poses0, tracks["track_img"],
             tracks["track_feat"], tracks["track_mask"], frames["bearings"],
             tracks["points"], point_ok, jcfg,
-            lidar_valid=lidar_valid & pose_ok[:len(lidar_valid)])
+            lidar_valid=lidar_valid & pose_ok[:len(lidar_valid)], grays=grays, tr=tr)
         cam_poses, lidar_poses = cam_t.cpu().numpy(), lidar_t.cpu().numpy()
         points, point_ok = points_t.cpu().numpy(), point_ok.cpu().numpy()
     with tr.phase("export"):

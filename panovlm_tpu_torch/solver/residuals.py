@@ -3,7 +3,8 @@ odometry families (point-to-plane, point-to-line and line-to-line,
 base/CostFunction.h:567-1022 in the reference), the SfM families
 (chordal and pixel reprojection, pairwise rotation and translation, scale
 bounds) and the camera-LiDAR line families of the joint stage
-(plane-to-plane and plane IoU, base/CostFunction.h:350-506).
+(plane-to-plane and plane IoU, base/CostFunction.h:350-506, and their
+calibration variants with the single pose T_cl, :294-348 and :509-564).
 
 Each function is the un-batched residual of ONE observation; the solver
 maps it over the observation axis with `torch.func.vmap` and differentiates
@@ -203,4 +204,25 @@ def plane_iou(pose_r, pose_n, ref_plane4, middle_n, middle_ref, half_angle):
     dis = torch.sum(n * m_ref) + ref_plane4[3]
     m_proj = m_ref - dis * n
     ang = vector_angle(m_proj, middle_ref)
+    return torch.clamp_min(ang - half_angle, 0.0)[None]
+
+
+def plane2plane_relative(pose_cl, plane_ref_n3, point_a_l, point_b_l):
+    """Plane2Plane_Relative (base/CostFunction.h:294-348): the calibration
+    variant of plane2plane_global, with the single pose T_cl mapping the
+    LiDAR line's endpoints into the camera frame. (1,)."""
+    aa, t = split_pose(pose_cl)
+    R = se3.exp_so3(aa)
+    n1 = torch.linalg.cross(R @ point_a_l + t, R @ point_b_l + t, dim=-1)
+    return plane_angle(plane_ref_n3, n1)[None]
+
+
+def plane_relative_iou(pose_cl, ref_plane4, middle_l, middle_ref, half_angle):
+    """PlaneRelativeIOUResidual (base/CostFunction.h:509-564): plane_iou
+    with the LiDAR midpoint mapped by the single pose T_cl. (1,)."""
+    aa, t = split_pose(pose_cl)
+    m_c = se3.exp_so3(aa) @ middle_l + t
+    n = ref_plane4[:3]
+    dis = torch.sum(n * m_c) + ref_plane4[3]
+    ang = vector_angle(m_c - dis * n, middle_ref)
     return torch.clamp_min(ang - half_angle, 0.0)[None]

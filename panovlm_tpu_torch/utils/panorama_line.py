@@ -1,13 +1,15 @@
-"""Panoramic image lines: LSD detection and great-circle fusion — the port's
-copy of `panovlm_tpu/utils/panorama_line.py` (util/PanoramaLine.{h,cpp} of
-the reference), without the LBD descriptors.
+"""Panoramic image lines: LSD detection, great-circle fusion and line band
+descriptors — the port's copy of `panovlm_tpu/utils/panorama_line.py`
+(util/PanoramaLine.{h,cpp} of the reference).
 
 A 2D segment on an equirectangular image is an arc of a great circle,
 described by the unit normal of the plane through its endpoint rays and the
 camera centre. Fragments of one physical edge are fused by that normal,
 arc adjacency or overlap and an endpoint NCC test, then filtered by arc
 length. Detection is the port's own LSD (`native/lsd.cpp`), which gives
-cv2's segments; everything after it is host numpy, as in the JAX package.
+cv2's segments; the fusion is host numpy, as in the JAX package. The
+descriptors (`ops/lbd.py`) run in torch on the device asked for, on the
+uint8 image scaled to [0, 1].
 """
 
 from __future__ import annotations
@@ -217,12 +219,6 @@ def pad_arcs(arcs: dict, cap: int):
     return out
 
 
-def _no_descriptors():
-    raise NotImplementedError(
-        "image line descriptors (LBD, ops/lbd.py) are not ported; they serve "
-        "only use_image_track (ROADMAP.md)")
-
-
 def _to_u8(gray: np.ndarray) -> np.ndarray:
     """A [0, 1] float panorama as the JAX stage hands it to LSD (truncated)."""
     if gray.dtype == np.uint8:
@@ -230,32 +226,50 @@ def _to_u8(gray: np.ndarray) -> np.ndarray:
     return (np.clip(gray, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+def _descriptors(grays, arcs, device):
+    """LBD of the padded arcs (N, cap, ...) on `device`: (N, cap, 72)
+    float32 numpy."""
+    import torch
+    from ..ops import lbd
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return lbd.line_band_descriptors_batch(dev(grays), dev(arcs["e1"]), dev(arcs["e2"]),
+                                           dev(arcs["mask"])).cpu().numpy()
+
+
 def extract_panorama_lines(gray: np.ndarray, cap: int = 128,
                            mask: np.ndarray | None = None,
-                           with_descriptors: bool = False):
+                           with_descriptors: bool = False, device="cuda"):
     """Detect + fuse for one uint8 panorama (PanoramaLine::Detect/Fuse):
-    the padded arc dict, longest arc first."""
-    if with_descriptors:
-        _no_descriptors()
+    the padded arc dict, longest arc first. with_descriptors adds "desc",
+    the line band descriptor of each arc (ops/lbd.py), computed on `device`
+    from the image as float (uint8 scaled to [0, 1])."""
     H, W = gray.shape[:2]
     arcs = segments_to_arcs(detect_lsd(gray, mask=mask), H, W)
     arcs = filter_arcs(fuse_arcs(arcs, gray=gray))
     order = np.argsort(-arcs["arc"])
-    return pad_arcs({k: v[order] for k, v in arcs.items()}, cap)
+    out = pad_arcs({k: v[order] for k, v in arcs.items()}, cap)
+    if with_descriptors:
+        gf = gray.astype(np.float32)
+        if gray.dtype == np.uint8:
+            gf /= 255.0
+        out["desc"] = _descriptors(gf[None], {k: v[None] for k, v in out.items()}, device)[0]
+    return out
 
 
 def extract_panorama_lines_batch(grays, cap: int = 128,
                                  mask: np.ndarray | None = None,
                                  with_descriptors: bool = False,
-                                 num_threads: int = -1):
+                                 num_threads: int = -1, device="cuda"):
     """Detect + fuse for a stack of same-size panoramas (uint8, or float in
     [0, 1]), frame-parallel on `num_threads` threads (all cores when <= 0;
     the reference's OpenMP image-line loop, CameraLidarOptimizer.cpp:
     89-149): the LSD call releases the GIL, and so do the fusion's large
     numpy operations. Returns stacked arrays: normal/e1/e2/mid (N, cap, 3),
-    arc/mask (N, cap)."""
-    if with_descriptors:
-        _no_descriptors()
+    arc/mask (N, cap), and with_descriptors desc (N, cap, 72), computed on
+    `device` in one pass over the frames from the uint8 images scaled to
+    [0, 1]."""
     from ..native import lsd
     lsd.get()                                  # build once, before the threads
     gray_u8 = [_to_u8(g) for g in grays]
@@ -263,6 +277,10 @@ def extract_panorama_lines_batch(grays, cap: int = 128,
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=max(1, min(workers, len(gray_u8)))) as pool:
         arc_list = list(pool.map(lambda g: extract_panorama_lines(g, cap, mask), gray_u8))
-    log.info("image lines: LSD + fusion of %d frames on %d threads, %.2f s",
-             len(gray_u8), workers, time.time() - t0)
-    return {k: np.stack([a[k] for a in arc_list]) for k in arc_list[0]}
+    out = {k: np.stack([a[k] for a in arc_list]) for k in arc_list[0]}
+    t1 = time.time()
+    if with_descriptors:
+        out["desc"] = _descriptors(np.stack(gray_u8).astype(np.float32) / 255.0, out, device)
+    log.info("image lines: LSD + fusion of %d frames on %d threads %.2f s, descriptors %.2f s",
+             len(gray_u8), workers, t1 - t0, time.time() - t1)
+    return out

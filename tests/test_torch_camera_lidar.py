@@ -1,9 +1,10 @@
 """The port's camera-LiDAR modules against the JAX package's, on the same
 seeded numpy inputs:
 
-  * solver/residuals plane2plane_global and plane_iou values (rtol 1e-5,
-    atol 1e-6), and their Jacobians through the port's torch.func path
-    against jax.jacrev (atol 1e-4);
+  * solver/residuals plane2plane_global and plane_iou, and their
+    calibration variants plane2plane_relative and plane_relative_iou:
+    values (rtol 1e-5, atol 1e-6), and their Jacobians through the port's
+    torch.func path against jax.jacrev (atol 1e-4);
   * models/camera_lidar associate_by_angle_pair on the cases of
     tests/test_camera_lidar.py (true pose, wrong pose): masks, picks and
     votes exactly equal;
@@ -12,7 +13,16 @@ seeded numpy inputs:
     solve stays below its chunk size (64 padded pairs x 128 points), where
     the reference's F1 does not fire: camera and LiDAR poses within 2e-4
     (rad and m) of the JAX result, and the LiDAR poses at least halved in
-    error as test_joint_optimize_improves_lidar_poses requires.
+    error as test_joint_optimize_improves_lidar_poses requires; the same
+    bound with the line-track modes: use_image_track on that scene, and
+    use_lidar_track alone and with the other two on it with the LiDAR
+    lines' directions filled in, so that the line-to-line associations
+    make LiDAR line tracks and the gate keeps lines;
+  * the LiDAR line tracks of the JAX joint loop's padded pair list (pairs
+    padded to 64 with (0, 0), scan 0 associated with itself) equal those
+    of the unpadded list that the port uses, and the port's;
+  * calibrate (T within 1e-4) and perturb_calibration_search (the same
+    pair count, T within 1e-5) on the scenes of tests/test_camera_lidar.py.
 """
 
 import jax
@@ -54,20 +64,27 @@ def _residual_inputs(rng, n=64):
     mid_ref /= np.linalg.norm(mid_ref, axis=1, keepdims=True)
     plane4 = np.concatenate([plane, rng.normal(size=(n, 1)).astype(np.float32) * 0.1], 1)
     half = rng.uniform(0.0, 0.3, n).astype(np.float32)
+    # the calibration variants: one small pose T_cl, LiDAR points 1-3 m out
+    pcl = _pose(rng, n, rot=0.05, trans=0.1)
+    near = (a / np.linalg.norm(a, axis=1, keepdims=True) * 2.0).astype(np.float32)
     return {"plane2plane_global": (pr, pn, plane, a, b),
-            "plane_iou": (pr, pn, plane4, a, mid_ref, half)}
+            "plane_iou": (pr, pn, plane4, a, mid_ref, half),
+            "plane2plane_relative": (pcl, plane, a, b),
+            "plane_relative_iou": (pcl, plane4, near, mid_ref, half)}
 
 
-@pytest.mark.parametrize("name", ["plane2plane_global", "plane_iou"])
+@pytest.mark.parametrize("name", ["plane2plane_global", "plane_iou", "plane2plane_relative",
+                                  "plane_relative_iou"])
 def test_cl_residuals_match_jax(name):
     args = _residual_inputs(np.random.default_rng(5))[name]
     ref = np.asarray(jax.vmap(getattr(jres, name))(*map(jnp.asarray, args)))
     out = torch.vmap(getattr(tres, name))(*map(_t, args)).numpy()
     assert (ref > 0).mean() > 0.3
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
-    # Jacobians w.r.t. both poses, as the LM solver takes them
-    jref = jax.vmap(jax.jacrev(getattr(jres, name), argnums=(0, 1)))(*map(jnp.asarray, args))
-    jout = torch.vmap(torch.func.jacrev(getattr(tres, name), argnums=(0, 1)))(*map(_t, args))
+    # Jacobians w.r.t. the poses, as the LM solver takes them
+    argnums = (0,) if name.endswith("relative") or name.endswith("relative_iou") else (0, 1)
+    jref = jax.vmap(jax.jacrev(getattr(jres, name), argnums=argnums))(*map(jnp.asarray, args))
+    jout = torch.vmap(torch.func.jacrev(getattr(tres, name), argnums=argnums))(*map(_t, args))
     for a, b in zip(jout, jref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4)
 
@@ -156,14 +173,14 @@ def test_filter_tracks_too_far_matches_jax():
     np.testing.assert_array_equal(out, ref)
 
 
-def _small_joint_scene(rng, P=128, pts_per_line=8):
+def _small_joint_scene(rng, P=128, pts_per_line=8, n_lines=14):
     """make_joint_scene of tests/test_camera_lidar.py with 128 LiDAR point
     slots, so that the JAX solve (64 padded pairs) stays below its chunk."""
     import test_camera_lidar as tc
     old = tc.P_CAP
     tc.P_CAP = P
     try:
-        starts, ends = make_line_scene(rng, n_lines=14)
+        starts, ends = make_line_scene(rng, n_lines=n_lines)
         cam_gt = np.zeros((3, 6), np.float32)
         cam_gt[:, 3] = np.arange(3) * 0.2
         lid_gt = cam_gt.copy()
@@ -199,27 +216,138 @@ def _small_joint_scene(rng, P=128, pts_per_line=8):
                 tmask=np.ones((60, 3), bool), bearings=bearings, pts3d=pts3d)
 
 
-def test_joint_optimize_matches_jax():
-    s = _small_joint_scene(np.random.default_rng(0))
-    # 5 LM iterations: one program of the JAX solve's 5-iteration chunks
-    # (solve_lm_chunked); both solves have converged by then
-    kw = dict(num_iteration_joint=1, lidar_weight=0.01, camera_lidar_weight=5.0,
-              max_lm_iters=5)
+def _joint_both(s, **kw):
+    """joint_optimize of the JAX package and of the port on scene s."""
     args = (s["cam_gt"], s["lid0"], s["timg"], s["tfeat"], s["tmask"], s["bearings"],
             s["pts3d"], np.ones(60, bool))
-    cam_j, lid_j, _, infos_j = jcl.joint_optimize(
+    cam_j, lid_j, _, _ = jcl.joint_optimize(
         {k: jnp.asarray(v) for k, v in s["arc_batch"].items()},
         {k: jnp.asarray(v) for k, v in s["lidar_batch"].items()}, *args, jcl.JointConfig(**kw))
     cam_t, lid_t, pts_t, infos_t = tcl.joint_optimize(
         {k: _t(v) for k, v in s["arc_batch"].items()},
         {k: _t(v) for k, v in s["lidar_batch"].items()}, *args, tcl.JointConfig(**kw))
-    assert len(infos_t) == 1 and infos_t[0]["line_pairs"] > 20
-    err0 = np.abs(s["lid0"] - s["lid_gt"]).max()
-    assert np.abs(lid_t.numpy() - s["lid_gt"]).max() < 0.5 * err0
     np.testing.assert_allclose(lid_t.numpy(), np.asarray(lid_j), atol=2e-4, rtol=0)
     np.testing.assert_allclose(cam_t.numpy(), np.asarray(cam_j), atol=2e-4, rtol=0)
     assert torch.isfinite(pts_t).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcl.joint_optimize({k: _t(v) for k, v in s["arc_batch"].items()},
-                           {k: _t(v) for k, v in s["lidar_batch"].items()}, *args,
-                           tcl.JointConfig(use_image_track=True))
+    return lid_t.numpy(), infos_t
+
+
+# 5 LM iterations: one program of the JAX solve's 5-iteration chunks
+# (solve_lm_chunked); both solves have converged by then
+_JOINT_KW = dict(num_iteration_joint=1, lidar_weight=0.01, camera_lidar_weight=5.0,
+                 max_lm_iters=5)
+
+
+def test_joint_optimize_matches_jax():
+    s = _small_joint_scene(np.random.default_rng(0))
+    lid, infos = _joint_both(s, **_JOINT_KW)
+    assert len(infos) == 1 and infos[0]["line_pairs"] > 20
+    err0 = np.abs(s["lid0"] - s["lid_gt"]).max()
+    assert np.abs(lid - s["lid_gt"]).max() < 0.5 * err0
+    # use_image_track: the arcs gated by image-line tracks of 3 frames
+    lid, infos = _joint_both(s, **_JOINT_KW, use_image_track=True)
+    c = infos[0]
+    assert 0 < c["image_lines_tracked"] < c["image_lines"] and c["line_pairs"] > 20
+    assert np.abs(lid - s["lid_gt"]).max() < 0.7 * err0
+
+
+def _with_lidar_lines(rng):
+    """_small_joint_scene with fewer, denser lines (8 x 16 points, still
+    128 slots) and each LiDAR line's point and unit direction (scan frame)
+    filled in from its endpoints, so that the line-to-line association
+    links the lines of neighbouring scans."""
+    s = _small_joint_scene(rng, pts_per_line=16, n_lines=8)
+    lb = dict(s["lidar_batch"])
+    ends = lb["line_endpoints"]
+    d = ends[:, :, 1] - ends[:, :, 0]
+    n = np.linalg.norm(d, axis=-1, keepdims=True)
+    lb["line_points"] = (0.5 * (ends[:, :, 0] + ends[:, :, 1])).astype(np.float32)
+    lb["line_dirs"] = np.where(n > 0, d / np.maximum(n, 1e-12), 0).astype(np.float32)
+    return dict(s, lidar_batch=lb)
+
+
+@pytest.mark.parametrize("modes", ["lidar", "all"])
+def test_joint_optimize_track_modes_match_jax(modes):
+    s = _with_lidar_lines(np.random.default_rng(0))
+    kw = dict(_JOINT_KW, use_lidar_track=True)
+    if modes == "all":
+        kw.update(use_image_track=True, use_track_associate=True)
+    lid, infos = _joint_both(s, **kw)
+    c = infos[0]
+    assert 0 < c["lidar_lines_tracked"] <= c["lidar_lines"], c
+    if modes == "all":
+        assert c["line_pairs_tracked"] > 0 and c["line_pairs"] == c["line_pairs_tracked"]
+    err0 = np.abs(s["lid0"] - s["lid_gt"]).max()
+    assert np.abs(lid - s["lid_gt"]).max() < 0.7 * err0
+
+
+def test_lidar_line_tracks_ignore_the_padded_pairs():
+    """The JAX joint loop pads its LiDAR pairs to 64 with (0, 0) pairs and
+    builds the line tracks on the padded list (camera_lidar.py:274-296):
+    scan 0 associated with itself gives only self-edges, so the tracks are
+    those of the unpadded list, which the port uses, and the port's own."""
+    from panovlm_tpu.models import association as jassoc
+    from panovlm_tpu.models import line_tracks as jlt
+    from panovlm_tpu.models.lidar_odometry import _pad_pairs
+    from panovlm_tpu_torch.models import association as tassoc
+    from panovlm_tpu_torch.models import line_tracks as tlt
+    s = _with_lidar_lines(np.random.default_rng(0))
+    lb, poses = s["lidar_batch"], s["lid_gt"]
+    pr, pn = tassoc.find_neighbors(_t(poses), np.ones(3, bool))
+    pr_p, pn_p, _ = _pad_pairs(pr, pn)
+    jb = {k: jnp.asarray(v) for k, v in lb.items()}
+    pad = jassoc.associate_all_pairs(jb, jnp.asarray(poses), pr_p, pn_p)["l2l"]
+    tid_pad = jlt.lidar_line_tracks(pad, pr_p, pn_p, 3, 16)
+    m = len(pr)
+    self_r = np.asarray(pad["seg_r"])[m:][np.asarray(pad["mask"])[m:]]
+    self_n = np.nonzero(np.asarray(pad["mask"])[m:])[1]
+    np.testing.assert_array_equal(self_r, self_n)          # only self-edges
+    tid = jlt.lidar_line_tracks({k: np.asarray(v)[:m] for k, v in pad.items()}, pr, pn, 3, 16)
+    np.testing.assert_array_equal(tid_pad, tid)
+    port = tassoc.associate_all_pairs({k: _t(v) for k, v in lb.items()}, _t(poses), _t(pr),
+                                      _t(pn))["l2l"]
+    out = tlt.lidar_line_tracks({k: v.numpy() for k, v in port.items()}, pr, pn, 3, 16)
+    np.testing.assert_array_equal(out, tid)
+    assert (tid >= 0).sum() >= 15
+
+
+def _calibration_scene(seed, noise):
+    from test_camera_lidar import arcs_from_world_lines, lidar_feats_from_world_lines
+    rng = np.random.default_rng(seed)
+    starts, ends = make_line_scene(rng, n_lines=14)
+    pose = np.zeros(6, np.float32)
+    return (arcs_from_world_lines(starts, ends, pose),
+            lidar_feats_from_world_lines(starts, ends, pose, rng, noise=noise))
+
+
+def test_calibrate_matches_jax():
+    """test_calibrate_recovers_extrinsic's scene and start."""
+    arcs, feats = _calibration_scene(0, 0.001)
+    T0 = np.eye(4)
+    T0[:3, :3] = ScR.from_rotvec([0.02, -0.015, 0.01]).as_matrix()
+    T0[:3, 3] = [0.03, -0.02, 0.04]
+    ref, _ = jcl.calibrate({k: jnp.asarray(v) for k, v in arcs.items()},
+                           {k: jnp.asarray(v) for k, v in feats.items()}, T0)
+    out, info = tcl.calibrate(arcs, feats, T0, device="cpu")
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+    assert np.degrees(np.linalg.norm(ScR.from_matrix(out[:3, :3]).as_rotvec())) < 0.2
+    assert info["final_cost"] < info["initial_cost"]
+
+
+def test_perturb_calibration_search_matches_jax():
+    """test_perturb_calibration_search's scene and start."""
+    arcs, feats = _calibration_scene(0, 0.003)
+    T0 = np.eye(4)
+    T0[:3, :3] = ScR.from_euler("xyz", [1.2, -0.9, 0.7], degrees=True).as_matrix()
+    T0[:3, 3] = [0.06, -0.04, 0.05]
+    ref, n_ref = jcl.perturb_calibration_search({k: jnp.asarray(v) for k, v in arcs.items()},
+                                                {k: jnp.asarray(v) for k, v in feats.items()},
+                                                T0, max_iterations=8)
+    out, n_out = tcl.perturb_calibration_search(arcs, feats, T0, max_iterations=8, device="cpu")
+    assert n_out == n_ref
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    n0 = int(tcl.associate_by_angle_pair({k: _t(v) for k, v in arcs.items()},
+                                         {k: _t(v) for k, v in feats.items()},
+                                         _t(T0[:3, :3].astype(np.float32)),
+                                         _t(T0[:3, 3].astype(np.float32)))["mask"].sum())
+    assert n_out >= n0

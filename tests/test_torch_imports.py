@@ -42,7 +42,7 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 assert len(mods) > 30, mods
 for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg",
-          "native.jpeg", "models.texture"):
+          "native.jpeg", "models.texture", "ops.lbd", "native.lk", "models.line_tracks"):
     assert "panovlm_tpu_torch." + m in mods, m
 print("ok")
 """
@@ -73,16 +73,16 @@ def test_cli_runs_every_reference_verb(stage, tmp_path, monkeypatch):
 
 
 def test_native_libraries_build_from_the_checkout():
-    """The scan reader, the LSD and the JPEG decoder compile with g++ into
-    build/native/ at first use (the scan reader has a numpy fallback, the
-    LSD and the decoder none)."""
+    """The scan reader, the LSD, the JPEG decoder and the LK flow compile
+    with g++ into build/native/ at first use (the scan reader has a numpy
+    fallback, the others none)."""
     import shutil
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this machine")
     from panovlm_tpu_torch import native
-    from panovlm_tpu_torch.native import jpeg, lsd
+    from panovlm_tpu_torch.native import jpeg, lk, lsd
     assert native.build() is not None
-    for mod, name in ((lsd, "lsd.cpp"), (jpeg, "jpeg.cpp")):
+    for mod, name in ((lsd, "lsd.cpp"), (jpeg, "jpeg.cpp"), (lk, "lk.cpp")):
         assert mod.get() is not None and mod._SRC.name == name
         assert native.library_path(mod._SRC).exists()
 

@@ -92,3 +92,31 @@ def test_port_joint_poses_match_jax(stages, name):
     np.testing.assert_array_equal(okt, okj)
     assert np.abs(tt - tj).max() < 3e-3, np.abs(tt - tj).max()
     assert _rot_deg(Rt, Rj).max() < 0.1, _rot_deg(Rt, Rj).max()
+
+
+def test_port_stage3_with_the_line_track_modes(stages):
+    """The port's stage with use_image_track, use_lidar_track and
+    use_track_associate on a copy of the same dataset: the artifact set,
+    valid finite poses, camera centres within 0.08 m, and the TimeReport's
+    "image line tracks" phase (the modes' parity with the JAX functions is
+    tests/test_torch_camera_lidar.py's and tests/test_torch_line_tracks.py's)."""
+    from panovlm_tpu_torch.utils.timing import TimeReport
+    _, pcfg, gt = stages
+    root = os.path.dirname(os.path.dirname(pcfg.joint_result_path))
+    cfg_path = _copy(root, "port_tracks")
+    with open(cfg_path, "a") as f:
+        f.write("\nuse_image_track = true\nuse_lidar_track = true\n"
+                "use_track_associate = true\n")
+    tr = TimeReport()
+    assert torch_main(["joint_optimization", cfg_path, "--device", "cpu"], tr=tr) == 0
+    assert "image line tracks" in tr.time_spent
+    tcfg = load_config(cfg_path)
+    assert tcfg.use_image_track and tcfg.use_lidar_track and tcfg.use_track_associate
+    for name in ARTIFACTS:
+        assert os.path.exists(os.path.join(tcfg.joint_result_path, name)), name
+    for name in ("camera_pose_joint.txt", "lidar_pose_joint.txt"):
+        R, t, _, ok = artifacts.read_pose_t(os.path.join(tcfg.joint_result_path, name))
+        assert ok.all() and np.isfinite(R).all() and np.isfinite(t).all()
+    _, t, _, _ = artifacts.read_pose_t(os.path.join(tcfg.joint_result_path,
+                                                    "camera_pose_joint.txt"))
+    assert np.abs(t - gt["C"]).max() < 0.08

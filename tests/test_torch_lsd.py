@@ -15,7 +15,8 @@ agree with the JAX
 functions to 1e-6 (normals, rays, arcs; the same float32 numpy code), and
 extract_panorama_lines end to end (the port's LSD against cv2's inside the
 JAX function, with_descriptors=False) gives the same number of arcs with
-normals, mids and spans within 1e-5.
+normals, mids and spans within 1e-5; with descriptors, the JAX package's
+LBD of the same arcs within 1e-4.
 """
 
 import numpy as np
@@ -141,5 +142,16 @@ def test_extract_panorama_lines_matches_jax():
     assert ref["mask"].sum(1).min() > 10
     for k in ("normal", "mid", "arc", "e1", "e2"):
         np.testing.assert_allclose(out[k], ref[k], atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.extract_panorama_lines(imgs[0], with_descriptors=True)
+    # with descriptors: the same arcs, and the JAX package's LBD of them
+    # within the tolerance of tests/test_torch_line_tracks.py (1e-4)
+    import jax.numpy as jnp
+    from panovlm_tpu.ops import lbd as jlbd
+    one = tpl.extract_panorama_lines(imgs[0], cap=96, mask=mask, with_descriptors=True,
+                                     device="cpu")
+    for k in ("normal", "mid", "arc", "mask", "e1", "e2"):
+        np.testing.assert_array_equal(one[k], out[k][0])
+    ref_desc = np.asarray(jlbd.line_band_descriptors(
+        jnp.asarray(imgs[0].astype(np.float32) / 255.0), jnp.asarray(one["e1"]),
+        jnp.asarray(one["e2"]), jnp.asarray(one["mask"])))
+    assert one["desc"].shape == (96, 72)
+    np.testing.assert_allclose(one["desc"], ref_desc, atol=1e-4, rtol=0)
