@@ -64,6 +64,17 @@ Run from the root of a checkout. Phases, each fatal on failure:
      and the VLAD proposal twice more on the same frames: descriptors,
      embeddings and pairs bit-equal to each other and to the stage's
      (ROADMAP F8);
+  8 (b). the SfM stage again on phase 8's frames with the configs' own
+     SIFT key, `sift_device = false` (and Room's `num_threads = 25`), no
+     frame cache: the host SIFT (native/sift.cpp, cv2's bits in C++, g++
+     at first use, no fallback). Checked: the port's SIFT gives the
+     SHA-256 of cv2's output on an embedded seeded probe
+     (SIFT_PROBE_SHA256, recomputed with cv2 in tier-1), phase 8's
+     artifact set, every frame valid within 1 deg and 0.08 m of ground
+     truth, one fused descriptor search per batch of pairs, and a rerun of
+     the extraction bit-equal to the stage's frames_sift.npz. Prints the
+     features kept per frame, "extract sift" beside phase 8's and the time
+     per frame on 1 thread and on the threads used.
   9. K1 at D = 128 (csrc/knn_desc.cu, `knn_mutual`: forward top-2 and
      reverse top-1 in one launch) against two plain searches on the stage's
      own descriptors: the first pairs it matched, at the batch the stage
@@ -152,7 +163,7 @@ Run from the root of a checkout. Phases, each fatal on failure:
      functions' (CALIB_REF). Both JAX references come from
      tests/joint_chain_reference.py run on the host on the
      chiprun_out/joint_chain_tracks.npz that the phase keeps.
---only-sfm runs phases 1-2, 8 and 9 alone (for iterating on the SfM
+--only-sfm runs phases 1-2, 8, 8 (b) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
 the kernel table as one JSON line, then, as the last line, {"ok": true,
@@ -1088,7 +1099,7 @@ def run_sfm(torch, knn_mod, cfg_path, gt):
     if not (rot < 1.0 and dist < 0.08):
         fail(f"SfM poses off ground truth: {rot:.3f} deg, {dist:.4f} m (bounds 1 deg, 0.08 m)")
     return launches, batch, cfg, {"rotation averaging (L1-ADMM)": (rotation_averaging, ra_cap),
-                                  "translation averaging": (translation_averaging, ta_cap)}
+                                  "translation averaging": (translation_averaging, ta_cap)}, tr
 
 
 def sfm_reproducibility(torch, cfg):
@@ -1139,6 +1150,144 @@ def sfm_reproducibility(torch, cfg):
     if differ:
         fail(f"F8: SfM inputs not reproducible: {differ}")
     return control
+
+
+# ----------------------------------------------------------------------------
+# phase 8 (b): the SfM stage with the configs' own host SIFT (sift_device false)
+# ----------------------------------------------------------------------------
+
+# the SHA-256 of what cv2 5.0's SIFT_create().detectAndCompute gives on
+# sift_probe_image() on its x86 AVX2 path without IPP (OPENCV_CPU_DISABLE=
+# AVX512-SKX, cv2.ipp.setUseIPP(False)): keypoints (x, y, size, angle,
+# response) float32, packed octaves int32 and descriptors float32, in cv2's
+# order (sift_digest); tests/test_torch_sift_host.py recomputes it with cv2
+SIFT_PROBE_SHA256 = "f2be67fb61684823565f901cfff258a872389250056c9cfcc8d96e9c799517c8"
+
+
+def random_disks(seed: int, h: int, w: int, n: int, rmax: float = 14.0):
+    """A uint8 image of n random disks (radius 2..rmax, random levels) on a
+    mid-gray field with N(0, 2) noise, made from `seed` with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w), 128.0, np.float32)
+    cx, cy = rng.uniform(0, w, n), rng.uniform(0, h, n)
+    r, v = rng.uniform(2.0, rmax, n), rng.uniform(0, 255, n)
+    for i in range(n):
+        x0, x1 = max(int(cx[i] - r[i]), 0), min(int(cx[i] + r[i]) + 1, w)
+        y0, y1 = max(int(cy[i] - r[i]), 0), min(int(cy[i] + r[i]) + 1, h)
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        img[y0:y1, x0:x1][(xx - cx[i]) ** 2 + (yy - cy[i]) ** 2 < r[i] ** 2] = v[i]
+    img += rng.normal(0, 2.0, img.shape).astype(np.float32)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def sift_probe_image():
+    return random_disks(11, 240, 480, 600)
+
+
+def sift_digest(kp, octave, desc) -> str:
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a, t in ((kp, np.float32), (octave, np.int32), (desc, np.float32)):
+        h.update(np.ascontiguousarray(a, t).tobytes())
+    return h.hexdigest()
+
+
+def run_sfm_host_sift(torch, knn_mod, cfg_a, gt, extract_a: float, device: str = "cuda"):
+    """Phase 8 (b): the SfM stage through the CLI on phase 8's frames with
+    the Room keys as written (sift_device false, num_threads 25) and no
+    frame cache, in a result directory of its own. Checked: the host SIFT's
+    bits on the embedded cv2 probe, phase 8's artifact set, every frame
+    valid within 1 deg and 0.08 m of ground truth, one fused descriptor
+    search per batch of pairs, and a rerun of the extraction bit-equal to
+    the stage's frames_sift.npz. Prints keypoints per frame, "extract sift"
+    beside phase 8's (the device SIFT) and the time per frame on 1 thread
+    and on the threads the stage used."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts, images
+    from panovlm_tpu_torch.models import sfm
+    from panovlm_tpu_torch.native import sift as native_sift
+    from panovlm_tpu_torch.utils import sift as sift_mod
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    t0 = time.time()
+    (kp, octave, desc), = native_sift.detect_and_compute(sift_probe_image())
+    got = sift_digest(kp, octave, desc)
+    log(f"host SIFT probe ({len(kp)} keypoints, built in {time.time() - t0:.1f} s): "
+        f"{'cv2 bits' if got == SIFT_PROBE_SHA256 else f'DIFFERS {got}'}")
+    if got != SIFT_PROBE_SHA256:
+        fail("the host SIFT built here does not give cv2's bits on the probe")
+
+    root = os.path.join(os.path.dirname(cfg_a.result_path), "host_sift")
+    keys = {"result_path": f"{root}/result", "frame_path": f"{root}/frames",
+            "match_pair_path": f"{root}/pairs", "sift_device": "false", "num_threads": "25"}
+    with open(os.path.join(os.path.dirname(cfg_a.result_path), "config.txt")) as f:
+        lines = [ln for ln in f.read().splitlines()
+                 if ln.split("=")[0].strip() not in keys]
+    cfg_path = os.path.join(os.path.dirname(cfg_a.result_path), "config_host_sift.txt")
+    with open(cfg_path, "w") as f:
+        f.write("\n".join(lines + [f"{k} = {v}" for k, v in keys.items()]) + "\n")
+    cfg = load_config(cfg_path)
+    tr = TimeReport()
+    knn_mod.knn_mutual.launches = 0
+    t0 = time.time()
+    rc = port_main(["init_camera_pose", cfg_path, "--device", device], tr=tr)
+    wall = time.time() - t0
+    launches = knn_mod.knn_mutual.launches
+    if rc != 0:
+        fail(f"init_camera_pose (host SIFT) exited {rc}")
+    extract = tr.time_spent.get("extract sift", 0.0)
+    log(f"SfM stage with the host SIFT: wall {wall:.1f} s, extract sift {extract:.2f} s "
+        f"(phase 8, device SIFT: {extract_a:.2f} s), descriptor KNN launches {launches}")
+    for name, sec in tr.time_spent.items():
+        if name != "init_camera_pose":
+            log(f"  {name}: {sec:.2f} s")
+
+    def listing(c):
+        return {os.path.relpath(os.path.join(d, f), c.result_path)
+                for d, _, files in os.walk(c.result_path) for f in files}
+    if listing(cfg) != listing(cfg_a):
+        fail(f"host-SIFT stage artifacts differ from phase 8's: "
+             f"{sorted(listing(cfg) ^ listing(cfg_a))[:10]}")
+    mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    P, batch = len(mp["pi"]), sfm.match_batch(torch.device(device), int(cfg.num_sift))
+    if device == "cuda" and launches != -(-P // batch):
+        fail(f"{launches} launches of the fused descriptor search for {P} pairs in "
+             f"batches of {batch}: the host-SIFT SfM path did not match one launch per batch")
+    rot, dist, all_ok = sfm_pose_errors(
+        os.path.join(cfg.sfm_result_path, "camera_pose_final.txt"), gt)
+    log(f"camera_pose_final.txt (host SIFT) vs ground truth: max rotation error {rot:.4f} deg, "
+        f"max camera-centre error {dist * 1000:.2f} mm, every frame valid: {all_ok}")
+    if not all_ok:
+        fail("init_camera_pose (host SIFT) left frames invalid")
+    if not (rot < 1.0 and dist < 0.08):
+        fail(f"host-SIFT SfM poses off ground truth: {rot:.3f} deg, {dist:.4f} m "
+             f"(bounds 1 deg, 0.08 m)")
+
+    stage = artifacts.load_npz(os.path.join(cfg.frame_path, "frames_sift.npz"))
+    grays, _ = images.load_images_u8(cfg.image_path, cfg.scale)
+    threads = sift_mod.pool_workers(cfg.num_threads)
+    t0 = time.time()
+    rerun = sift_mod.extract_sift_batch(grays, int(cfg.num_sift), root_sift=cfg.root_sift,
+                                        num_threads=cfg.num_threads)
+    t_batch = time.time() - t0
+    differ = [k for k, v in zip(("uv", "desc", "fmask"), rerun) if not np.array_equal(v, stage[k])]
+    t0 = time.time()
+    (kp0, _, _), = native_sift.detect_and_compute(grays[0], nfeatures=2 * int(cfg.num_sift))
+    t_one = time.time() - t0
+    kept = stage["fmask"].sum(1)
+    H, W = grays[0].shape
+    log(f"host SIFT: features kept per frame min {kept.min()}, median {int(np.median(kept))}, "
+        f"max {kept.max()} (cap {cfg.num_sift}); frame 0 detects {len(kp0)} keypoints "
+        f"(nfeatures {2 * int(cfg.num_sift)}); {t_one * 1e3:.0f} ms per {H} x {W} frame on "
+        f"1 thread, {t_batch / len(grays) * 1e3:.0f} ms per frame on {threads} threads "
+        f"(grid distribution and RootSIFT included); rerun "
+        f"{'differs: ' + ', '.join(differ) if differ else 'bit-equal to the stage'}")
+    if differ:
+        fail(f"host SIFT rerun differs from the stage's frames_sift.npz: {differ}")
 
 
 # K1 at D = 128, the fused search (csrc/knn_desc.cu, one launch per batch):
@@ -2267,9 +2416,16 @@ def main():
 
         if not args.only_floor:
             # 8. the SfM stage, then its reproducibility (F8)
-            launches["knn_desc"], match_batch, sfm_config, f9_calls = run_sfm(
+            launches["knn_desc"], match_batch, sfm_config, f9_calls, sfm_tr = run_sfm(
                 torch, knn_mod, sfm_cfg, sfm_gt)
             sfm_reproducibility(torch, sfm_config)
+
+        if not (args.only_floor or args.only_joint):
+            # 8 (b). the SfM stage with the host SIFT, the configs' own key
+            t0 = time.time()
+            run_sfm_host_sift(torch, knn_mod, sfm_config, sfm_gt,
+                              sfm_tr.time_spent.get("extract sift", 0.0))
+            log(f"phase 8 (b) (SfM stage with the host SIFT): {time.time() - t0:.1f} s")
 
         if not (args.only_floor or args.only_joint):
             # 9. K1 at D = 128 on the stage's descriptors

@@ -4,8 +4,9 @@
 `build/native/` at the repository root (listed in .gitignore), named by a
 hash of the source, and loaded with ctypes. Every entry point has a numpy
 fallback (io/pointcloud.py), so the port still reads scans where no
-compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`)
-is built the same way and has no fallback.
+compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`),
+the JPEG decoder, the LK flow and the SIFT detector (`sift.cpp`,
+`native/sift.py`) are built the same way and have no fallback.
 """
 
 from __future__ import annotations
@@ -29,24 +30,27 @@ _lib = None
 _tried = False
 
 
-def library_path(src: Path = _SRC) -> Path:
-    h = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+def library_path(src: Path = _SRC, flags: tuple = ()) -> Path:
+    """Where `src` built with the extra g++ `flags` lives: named by a hash of
+    the source and the flags."""
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
-def compile_library(src: Path) -> Path:
-    """Compile `src` into build/native/ unless its hash is built already.
-    Raises when the compiler fails."""
-    out = library_path(src)
+def compile_library(src: Path, flags: tuple = ()) -> Path:
+    """Compile `src` (with the extra g++ `flags`) into build/native/ unless
+    its hash is built already. Raises when the compiler fails."""
+    out = library_path(src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        # no FMA contraction: the LSD reproduces OpenCV's float arithmetic
+        # no FMA contraction: the LSD, the LK flow and the SIFT reproduce
+        # OpenCV's float arithmetic, each fused step written out
         subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                        "-ffp-contract=off", "-pthread", str(src), "-o", tmp],
+                        "-ffp-contract=off", "-pthread", *flags, str(src), "-o", tmp],
                        check=True, capture_output=True, timeout=240)
         os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial file
         return out

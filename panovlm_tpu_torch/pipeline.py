@@ -764,7 +764,8 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         raise NotImplementedError(
             "init_camera_pose: the GPS hooks (gps_path) are not ported (ROADMAP.md)")
     os.makedirs(cfg.sfm_result_path, exist_ok=True)
-    grays, names = images.load_images(cfg.image_path, cfg.scale)
+    grays_u8, names = images.load_images_u8(cfg.image_path, cfg.scale)
+    grays = [g.astype(np.float32) / 255.0 for g in grays_u8]   # images.load_images
     n = len(grays)
     H, W = grays[0].shape
 
@@ -774,7 +775,8 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
             log.error("num_sift = %d exceeds the 16384 feature ceiling; capping", cap)
             cap = 16384
         assert_host_budget("init_camera_pose", {
-            "grays": ((n, H, W), np.float32), "desc stack": ((n, cap, 128), np.float32),
+            "grays": ((n, H, W), np.float32), "grays u8": ((n, H, W), np.uint8),
+            "desc stack": ((n, cap, 128), np.float32),
             "uv+mask": ((n, cap, 3), np.float32), "depth maps": ((n, H, W), np.float32)})
         cache = os.path.join(cfg.frame_path, "frames_sift.npz") if cfg.frame_path else ""
         cached = None
@@ -787,17 +789,24 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
                 log.info("Use existing frame data in %s", cfg.frame_path)
         if cached is not None:
             uv, desc, fmask = cached["uv"], cached["desc"], cached["fmask"]
-        elif not cfg.sift_device:
-            raise NotImplementedError(
-                "init_camera_pose: sift_device = false asks for the host cv2 SIFT, "
-                "which is not ported (no cv2 on the card's machine, ROADMAP.md); set "
-                "sift_device = true or provide frames_sift.npz in frame_path")
         else:
-            from .ops import sift_device as sd
             t0 = time.time()
-            uv, desc, fmask = sd.extract_sift_device_batch(
-                np.stack(grays), num_features=cap, root_sift=cfg.root_sift,
-                mask=images.load_mask(cfg.mask_path, H, W), device=device)
+            sift_mask = images.load_mask(cfg.mask_path, H, W)
+            if cfg.sift_device:
+                from .ops import sift_device as sd
+                uv, desc, fmask = sd.extract_sift_device_batch(
+                    np.stack(grays), num_features=cap, root_sift=cfg.root_sift,
+                    mask=sift_mask, device=device)
+            else:
+                from .utils import sift as sift_mod
+                # cv2's detector on the host (native/sift.cpp). The JAX stage
+                # passes (g * 255).astype(uint8) of its float frames, which for
+                # every 8-bit level v gives v back (float32 v / 255 * 255
+                # truncates to v): the loaded bytes themselves.
+                uv, desc, fmask = sift_mod.extract_sift_batch(
+                    grays_u8, cap, root_sift=cfg.root_sift,
+                    mask=None if sift_mask is None else sift_mask.astype(np.uint8) * 255,
+                    num_threads=cfg.num_threads)
             t1 = time.time()
             if cache:
                 os.makedirs(cfg.frame_path, exist_ok=True)

@@ -73,18 +73,19 @@ def test_cli_runs_every_reference_verb(stage, tmp_path, monkeypatch):
 
 
 def test_native_libraries_build_from_the_checkout():
-    """The scan reader, the LSD, the JPEG decoder and the LK flow compile
-    with g++ into build/native/ at first use (the scan reader has a numpy
-    fallback, the others none)."""
+    """The scan reader, the LSD, the JPEG decoder, the LK flow and the SIFT
+    detector compile with g++ into build/native/ at first use (the scan
+    reader has a numpy fallback, the others none)."""
     import shutil
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this machine")
     from panovlm_tpu_torch import native
-    from panovlm_tpu_torch.native import jpeg, lk, lsd
+    from panovlm_tpu_torch.native import jpeg, lk, lsd, sift
     assert native.build() is not None
-    for mod, name in ((lsd, "lsd.cpp"), (jpeg, "jpeg.cpp"), (lk, "lk.cpp")):
+    for mod, name in ((lsd, "lsd.cpp"), (jpeg, "jpeg.cpp"), (lk, "lk.cpp"), (sift, "sift.cpp")):
         assert mod.get() is not None and mod._SRC.name == name
-        assert native.library_path(mod._SRC).exists()
+        flags = mod.build_flags() if hasattr(mod, "build_flags") else ()
+        assert native.library_path(mod._SRC, flags).exists()
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():
