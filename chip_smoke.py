@@ -75,6 +75,23 @@ Run from the root of a checkout. Phases, each fatal on failure:
      the extraction bit-equal to the stage's frames_sift.npz. Prints the
      features kept per frame, "extract sift" beside phase 8's and the time
      per frame on 1 thread and on the threads used.
+  8 (c). pair surgery through the port's CLI on copies of phase 8's result
+     and pair caches: add_pair on the first pair (i, j >= i + 8) that phase
+     8 did not propose, recompute_pairs over frames 0-15 (120 pairs), then
+     the SfM stage on that copy, reading its caches; set_straight_motion
+     over frames 0-5 with length 2 and the two dumps on a second copy.
+     Checked: each verb's K1' launches one per batch of 16 pairs, every
+     recomputed row that phase 8 matched bit-equal to phase 8's, the extra
+     rows kept by the rerun (which matches nothing), every frame valid
+     within 1 deg and 0.08 m; the forced rel_poses.npz rows (R = I, t = -z,
+     CheckRT inliers on matched pairs); one dump record per pair and per
+     frame.
+  8 (d). the SfM stage with a GPS file (phase 8's true camera centres plus
+     2 cm of seeded noise), frame_match_method 6 | 8, init_translation_GPS
+     on and init_translation_DLT off, on phase 8's frame cache. Checked: the
+     GPS pairs proposed, translation averaging given the GPS scales and
+     init, one K1' launch per batch, every frame valid within 1 deg and
+     0.08 m.
   9. K1 at D = 128 (csrc/knn_desc.cu, `knn_mutual`: forward top-2 and
      reverse top-1 in one launch) against two plain searches on the stage's
      own descriptors: the first pairs it matched, at the batch the stage
@@ -141,7 +158,11 @@ Run from the root of a checkout. Phases, each fatal on failure:
      its 40 nearest centres (~9,000 pairs, P = 3 x 454 + pairs), 0.5 deg of
      seeded direction noise and 5 % on the scales: the PCG tier, centres
      within 0.08 m of ground truth after a similarity, a bit-equal rerun,
-     and the dense tier forced per call for comparison.
+     and the dense tier forced per call for comparison; then chordal, lud,
+     bata and l1 on the same graph, each within 0.08 m, or 1.25 times the
+     JAX function's error where that is larger (TA_METHOD_REF,
+     tests/ta_room_reference.py), and a bit-equal rerun; prints the L-inf
+     LP's size and host time.
   13. the joint stage's line-track modes and its CALIBRATION mode on phase
      10's chain (after phase 11): (a) the joint stage through the CLI with
      use_image_track, use_lidar_track and use_track_associate appended to
@@ -163,7 +184,7 @@ Run from the root of a checkout. Phases, each fatal on failure:
      functions' (CALIB_REF). Both JAX references come from
      tests/joint_chain_reference.py run on the host on the
      chiprun_out/joint_chain_tracks.npz that the phase keeps.
---only-sfm runs phases 1-2, 8, 8 (b) and 9 alone (for iterating on the SfM
+--only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
 the kernel table as one JSON line, then, as the last line, {"ok": true,
@@ -171,7 +192,8 @@ the kernel table as one JSON line, then, as the last line, {"ok": true,
 knn_ring are those at the odometry stage's inputs (phase 5; the joint
 stage's, phase 10, and the Floor stage's, phase 12, are further shapes,
 and `launches_joint`, `launches_joint_tracks` (phase 13) and
-`launches_floor` their launches there), volscore's those of the D=64
+`launches_floor` their launches there; knn_desc's `launches_surgery` and
+`launches_gps` are its launches in phases 8 (c) and 8 (d)), volscore's those of the D=64
 full-scoring shape of phase
 3 and knn_desc's those of the fused search at the stage's batch; each
 row's max_abs_err is the largest over its shapes, and its "shapes" list
@@ -660,16 +682,19 @@ class _FirstCall:
 
 class _EveryCall:
     """Wraps module.name and appends measure(args, result) of every call to
-    .values (calls from several threads too)."""
+    .values and its host time to .seconds (calls from several threads too)."""
 
     def __init__(self, module, name, measure):
-        self.module, self.name, self.measure, self.values = module, name, measure, []
+        self.module, self.name, self.measure = module, name, measure
+        self.values, self.seconds = [], []
 
     def __enter__(self):
         self.saved = fn = getattr(self.module, self.name)
 
         def wrapped(*a, **kw):
+            t0 = time.time()
             res = fn(*a, **kw)
+            self.seconds.append(time.time() - t0)
             self.values.append(self.measure(a, res))
             return res
         setattr(self.module, self.name, wrapped)
@@ -1194,6 +1219,28 @@ def sift_digest(kp, octave, desc) -> str:
     return h.hexdigest()
 
 
+def variant_config(cfg_a, name: str, keys: dict, copy: tuple = (), own_frames=False) -> str:
+    """config_<name>.txt: phase 8's config.txt with `keys` set and result and
+    pair caches of its own under <phase 8's root>/<name> (`copy`: the
+    directories of phase 8's tree, "result" and "pairs", copied there
+    first); the images, scans and, unless own_frames, the frame cache are
+    phase 8's. Returns its path."""
+    import shutil
+    base = os.path.dirname(cfg_a.result_path)
+    root = os.path.join(base, name)
+    for d in copy:
+        shutil.copytree(os.path.join(base, d), os.path.join(root, d))
+    keys = {"result_path": f"{root}/result", "match_pair_path": f"{root}/pairs", **keys}
+    if own_frames:
+        keys["frame_path"] = f"{root}/frames"
+    with open(os.path.join(base, "config.txt")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.split("=")[0].strip() not in keys]
+    cfg_path = os.path.join(base, f"config_{name}.txt")
+    with open(cfg_path, "w") as f:
+        f.write("\n".join(lines + [f"{k} = {v}" for k, v in keys.items()]) + "\n")
+    return cfg_path
+
+
 def run_sfm_host_sift(torch, knn_mod, cfg_a, gt, extract_a: float, device: str = "cuda"):
     """Phase 8 (b): the SfM stage through the CLI on phase 8's frames with
     the Room keys as written (sift_device false, num_threads 25) and no
@@ -1221,15 +1268,8 @@ def run_sfm_host_sift(torch, knn_mod, cfg_a, gt, extract_a: float, device: str =
     if got != SIFT_PROBE_SHA256:
         fail("the host SIFT built here does not give cv2's bits on the probe")
 
-    root = os.path.join(os.path.dirname(cfg_a.result_path), "host_sift")
-    keys = {"result_path": f"{root}/result", "frame_path": f"{root}/frames",
-            "match_pair_path": f"{root}/pairs", "sift_device": "false", "num_threads": "25"}
-    with open(os.path.join(os.path.dirname(cfg_a.result_path), "config.txt")) as f:
-        lines = [ln for ln in f.read().splitlines()
-                 if ln.split("=")[0].strip() not in keys]
-    cfg_path = os.path.join(os.path.dirname(cfg_a.result_path), "config_host_sift.txt")
-    with open(cfg_path, "w") as f:
-        f.write("\n".join(lines + [f"{k} = {v}" for k, v in keys.items()]) + "\n")
+    cfg_path = variant_config(cfg_a, "host_sift", {"sift_device": "false", "num_threads": "25"},
+                              own_frames=True)
     cfg = load_config(cfg_path)
     tr = TimeReport()
     knn_mod.knn_mutual.launches = 0
@@ -1288,6 +1328,209 @@ def run_sfm_host_sift(torch, knn_mod, cfg_a, gt, extract_a: float, device: str =
         f"{'differs: ' + ', '.join(differ) if differ else 'bit-equal to the stage'}")
     if differ:
         fail(f"host SIFT rerun differs from the stage's frames_sift.npz: {differ}")
+
+
+# ----------------------------------------------------------------------------
+# phase 8 (c): pair surgery through the CLI; phase 8 (d): the SfM stage with GPS
+# ----------------------------------------------------------------------------
+
+SURGERY_RANGE = (0, 15)          # recompute_pairs: 120 pairs, 8 launches
+STRAIGHT = (0, 5, 2)             # set_straight_motion: 9 pairs, 1 launch
+GPS_NOISE_M = 0.02
+
+
+def _surgery_verb(knn_mod, argv, n_pairs, batch, device):
+    """One verb through the port's CLI; on the card its fused-search
+    launches must be one per batch of its pairs. Returns the launches."""
+    from panovlm_tpu_torch.__main__ import main as port_main
+    knn_mod.knn_mutual.launches = 0
+    t0 = time.time()
+    rc = port_main(argv + ["--device", device])
+    sec = time.time() - t0
+    launches = knn_mod.knn_mutual.launches
+    if rc != 0:
+        fail(f"{argv[0]} exited {rc}")
+    log(f"{' '.join([argv[0]] + argv[2:])}: {n_pairs} pairs, {launches} descriptor KNN "
+        f"launches, {sec:.2f} s")
+    if device == "cuda" and launches != -(-n_pairs // batch):
+        fail(f"{argv[0]}: {launches} launches of the fused descriptor search for {n_pairs} "
+             f"pairs in batches of {batch}")
+    return launches
+
+
+def _rows(mp):
+    return {(int(a), int(b)): r for r, (a, b) in enumerate(zip(mp["pi"], mp["pj"]))}
+
+
+def run_pair_surgery(torch, knn_mod, cfg_a, gt, batch, device: str = "cuda"):
+    """Phase 8 (c): the pair-surgery verbs through the port's CLI on copies
+    of phase 8's result tree. add_pair on the first pair (i, j >= i + 8)
+    that phase 8 did not propose and recompute_pairs over frames 0-15, then the
+    SfM stage on that copy, reading its caches: each verb's launches one
+    per batch, every recomputed row that phase 8 matched bit-equal to phase
+    8's, the extra rows kept by the rerun, every frame valid within 1 deg and
+    0.08 m. set_straight_motion over frames 0-5 (length 2) on a second
+    copy: its rel_poses.npz rows forced (R = I, t = -z, inliers on matched
+    pairs), and the two dumps one record per pair and per frame. Returns the
+    verbs' launches."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    t_all = time.time()
+    mp0 = artifacts.load_npz(os.path.join(cfg_a.match_pair_path, "match_pairs.npz"))
+    rows0 = _rows(mp0)
+    n = len(gt[0])
+    new = next(((i, j) for i in range(n) for j in range(i + 8, n) if (i, j) not in rows0), None)
+    if new is None:
+        fail("phase 8 proposed every pair (i, j >= i + 8): nothing for add_pair to add")
+    cfg_path = variant_config(cfg_a, "surgery", {}, copy=("result", "pairs"))
+    cfg = load_config(cfg_path)
+    launches = {"add_pair": _surgery_verb(knn_mod, ["add_pair", cfg_path, *map(str, new)], 1,
+                                          batch, device)}
+    a, b = SURGERY_RANGE
+    n_quad = (b - a + 1) * (b - a) // 2
+    launches["recompute_pairs"] = _surgery_verb(
+        knn_mod, ["recompute_pairs", cfg_path, str(a), str(b)], n_quad, batch, device)
+    mp1 = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    rows1 = _rows(mp1)
+    quad = [(p, q) for p in range(a, b + 1) for q in range(p + 1, b + 1)]
+    both = [k for k in quad if k in rows0]
+    differ = [k for k in both if not all(np.array_equal(mp1[f][rows1[k]], mp0[f][rows0[k]])
+                                         for f in ("idx", "mask", "pair_ok"))]
+    extra1 = {k for k, r in rows1.items() if mp1["extra"][r]}
+    log(f"recomputed rows: {len(both)} of {len(quad)} matched by phase 8 too, "
+        f"{'all bit-equal to its rows' if not differ else f'{len(differ)} DIFFER'}; "
+        f"{len(rows1)} rows, {len(extra1)} flagged extra")
+    if differ:
+        fail(f"recompute_pairs: rows differ from phase 8's: {differ[:5]}")
+    if new not in extra1:
+        fail(f"add_pair {new} is not flagged extra")
+
+    tr = TimeReport()
+    knn_mod.knn_mutual.launches = 0
+    t0 = time.time()
+    if port_main(["init_camera_pose", cfg_path, "--device", device], tr=tr) != 0:
+        fail("init_camera_pose after pair surgery failed")
+    wall = time.time() - t0
+    mp2 = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    rows2 = _rows(mp2)
+    lost = sorted(k for k in extra1 if k not in rows2)
+    kept = sum(bool(mp2["extra"][rows2[k]]) for k in extra1 if k in rows2)
+    rot, dist, all_ok = sfm_pose_errors(
+        os.path.join(cfg.sfm_result_path, "camera_pose_final.txt"), gt)
+    log(f"SfM stage after the surgery: wall {wall:.1f} s (relative poses "
+        f"{tr.time_spent.get('relative poses', 0):.2f} s), {len(rows2)} pairs, "
+        f"{knn_mod.knn_mutual.launches} descriptor KNN launches, {kept} of {len(extra1)} "
+        f"extra rows still flagged (the others now proposed); max rotation error "
+        f"{rot:.4f} deg, max camera-centre error {dist * 1000:.2f} mm, every frame valid: "
+        f"{all_ok}")
+    if lost:
+        fail(f"the stage rerun dropped the surgery rows {lost[:5]}")
+    if knn_mod.knn_mutual.launches:
+        fail("the stage rerun matched pairs again instead of reading its cache")
+    if not (all_ok and rot < 1.0 and dist < 0.08):
+        fail(f"SfM poses after the surgery off ground truth: {rot:.3f} deg, {dist:.4f} m, "
+             f"all valid {all_ok}")
+
+    # set_straight_motion and the dumps on a second copy
+    s0, s1, length = STRAIGHT
+    cfg2_path = variant_config(cfg_a, "straight", {}, copy=("result", "pairs"))
+    cfg2 = load_config(cfg2_path)
+    forced = [(p, q) for p in range(s0, s1) for q in range(p + 1, min(p + length, s1) + 1)]
+    launches["set_straight_motion"] = _surgery_verb(
+        knn_mod, ["set_straight_motion", cfg2_path, str(s0), str(s1), str(length)],
+        len(forced), batch, device)
+    rc = artifacts.load_npz(os.path.join(cfg2.match_pair_path, "rel_poses.npz"))
+    mp3 = artifacts.load_npz(os.path.join(cfg2.match_pair_path, "match_pairs.npz"))
+    rrows, mrows = _rows(rc), _rows(mp3)
+    bad = [k for k in forced if k not in rrows or not (
+        np.all(rc["rel_aa"][rrows[k]] == 0) and np.array_equal(rc["rel_t"][rrows[k]], [0, 0, -1])
+        and rc["ok"][rrows[k]]
+        and (rc["n_inliers"][rrows[k]] > 0 or not mp3["pair_ok"][mrows[k]]))]
+    inl = [int(rc["n_inliers"][rrows[k]]) for k in forced if k in rrows]
+    log(f"set_straight_motion rows: {len(forced)} forced pairs, inliers per pair {inl}, "
+        f"{sum(bool(mp3['pair_ok'][mrows[k]]) for k in forced)} matched; "
+        f"{'all forced' if not bad else f'{bad} NOT forced'}")
+    if bad:
+        fail(f"set_straight_motion: rows not forced or without inliers: {bad}")
+    for verb, count, per in (("dump_relative_poses", len(rc["pi"]), "pair"),
+                             ("dump_global_poses", len(gt[0]), "frame")):
+        out = os.path.join(cfg2.sfm_result_path, f"{verb}.txt")
+        if port_main([verb, cfg2_path, out, "--device", device]) != 0:
+            fail(f"{verb} failed")
+        with open(out) as f:
+            records = sum(1 for ln in f if ln.startswith(per))
+        log(f"{verb}: {records} records ({count} {per}s)")
+        if records != count:
+            fail(f"{verb} wrote {records} records for {count} {per}s")
+    log(f"phase 8 (c) (pair surgery): {time.time() - t_all:.1f} s")
+    return launches
+
+
+def run_sfm_gps(torch, knn_mod, cfg_a, gt, batch, device: str = "cuda"):
+    """Phase 8 (d): the SfM stage with a GPS file (the true camera centres
+    plus GPS_NOISE_M of seeded noise, `name x y z` per frame),
+    frame_match_method 6 | 8, init_translation_GPS on and
+    init_translation_DLT off, on phase 8's frame cache with pair caches of
+    its own. Checked: the GPS pairs proposed, one fused search per batch of
+    pairs, every frame valid within 1 deg and 0.08 m. Returns the launches."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import translation_averaging
+    from panovlm_tpu_torch.utils.gps import gps_pairs, read_gps, scale_from_gps
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    R, C = gt
+    gps = C + np.random.default_rng(12).normal(size=C.shape) * GPS_NOISE_M
+    path = os.path.join(os.path.dirname(cfg_a.result_path), "gps.txt")
+    with open(path, "w") as f:
+        f.writelines(f"{i:06d}.png {x:.6f} {y:.6f} {z:.6f}\n" for i, (x, y, z) in enumerate(gps))
+    cfg_path = variant_config(cfg_a, "gps", {
+        "gps_path": path, "frame_match_method": "14", "init_translation_GPS": "true",
+        "init_translation_DLT": "false"})
+    cfg = load_config(cfg_path)
+    xyz = read_gps(path)[0]
+    tr = TimeReport()
+    knn_mod.knn_mutual.launches = 0
+    t0 = time.time()
+    with _FirstCall(translation_averaging, ("translation_averaging",), host=True) as ta_cap:
+        if port_main(["init_camera_pose", cfg_path, "--device", device], tr=tr) != 0:
+            fail("init_camera_pose with GPS failed")
+    wall = time.time() - t0
+    ta_args = ta_cap.args["translation_averaging"]
+    gps_used = (ta_cap.kwargs["translation_averaging"].get("t_init") is not None
+                and np.array_equal(ta_args[5], scale_from_gps(xyz, ta_args[1], ta_args[2])))
+    launches = knn_mod.knn_mutual.launches
+    mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+    rows, rows0 = _rows(mp), _rows(artifacts.load_npz(
+        os.path.join(cfg_a.match_pair_path, "match_pairs.npz")))
+    want = set(zip(*(a.tolist() for a in gps_pairs(xyz, 7.0, 15))))
+    missing = sorted(want - set(rows))
+    rot, dist, all_ok = sfm_pose_errors(
+        os.path.join(cfg.sfm_result_path, "camera_pose_final.txt"), gt)
+    log(f"SfM stage with GPS ({GPS_NOISE_M * 100:.0f} cm noise): wall {wall:.1f} s "
+        f"(translation averaging {tr.time_spent.get('translation averaging', 0):.2f} s), "
+        f"{len(rows)} pairs ({len(want)} GPS pairs, {len(set(rows) - set(rows0))} not in "
+        f"phase 8's), {launches} descriptor KNN launches, GPS scales and init taken: "
+        f"{gps_used}; max rotation error {rot:.4f} deg, "
+        f"max camera-centre error {dist * 1000:.2f} mm, every frame valid: {all_ok}")
+    if missing:
+        fail(f"GPS pairs not proposed: {missing[:5]}")
+    if not gps_used:
+        fail("translation averaging did not take the GPS scales and init")
+    if device == "cuda" and launches != -(-len(rows) // batch):
+        fail(f"{launches} launches of the fused descriptor search for {len(rows)} pairs in "
+             f"batches of {batch}")
+    if not (all_ok and rot < 1.0 and dist < 0.08):
+        fail(f"SfM poses with GPS off ground truth: {rot:.3f} deg, {dist:.4f} m, "
+             f"all valid {all_ok}")
+    log(f"phase 8 (d) (SfM with GPS): {time.time() - t0:.1f} s")
+    return launches
 
 
 # K1 at D = 128, the fused search (csrc/knn_desc.cu, one launch per batch):
@@ -2289,6 +2532,66 @@ def run_ta_room(torch, device: str = "cuda"):
         fail(f"the forced dense translation averaging ran on {dtiers}")
 
 
+# The JAX translation_averaging's camera-centre error after a similarity on
+# ta_room_inputs(), per method: a host run of tests/ta_room_reference.py
+# (the JAX package on the CPU, its Jacobian chunking off, ROADMAP F1). Where
+# it is >= 0.08 m, the port's bound is TA_METHOD_MARGIN times it.
+TA_METHOD_REF = {"chordal": 0.18840, "lud": 0.06900, "bata": 0.20236, "l1": 0.08762}
+TA_METHOD_MARGIN = 1.25
+
+
+def run_ta_methods(torch, device: str = "cuda"):
+    """Phase 12 (b), continued: chordal, lud, bata and l1 on the same
+    Room-454 pair graph. Each: its tiers, time and camera-centre error after
+    a similarity, < 0.08 m or within TA_METHOD_MARGIN times the JAX
+    function's (TA_METHOD_REF), and a bit-equal rerun (l1's on its first
+    LP solution). Prints the L-inf LP's size and time (scipy's HiGHS on the
+    host)."""
+    import numpy as np
+    from panovlm_tpu_torch.models import translation_averaging as ta_mod
+
+    kwargs, C, R_cw = ta_room_inputs()
+    m = len(kwargs["pair_i"])
+    triplets, _, found = ta_mod.linf_triplets(kwargs["pair_i"], kwargs["pair_j"],
+                                              np.ones(m, bool))
+    n_lam = len({k for tri in triplets for k in (tri[:2], tri[1:], tri[::2])})
+    for method, ref in TA_METHOD_REF.items():
+        def solve():
+            with _EveryCall(ta_mod, "solve_lm", lambda a, res: res[1]["tier"]) as tiers, \
+                    _EveryCall(ta_mod, "translation_averaging_linf_lp",
+                               lambda a, res: res) as lp:
+                out = ta_mod.translation_averaging(**kwargs, method=method, device=device)
+            return out, tiers.values, lp
+        (((t, s), tiers, lp), sec) = _timed(torch, solve)
+        err = _similarity_error(-np.einsum("nji,nj->ni", R_cw, t), C)
+        bound = 0.08 if ref < 0.08 else TA_METHOD_MARGIN * ref
+        lp_note = ""
+        if lp.values:
+            lp_note = (f"; L-inf LP ({found} triplets, {len(triplets)} kept, {n_lam} pairs, "
+                       f"{6 * n_lam} x {3 * len(C) + n_lam + 1}) {lp.seconds[0]:.2f} s on the "
+                       f"host, ok {lp.values[0][1]}")
+        log(f"translation averaging ({method}) at Room-{len(C)}: tiers {sorted(set(tiers))} "
+            f"({len(tiers)} solves), {sec:.2f} s; camera-centre error after a similarity "
+            f"{err * 1000:.2f} mm (JAX {ref * 1000:.2f} mm, bound {bound * 1000:.2f} mm)"
+            f"{lp_note}")
+        if not err < bound:
+            fail(f"translation averaging ({method}) error {err:.4f} m >= {bound:.4f} m")
+        # the rerun takes l1's host LP solution as it came (scipy's HiGHS,
+        # deterministic, the minute of the call): the card's part again
+        saved = ta_mod.translation_averaging_linf_lp
+        if lp.values:
+            ta_mod.translation_averaging_linf_lp = lambda *a, **k: lp.values[0]
+        try:
+            ((t2, s2), _, _), again = _timed(torch, solve)
+        finally:
+            ta_mod.translation_averaging_linf_lp = saved
+        same = t.tobytes() == t2.tobytes() and s.tobytes() == s2.tobytes()
+        log(f"translation averaging ({method}) rerun ({again:.2f} s"
+            f"{', the LP reused' if lp.values else ''}): {'bit-equal' if same else 'DIFFERS'}")
+        if not same:
+            fail(f"translation averaging ({method}) is not reproducible")
+
+
 def with_shapes(main, parts, **extra):
     """A kernel's row of the JSON line: the headline shape's numbers, the
     largest error over its shapes and each shape's numbers."""
@@ -2426,11 +2729,17 @@ def main():
             run_sfm_host_sift(torch, knn_mod, sfm_config, sfm_gt,
                               sfm_tr.time_spent.get("extract sift", 0.0))
             log(f"phase 8 (b) (SfM stage with the host SIFT): {time.time() - t0:.1f} s")
+            # 8 (c). pair surgery through the CLI; 8 (d). the stage with GPS
+            desc_extra = {"launches_surgery": run_pair_surgery(torch, knn_mod, sfm_config,
+                                                               sfm_gt, match_batch),
+                          "launches_gps": run_sfm_gps(torch, knn_mod, sfm_config, sfm_gt,
+                                                      match_batch)}
 
         if not (args.only_floor or args.only_joint):
             # 9. K1 at D = 128 on the stage's descriptors
             drows = knn_mutual_vs_plain(torch, knn_mod, sfm_config, match_batch)
-            rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()))
+            rows["knn_desc"] = with_shapes(drows["mutual"], list(drows.values()),
+                                           **desc_extra)
 
         if chain:
             # 10. the odometry and joint stages on the SfM stage's outputs;
@@ -2489,6 +2798,7 @@ def main():
                 f"{time.time() - t0:.1f} s")
             t1 = time.time()
             run_ta_room(torch)
+            run_ta_methods(torch)
             log(f"phase 12 (b) (translation averaging at Room-{TA_FRAMES}): "
                 f"{time.time() - t1:.1f} s; phase 12 {time.time() - t0:.1f} s")
         for name, parts in knn_parts.items():   # headline: the Room stage's inputs
@@ -2521,7 +2831,7 @@ def main():
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **{k: r[k] for k in ("launches_joint", "launches_joint_tracks", "launches_floor",
-                              "shapes") if k in r}}
+                              "launches_surgery", "launches_gps", "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,16 +25,19 @@ def _warm_cpu_math():
         f(one)
 
 
-def resolve(name: str) -> torch.device:
-    """`cuda` or `cpu` -> torch.device, with full float32 for matmuls and
-    convolutions (no TF32). Raises if `cuda` is asked for and no card is
+def resolve(device) -> torch.device:
+    """`cuda` or `cpu` (a name or a torch.device) -> torch.device, with full
+    float32 for matmuls and convolutions (no TF32) and the CPU math set up.
+    Every stage function and pair-surgery verb calls it, so a library caller
+    gets what the CLI gets. Raises if CUDA is asked for and no card is
     visible."""
-    if name not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
-    if name == "cuda" and not torch.cuda.is_available():
+    kind = device.type if isinstance(device, torch.device) else device
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if kind == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     _warm_cpu_math()
-    return torch.device(name)
+    return torch.device(device)

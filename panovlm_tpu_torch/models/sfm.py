@@ -1,7 +1,8 @@
 """Global SfM steps — the port of panovlm_tpu/models/sfm.py (sfm/SfM.{h,cpp}
 of the reference), batched over image pairs on the card:
 
-  InitImagePairs    -> init_image_pairs (exhaustive / contiguous / VLAD)
+  InitImagePairs    -> init_image_pairs (exhaustive / contiguous / VLAD /
+                       GPS / GPS_VLAD)
   MatchImagePairs   -> match_all_pairs (K1 at D = 128 through ops/knn.py,
                        a batch of pairs per launch)
   FilterImagePairs  -> relative_poses (AC-RANSAC -> decompose -> CheckRT ->
@@ -31,6 +32,7 @@ from ..solver import residuals, robust
 from ..solver.lm import LMOptions, ResidualBlock, solve_lm
 from ..solver.two_view import two_view_refine
 from ..utils import graph as graph_mod
+from ..utils.gps import gps_pairs
 from ..utils.sift import match_descriptors
 
 
@@ -59,11 +61,15 @@ MATCH_GPS = 8
 MATCH_GPS_VLAD = 16
 
 
-def init_image_pairs(n_frames: int, cfg: SfMConfig, embeddings=None,
+def init_image_pairs(n_frames: int, cfg: SfMConfig, embeddings=None, gps_xyz=None,
                      methods: int | None = None):
     """Pair proposal (InitImagePairs, sfm/SfM.cpp:49-168): the union of the
-    temporal window and the VLAD neighbours (max(N/40, 15) per frame), or
-    every pair for EXHAUSTIVE. Returns (pi, pj) int32, sorted."""
+    sources in the FrameMatchMethod bitmask, or every pair for EXHAUSTIVE.
+    CONTIGUOUS: the temporal window; VLAD: the max(N/40, 15) most similar
+    `embeddings` per frame; GPS: each frame's 15 nearest `gps_xyz` within
+    7 m; GPS_VLAD: the max(N/40, 1) most similar embeddings kept within
+    20 m in GPS. A source without its input adds nothing; no pair at all
+    falls back to the temporal window. Returns (pi, pj) int32, sorted."""
     if methods is None:
         methods = (MATCH_EXHAUSTIVE if cfg.pair_method == "exhaustive" else
                    MATCH_CONTIGUOUS | (MATCH_VLAD if cfg.pair_method == "vlad" else 0))
@@ -76,16 +82,27 @@ def init_image_pairs(n_frames: int, cfg: SfMConfig, embeddings=None,
         return {(i, j) for i in range(n_frames)
                 for j in range(i + 1, min(i + 1 + w, n_frames))}
 
-    pairs = _contiguous() if methods & MATCH_CONTIGUOUS else set()
-    if methods & MATCH_VLAD and embeddings is not None:
+    def _vlad_neighbors(k):
         e = np.asarray(embeddings)
         e = e / (np.linalg.norm(e, axis=1, keepdims=True) + 1e-12)
         sim = e @ e.T
         np.fill_diagonal(sim, -np.inf)
-        k = max(n_frames // 40, 15)
-        for i in range(n_frames):
-            for j in np.argsort(-sim[i])[:k]:
+        return [np.argsort(-sim[i])[:k] for i in range(n_frames)]
+
+    pairs = _contiguous() if methods & MATCH_CONTIGUOUS else set()
+    if methods & MATCH_VLAD and embeddings is not None:
+        for i, nbrs in enumerate(_vlad_neighbors(max(n_frames // 40, 15))):
+            for j in nbrs:
                 if i != j:
+                    pairs.add((min(i, int(j)), max(i, int(j))))
+    if methods & MATCH_GPS and gps_xyz is not None:
+        gi, gj = gps_pairs(gps_xyz, radius=7.0, max_per_frame=15)
+        pairs |= set(zip(gi.tolist(), gj.tolist()))
+    if methods & MATCH_GPS_VLAD and embeddings is not None and gps_xyz is not None:
+        g = np.asarray(gps_xyz)
+        for i, nbrs in enumerate(_vlad_neighbors(max(n_frames // 40, 1))):
+            for j in nbrs:
+                if i != j and np.linalg.norm(g[i] - g[int(j)]) <= 20.0:
                     pairs.add((min(i, int(j)), max(i, int(j))))
     if not pairs:
         pairs = _contiguous()

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as ScR
 
+from . import device as device_mod
 from .config import Config
 from .io import artifacts, pointcloud
 from .models import lidar_odometry
@@ -139,7 +140,7 @@ def init_lidar_pose(cfg: Config, tr: TimeReport | None = None, device="cuda",
     """LiDAR odometry + undistortion (InitLidarPose, main.cpp:372-452).
     Returns (poses (N, 6) numpy, valid). When `infos` is a list, the
     per-round solver records of both odometry runs are appended to it."""
-    device = torch.device(device)
+    device = device_mod.resolve(device)
     tr = tr or TimeReport()
     infos = [] if infos is None else infos
     os.makedirs(cfg.odo_result_path, exist_ok=True)
@@ -254,7 +255,7 @@ def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda")
     from .models import sfm as sfm_mod
     from .utils import panorama_line as pl
 
-    device = torch.device(device)
+    device = device_mod.resolve(device)
     tr = tr or TimeReport()
     os.makedirs(cfg.joint_result_path, exist_ok=True)
     grays, names = images.load_images(cfg.image_path, cfg.scale)
@@ -336,7 +337,7 @@ def colorize_lidar_map(cfg: Config, tr: TimeReport | None = None, device="cuda")
     from .io import images
     from .models import texture
 
-    device = torch.device(device)
+    device = device_mod.resolve(device)
     tr = tr or TimeReport()
     os.makedirs(cfg.texture_result_path, exist_ok=True)
     with tr.phase("load images"):
@@ -387,7 +388,7 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
     from .utils.depth_completion import compute_depth_images
     from .utils.membudget import assert_host_budget
 
-    device = torch.device(device)
+    device = device_mod.resolve(device)
     tr = tr or TimeReport()
     mcfg = mvs_mod.MVSConfig(
         pm=PatchMatchConfig(
@@ -742,8 +743,12 @@ def _relative_poses_cached(cfg: Config, scfg, bearings, matches, pi, pj):
     return out
 
 
-def _gps_in_use(cfg: Config) -> bool:
-    return bool(cfg.gps_path) and os.path.exists(cfg.gps_path)
+def _read_gps(cfg: Config):
+    """xyz (N, 3) of cfg.gps_path, or None when it is unset or absent."""
+    if not (cfg.gps_path and os.path.exists(cfg.gps_path)):
+        return None
+    from .utils.gps import read_gps
+    return read_gps(cfg.gps_path)[0]
 
 
 def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
@@ -758,11 +763,8 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
     from .utils.depth_completion import compute_depth_images
     from .utils.membudget import assert_host_budget
 
-    device = torch.device(device)
+    device = device_mod.resolve(device)
     tr = tr or TimeReport()
-    if _gps_in_use(cfg):
-        raise NotImplementedError(
-            "init_camera_pose: the GPS hooks (gps_path) are not ported (ROADMAP.md)")
     os.makedirs(cfg.sfm_result_path, exist_ok=True)
     grays_u8, names = images.load_images_u8(cfg.image_path, cfg.scale)
     grays = [g.astype(np.float32) / 255.0 for g in grays_u8]   # images.load_images
@@ -852,7 +854,14 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         if fm & (sfm_mod.MATCH_VLAD | sfm_mod.MATCH_GPS_VLAD) and n > 2:
             from .models import vlad
             _, _, embeddings = vlad.vlad_pairs(desc_t, fmask_t, n_centers=min(64, cap))
-        pi, pj = sfm_mod.init_image_pairs(n, scfg, embeddings=embeddings, methods=fm)
+        gps_xyz = None
+        if fm & (sfm_mod.MATCH_GPS | sfm_mod.MATCH_GPS_VLAD):
+            gps_xyz = _read_gps(cfg)
+            if gps_xyz is not None and len(gps_xyz) != n:
+                log.error("GPS count %d != frames %d; skipping GPS pairs", len(gps_xyz), n)
+                gps_xyz = None
+        pi, pj = sfm_mod.init_image_pairs(n, scfg, embeddings=embeddings, gps_xyz=gps_xyz,
+                                          methods=fm)
         pi, pj, matches = _match_pairs_cached(cfg, scfg, cap, desc_t, fmask_t, pi, pj)
         with open(os.path.join(cfg.sfm_result_path, "after_sift_match.txt"), "w") as f:
             for k in range(len(pi)):
@@ -893,11 +902,20 @@ def init_camera_pose(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         ta_method = {1: "softl1", 2: "l1", 3: "chordal", 4: "l2irls", 5: "bata",
                      6: "lud"}.get(cfg.translation_averaging_method, "softl1")
         ta_keep = keep if cfg.use_all_pairs_ta else (keep & has_scale)
+        # the GPS hooks (SfM.cpp:1051-1052, 1218-1240): pair scales from GPS
+        # distances, and the GPS translation init in place of the DLT's
+        pair_scales, t_init = scales[ta_keep], None
+        g_xyz = _read_gps(cfg)
+        if g_xyz is not None and len(g_xyz) == n and np.isfinite(g_xyz).all():
+            from .utils.gps import init_translation_gps, scale_from_gps
+            pair_scales = scale_from_gps(g_xyz, pi[ta_keep], pj[ta_keep])
+            if cfg.init_translation_GPS and not cfg.init_translation_DLT:
+                t_init = init_translation_gps(g_xyz, aa_glob)
         t_glob, _ = ta.translation_averaging(
             aa_glob, pi[ta_keep], pj[ta_keep], rel["rel_aa"][ta_keep],
-            rel["rel_t"][ta_keep], scales[ta_keep], method=ta_method,
+            rel["rel_t"][ta_keep], pair_scales, method=ta_method,
             upper_scale_ratio=cfg.upper_scale_ratio, lower_scale_ratio=cfg.lower_scale_ratio,
-            irls_iters=cfg.num_iteration_L2IRLS, device=device)
+            t_init=t_init, irls_iters=cfg.num_iteration_L2IRLS, device=device)
 
     def export_poses(name, poses):
         R, t = pose_util.params_to_world(poses)

@@ -1,10 +1,11 @@
 """Residual functions, ported from `panovlm_tpu/solver/residuals.py`: the
 odometry families (point-to-plane, point-to-line and line-to-line,
 base/CostFunction.h:567-1022 in the reference), the SfM families
-(chordal and pixel reprojection, pairwise rotation and translation, scale
-bounds) and the camera-LiDAR line families of the joint stage
-(plane-to-plane and plane IoU, base/CostFunction.h:350-506, and their
-calibration variants with the single pose T_cl, :294-348 and :509-564).
+(chordal and pixel reprojection, pairwise rotation and translation, the
+LUD and chordal translation-averaging residuals, scale bounds) and the
+camera-LiDAR line families of the joint stage (plane-to-plane and plane
+IoU, base/CostFunction.h:350-506, and their calibration variants with the
+single pose T_cl, :294-348 and :509-564).
 
 Each function is the un-batched residual of ONE observation; the solver
 maps it over the observation axis with `torch.func.vmap` and differentiates
@@ -160,6 +161,22 @@ def pairwise_translation(t_1w, t_2w, scale, aa_21_obs, t_21_obs_unit):
     """PairWiseTranslationResidual (base/CostFunction.h:51-84):
     t_2w - R_21 t_1w - scale t_21. (3,)."""
     return t_2w - se3.exp_so3(aa_21_obs) @ t_1w - scale[0] * t_21_obs_unit
+
+
+def lud(t_w1, t_w2, scale, direction_w):
+    """LUD centre residual (base/CostFunction.h:89-117 objective):
+    C_1 - C_2 - scale * dir, dir = normalize(R_w2 t_21). (3,). The raw
+    3-vector, as the JAX function returns it: the solver's robust loss
+    stands in for the reference's sqrt(sqrt(|e|))."""
+    return t_w1 - t_w2 - scale[0] * direction_w
+
+
+def chordal(t_w1, t_w2, direction_w):
+    """ChrodalResidual (base/CostFunction.h:149-176): the normalised
+    baseline C_1 - C_2 minus the measured world-frame direction (1DSfM,
+    ECCV'14). (3,). Not differentiable where C_1 = C_2."""
+    base = t_w1 - t_w2
+    return base / (torch.sqrt(torch.sum(base * base)) + 1e-12) - direction_w
 
 
 def scale_factor(scale, lower, upper):

@@ -1,6 +1,7 @@
 """Small undirected-graph toolkit for the SfM control plane (host), in place
 of the networkx calls of the JAX package (models/sfm.py filter_by_triplet
-and largest_biconnected, models/rotation_averaging.py spanning_tree_init).
+and largest_biconnected, models/rotation_averaging.py spanning_tree_init,
+the triplet search of models/translation_averaging.py).
 
 The results of those callers depend on iteration order (the triplet filter
 stops at the first consistent triangle; the spanning tree keeps the first
@@ -55,6 +56,12 @@ class Graph:
         for u, v, d in self.edges(data=True):
             g.add_edge(u, v, **d)
         return g
+
+
+def common_neighbors(g: Graph, u, v) -> set:
+    """networkx.common_neighbors: the neighbours of both u and v, as a set
+    (callers sort it)."""
+    return g.adj[u].keys() & (g.adj[v].keys() - {u, v})
 
 
 def connected_components(g: Graph):

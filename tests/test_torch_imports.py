@@ -2,7 +2,8 @@
 panovlm_tpu (the machine with the card has no jax, no cv2 and no networkx,
 and the port keeps its own copies of the host code it needs, its own PNG
 and JPEG codecs among them); the same holds for chip_smoke.py. The port's
-CLI runs each of the reference's five verbs."""
+CLI runs each of the reference's five stage verbs (the five pair-surgery
+verbs: tests/test_torch_pair_surgery.py)."""
 
 import os
 import subprocess
@@ -42,7 +43,8 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 assert len(mods) > 30, mods
 for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg",
-          "native.jpeg", "models.texture", "ops.lbd", "native.lk", "models.line_tracks"):
+          "native.jpeg", "models.texture", "ops.lbd", "native.lk", "models.line_tracks",
+          "pair_surgery", "utils.gps"):
     assert "panovlm_tpu_torch." + m in mods, m
 print("ok")
 """

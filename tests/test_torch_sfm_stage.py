@@ -216,3 +216,54 @@ def test_refine_camera_pose_matches_the_jax_stage(tmp_path, monkeypatch):
     assert rot < 0.01 and np.abs(t_t - t_j).max() < 1e-3, (rot, np.abs(t_t - t_j).max())
     # the refinement moved the poses: it is not the joint input written back
     assert np.abs(t_t - (gt["C"] + dt)).max() > 1e-4
+
+
+def test_both_stages_with_a_gps_file_reach_the_gt_bounds_and_agree(runs, monkeypatch):
+    """Both stages rerun on copies of their first runs with a GPS file (the
+    true camera centres plus 2 cm of seeded noise, `name x y z` per frame),
+    frame_match_method 6 | 8, init_translation_GPS on and DLT off: the GPS
+    pairs are proposed, and translation averaging takes its pair scales
+    from the GPS distances and its init from the GPS centres. Both pass the
+    ground-truth bounds and agree within 0.5 deg and 0.03 m, as the first
+    runs do."""
+    from panovlm_tpu.models import translation_averaging as jta
+    from panovlm_tpu_torch.config import load_config as tload
+    from panovlm_tpu_torch.models import translation_averaging as tta
+    from panovlm_tpu_torch.utils.gps import gps_pairs, read_gps, scale_from_gps
+    gt = runs["gt"]
+    gps = gt["C"] + np.random.default_rng(11).normal(size=gt["C"].shape) * 0.02
+    poses, calls = {}, []
+    for key, mod in (("jax", jta), ("port", tta)):
+        fn = mod.translation_averaging
+        monkeypatch.setattr(mod, "translation_averaging",
+                            lambda *a, _fn=fn, **k: calls.append((a, k)) or _fn(*a, **k))
+        path = _copy(os.path.dirname(runs[key].result_path), f"{key}_gps")
+        root = os.path.dirname(path)
+        with open(os.path.join(root, "gps.txt"), "w") as f:
+            f.writelines(f"{i:06d}.png {x:.6f} {y:.6f} {z:.6f}\n" for i, (x, y, z) in enumerate(gps))
+        with open(path, "a") as f:
+            f.write(f"gps_path = {root}/gps.txt\nframe_match_method = 14\n"
+                    "init_translation_GPS = true\ninit_translation_DLT = false\n")
+        if key == "jax":
+            cfg = load_config(path)
+            pipeline.init_camera_pose(cfg)
+        else:
+            assert torch_main(["init_camera_pose", path, "--device", "cpu"]) == 0
+            cfg = tload(path)
+        xyz = read_gps(cfg.gps_path)[0]
+        (a, k), = calls[-1:]
+        assert k["t_init"] is not None
+        np.testing.assert_array_equal(a[5], scale_from_gps(xyz, a[1], a[2]))
+        out = os.path.join(cfg.sfm_result_path, "camera_pose_final.txt")
+        rot, dist = _gt_errors(out, gt)
+        assert rot < 1.0 and dist < 0.08, (key, rot, dist)
+        mp = artifacts.load_npz(os.path.join(cfg.match_pair_path, "match_pairs.npz"))
+        want = set(zip(*(p.tolist() for p in gps_pairs(xyz, 7.0, 15))))
+        assert want and want <= set(zip(mp["pi"].tolist(), mp["pj"].tolist()))
+        poses[key] = artifacts.read_pose_t(out)
+    assert len(calls) == 2
+    R_j, t_j = poses["jax"][:2]
+    R_t, t_t = poses["port"][:2]
+    rot = max(np.degrees(np.arccos(np.clip((np.trace(R_t[i].T @ R_j[i]) - 1) / 2, -1, 1)))
+              for i in range(len(R_t)))
+    assert rot < 0.5 and np.abs(t_t - t_j).max() < 0.03, (rot, np.abs(t_t - t_j).max())
