@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scans N] [--mvs-frames N] [--sfm-frames N]
-                          [--profile-mvs] [--only-sfm | --only-floor | --only-joint]
+    python3 chip_smoke.py [--scans N] [--mvs-frames N] [--mvs-exact-frames N]
+                          [--sfm-frames N] [--profile-mvs]
+                          [--only-sfm | --only-floor | --only-joint]
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. card: nvidia-smi name and power limit, torch's device name; the
@@ -184,6 +185,29 @@ Run from the root of a checkout. Phases, each fatal on failure:
      functions' (CALIB_REF). Both JAX references come from
      tests/joint_chain_reference.py run on the host on the
      chiprun_out/joint_chain_tracks.npz that the phase keeps.
+  14. the last four options, after phase 12: (a) the MVS stage with
+     mvs_neighbor_selection = 1 and the configs' sweep on phase 10's chain
+     (its frames at 720 x 1440, whose ground-truth depth the SfM render
+     workers return, phase 8's result/sfm/points.npz, the joint poses,
+     RefineCameraPose on the SfM tracks). Checked: the table the stage
+     filtered with equals select_neighbor_sfm on the same points.npz with
+     the KNN picks where it has -1, at least one row differs from the KNN
+     table, the median relative depth error < 0.08 and coverage floors of
+     its own (SFM_NEIGHBOUR_MIN_COVERAGE: the SfM score picks wider
+     baselines than the KNN of phase 6's floors); prints the rows that
+     fell back to KNN and the mean baseline to the SfM and to the KNN
+     neighbours. (b) the MVS stage with mvs_sweep_slices = 0 (exact
+     per-plane sampling) on the first --mvs-exact-frames frames of phase
+     6's dataset at 720 x 1440. Checked: phase 6's depth bounds, no
+     volscore launch, frame 0's photometric and geometric passes run again
+     on their captured inputs bit-equal; prints the passes per frame beside
+     phase 6's. (c)
+     the odometry stage with extraction_method = 2
+     and lidar_ring_repair = true on phase 4's Room-454 dataset (16 x 1800
+     rays, nothing cut). Checked: the firing-column probe of
+     tests/ring_scans.py repaired on the card to its rings, phase 4's
+     artifacts and bounds, one knn and one knn_ring launch per round,
+     hysteresis edges in every scan; prints the repaired points.
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -191,8 +215,10 @@ the kernel table as one JSON line, then, as the last line, {"ok": true,
 "device": {...}}. In the kernel table, the headline numbers of knn and
 knn_ring are those at the odometry stage's inputs (phase 5; the joint
 stage's, phase 10, and the Floor stage's, phase 12, are further shapes,
-and `launches_joint`, `launches_joint_tracks` (phase 13) and
-`launches_floor` their launches there; knn_desc's `launches_surgery` and
+and `launches_joint`, `launches_joint_tracks` (phase 13),
+`launches_floor` and `launches_options` (phase 14 (c)) their launches
+there; volscore's `launches_sfm_neighbours` and `launches_exact` its
+launches in phases 14 (a) and 14 (b); knn_desc's `launches_surgery` and
 `launches_gps` are its launches in phases 8 (c) and 8 (d)), volscore's those of the D=64
 full-scoring shape of phase
 3 and knn_desc's those of the fused search at the stage's batch; each
@@ -704,66 +730,72 @@ class _EveryCall:
         setattr(self.module, self.name, self.saved)
 
 
-def run_odometry(torch, knn_mod, n_scans: int):
-    """Phase 4. Returns (kernel launches, the arguments of the first knn and
-    knn_ring calls)."""
+def check_odometry_outputs(cfg_path, gt, n_scans: int):
+    """The odometry stage's artifact set, one undistorted cloud per scan and
+    the consecutive-scan distance error < 0.05 m in both pose files."""
     import numpy as np
-    from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
     from panovlm_tpu_torch.io import artifacts
+
+    cfg = load_config(cfg_path)
+    for name in ("lidar_pose_refined.txt", "lidar_center_refined.pcd",
+                 "lidar_pose_refined.ply", "lidar_pose_undis_refined.txt",
+                 "lidar_center_undis_refined.pcd"):
+        if not os.path.exists(os.path.join(cfg.odo_result_path, name)):
+            fail(f"missing artifact {name}")
+    n_und = len(os.listdir(cfg.lidar_path_undistort))
+    if n_und != n_scans:
+        fail(f"{n_und} undistorted clouds for {n_scans} scans")
+    d_gt = np.linalg.norm(np.diff(np.stack([p[1] for p in gt]), axis=0), axis=1)
+    for name in ("lidar_pose_refined.txt", "lidar_pose_undis_refined.txt"):
+        _, t, _, ok = artifacts.read_pose_t(os.path.join(cfg.odo_result_path, name))
+        if not ok.all():
+            fail(f"{name}: invalid poses")
+        err = np.abs(np.linalg.norm(np.diff(t, axis=0), axis=1) - d_gt)
+        log(f"{name}: consecutive-scan distance error vs ground truth: "
+            f"max {err.max() * 1000:.2f} mm, median {np.median(err) * 1000:.2f} mm")
+        if not err.max() < 0.05:
+            fail(f"{name}: error {err.max():.4f} m >= 0.05 m at scan {int(err.argmax())}")
+
+
+def run_odometry(torch, knn_mod, root: str, n_scans: int):
+    """Phase 4, on a Room dataset made in root (kept for phase 14 (c)).
+    Returns (kernel launches, the arguments of the first knn and knn_ring
+    calls, config path, ground-truth poses)."""
+    from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.models import association
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_room_") as root:
-        t0 = time.time()
-        cfg_path, gt, mean_pts = make_room(root, n_scans)
-        log(f"dataset: Room-{n_scans} synthetic, {mean_pts:.0f} points/scan, "
-            f"built in {time.time() - t0:.1f} s")
-        infos = []
-        torch.cuda.reset_peak_memory_stats()
-        knn_mod.knn.launches = 0
-        knn_mod.knn_ring.launches = 0
-        t0 = time.time()
-        with _FirstCall(association, ("knn", "knn_ring")) as first:
-            rc = port_main(["init_lidar_pose", cfg_path, "--device", "cuda"], infos=infos)
-        wall = time.time() - t0
-        launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
-        if rc != 0:
-            fail(f"init_lidar_pose exited {rc}")
-        log(f"odometry stage wall {wall:.1f} s, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        for r, info in enumerate(infos):
-            log(f"odometry round {r}: {info['pairs']} pairs, cost "
-                f"{info['initial_cost']:.6g} -> {info['final_cost']:.6g}, "
-                f"{info['iterations']} LM iterations")
-        log(f"kernel launches on the odometry path: {launches} in {len(infos)} "
-            f"association rounds")
-        if min(launches.values()) <= 0:
-            fail(f"a kernel of the odometry path was not launched: {launches}")
-        if set(launches.values()) != {len(infos)}:
-            fail(f"launches {launches} differ from the {len(infos)} association rounds")
-        if set(first.args) != {"knn", "knn_ring"}:
-            fail(f"the stage's KNN calls were not captured: {sorted(first.args)}")
-
-        cfg = load_config(cfg_path)
-        for name in ("lidar_pose_refined.txt", "lidar_center_refined.pcd",
-                     "lidar_pose_refined.ply", "lidar_pose_undis_refined.txt",
-                     "lidar_center_undis_refined.pcd"):
-            if not os.path.exists(os.path.join(cfg.odo_result_path, name)):
-                fail(f"missing artifact {name}")
-        n_und = len(os.listdir(cfg.lidar_path_undistort))
-        if n_und != n_scans:
-            fail(f"{n_und} undistorted clouds for {n_scans} scans")
-        d_gt = np.linalg.norm(np.diff(np.stack([p[1] for p in gt]), axis=0), axis=1)
-        for name in ("lidar_pose_refined.txt", "lidar_pose_undis_refined.txt"):
-            _, t, _, ok = artifacts.read_pose_t(os.path.join(cfg.odo_result_path, name))
-            if not ok.all():
-                fail(f"{name}: invalid poses")
-            err = np.abs(np.linalg.norm(np.diff(t, axis=0), axis=1) - d_gt)
-            log(f"{name}: consecutive-scan distance error vs ground truth: "
-                f"max {err.max() * 1000:.2f} mm, median {np.median(err) * 1000:.2f} mm")
-            if not err.max() < 0.05:
-                fail(f"{name}: error {err.max():.4f} m >= 0.05 m at scan {int(err.argmax())}")
-    return launches, first.args
+    t0 = time.time()
+    cfg_path, gt, mean_pts = make_room(root, n_scans)
+    log(f"dataset: Room-{n_scans} synthetic, {mean_pts:.0f} points/scan, "
+        f"built in {time.time() - t0:.1f} s")
+    infos = []
+    torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn.launches = 0
+    knn_mod.knn_ring.launches = 0
+    t0 = time.time()
+    with _FirstCall(association, ("knn", "knn_ring")) as first:
+        rc = port_main(["init_lidar_pose", cfg_path, "--device", "cuda"], infos=infos)
+    wall = time.time() - t0
+    launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
+    if rc != 0:
+        fail(f"init_lidar_pose exited {rc}")
+    log(f"odometry stage wall {wall:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for r, info in enumerate(infos):
+        log(f"odometry round {r}: {info['pairs']} pairs, cost "
+            f"{info['initial_cost']:.6g} -> {info['final_cost']:.6g}, "
+            f"{info['iterations']} LM iterations")
+    log(f"kernel launches on the odometry path: {launches} in {len(infos)} "
+        f"association rounds")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the odometry path was not launched: {launches}")
+    if set(launches.values()) != {len(infos)}:
+        fail(f"launches {launches} differ from the {len(infos)} association rounds")
+    if set(first.args) != {"knn", "knn_ring"}:
+        fail(f"the stage's KNN calls were not captured: {sorted(first.args)}")
+    check_odometry_outputs(cfg_path, gt, n_scans)
+    return launches, first.args, cfg_path, gt
 
 
 # ----------------------------------------------------------------------------
@@ -907,8 +939,8 @@ class _RangeFit(logging.Handler):
 
 def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
     """Phase 6. Returns (K3 launches, the PatchMatchConfig of the sweep the
-    stage ran, the capture of its last voxel_downsample call: the fuse)."""
-    import numpy as np
+    stage ran, the capture of its last voxel_downsample call: the fuse, the
+    stage's TimeReport)."""
     from panovlm_tpu_torch.__main__ import main as port_main
     from panovlm_tpu_torch.config import load_config
     from panovlm_tpu_torch.models import mvs
@@ -957,15 +989,29 @@ def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
     if profile:
         write_profile(prof, wall)
 
+    check_mvs_outputs(torch, cfg, d_gt)
+    return launches, pm_run, vox, tr
+
+
+def check_mvs_outputs(torch, cfg, d_gt, label: str = "MVS", floors=None):
+    """Phase 6's checks of a joint_mvs run: the artifact set, then in rows
+    H/4..3H/4 of every frame against its ground-truth depth d_gt[i] the
+    median relative error < 0.08 (post-processed) and the coverage floors
+    (MVS_MIN_COVERAGE unless given). Returns {kind: (median error,
+    coverage)}."""
+    import numpy as np
+    from panovlm_tpu_torch.models import mvs
+
+    n = len(d_gt)
     names = sorted(os.listdir(cfg.mvs_depth_path))
     want = sorted(f"{i:06d}_{s}.npy" for i in range(n) for s in ("pho", "geo", "filter"))
     if names != want:
-        fail(f"depth artifacts {names[:6]}... != {want[:6]}...")
+        fail(f"{label}: depth artifacts {names[:6]}... != {want[:6]}...")
     for sub in (cfg.mvs_conf_path, cfg.mvs_normal_path):
         if len(os.listdir(sub)) != 2 * n:
-            fail(f"{sub}: {len(os.listdir(sub))} files for {n} frames x 2 passes")
+            fail(f"{label}: {sub}: {len(os.listdir(sub))} files for {n} frames x 2 passes")
     if not os.path.exists(os.path.join(cfg.mvs_result_path, "mvs_fused.pcd")):
-        fail("missing result/mvs/mvs_fused.pcd")
+        fail(f"{label}: missing result/mvs/mvs_fused.pcd")
     errs = {"geo (post-processed)": [], "filter": []}
     for i in range(n):
         geo = torch.from_numpy(np.load(os.path.join(
@@ -979,17 +1025,20 @@ def run_mvs(torch, vs_mod, cfg_path, d_gt, profile: bool):
         for key, d in (("geo (post-processed)", geo), ("filter", filt)):
             have = band & (d > 0) & (d_gt[i] > 0)
             errs[key].append((np.abs(d - d_gt[i])[have] / d_gt[i][have], have.sum() / band.sum()))
-    med = {}
+    floors = MVS_MIN_COVERAGE if floors is None else floors
+    out = {}
     for key, parts in errs.items():
-        med[key] = float(np.median(np.concatenate([e for e, _ in parts])))
+        med = float(np.median(np.concatenate([e for e, _ in parts])))
         cover = float(np.mean([c for _, c in parts]))
-        log(f"MVS depth vs ground truth [{key}]: median relative error {med[key]:.4f}, "
-            f"coverage {cover:.3f} of rows H/4..3H/4")
-        if not cover >= MVS_MIN_COVERAGE[key]:
-            fail(f"MVS [{key}]: coverage {cover:.3f} < {MVS_MIN_COVERAGE[key]}")
-    if not med["geo (post-processed)"] < 0.08:
-        fail(f"MVS median relative depth error {med['geo (post-processed)']:.4f} >= 0.08")
-    return launches, pm_run, vox
+        out[key] = (med, cover)
+        log(f"{label} depth vs ground truth [{key}]: median relative error {med:.4f}, "
+            f"coverage {cover:.3f} of rows H/4..3H/4 (floor {floors[key]:.3f})")
+    for key, (_, cover) in out.items():
+        if not cover >= floors[key]:
+            fail(f"{label} [{key}]: coverage {cover:.3f} < {floors[key]:.3f}")
+    if not out["geo (post-processed)"][0] < 0.08:
+        fail(f"{label}: median relative depth error {out['geo (post-processed)'][0]:.4f} >= 0.08")
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -1022,21 +1071,24 @@ SFM_EVERY = 6
 
 
 def _render_sfm_frame(args):
-    """Worker: render one panorama straight at the working size as PNG."""
+    """Worker: render one panorama straight at the working size as PNG;
+    returns its ground-truth depth (phase 14 (a))."""
     path, C, R_wc, hw = args
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
     import numpy as np
     import synthetic
-    gray, _ = synthetic.render_panorama(C, *hw, R_wc=R_wc)
+    gray, depth = synthetic.render_panorama(C, *hw, R_wc=R_wc)
     write_png_gray(path, np.clip(gray * 255, 0, 255).astype(np.uint8))
+    return depth.astype(np.float32)
 
 
 def start_sfm_dataset(root: str, n: int, pool, hw=SFM_HW, every: int = SFM_EVERY,
                       keys: str = ROOM_SFM_KEYS):
     """Frames 0, every, ..., every * (n - 1) of the Room-454 loop: their scans
     (sweep_alpha 0), config.txt, and the panorama renders started on `pool`.
-    Returns (config path, async result of the renders, ground truth (R_wc,
-    C) in the camera-convention world)."""
+    Returns (config path, async result of the renders: each frame's
+    ground-truth depth, ground truth (R_wc, C) in the camera-convention
+    world)."""
     import numpy as np
     from panovlm_tpu_torch.io.pointcloud import write_pcd
     scans, poses = room_loop(every * (n - 1) + 1, sweep_alpha=0.0)
@@ -2592,6 +2644,270 @@ def run_ta_methods(torch, device: str = "cuda"):
             fail(f"translation averaging ({method}) is not reproducible")
 
 
+# ----------------------------------------------------------------------------
+# phase 14: the last four options: SfM-point neighbour selection, exact
+# per-plane sampling, DOUBLE_EXTRACTION and the ring repair
+# ----------------------------------------------------------------------------
+
+def _peak_gib(torch) -> str:
+    """Peak device memory since torch.cuda.reset_peak_memory_stats, as
+    printed."""
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+# share of rows H/4..3H/4 with a depth that the SfM-point run of phase 14
+# (a) must reach: about 80 % of what it measured on an NVIDIA H100 80GB
+# HBM3 at 700 W (0.122 after post-processing, 0.019 filtered). The SfM
+# score saturates at 10 deg of parallax and so picks wider baselines than
+# the camera-centre KNN, whose run on the same chain and card covered
+# 0.223 and 0.099: phase 6's floors, set on consecutive frames with KNN
+# neighbours, do not carry over to this cell. The JAX stage does the same
+# (tests/test_torch_mvs_options.py::test_sfm_neighbours_widen_the_baselines:
+# on a 10-frame chain the neighbours' mean baseline goes from 0.40 m to
+# 0.74 m and its coverage from 0.271 to 0.164 post-processed and from 0.176
+# to 0.089 filtered); the phase prints both tables' mean baselines.
+SFM_NEIGHBOUR_MIN_COVERAGE = {"geo (post-processed)": 0.098, "filter": 0.015}
+
+
+def run_mvs_sfm_neighbours(torch, vs_mod, sfm_cfg_path, d_gt):
+    """Phase 14 (a): joint_mvs with mvs_neighbor_selection = 1 and the
+    configs' sweep on phase 10's chain (its frames at 720 x 1440, phase 8's
+    result/sfm/points.npz, the joint poses, RefineCameraPose on the SfM
+    tracks). Checked: the stage filtered with the host function's table on
+    the same points.npz, KNN picks where it has -1; a row differs from the
+    KNN table; against d_gt the median relative depth error < 0.08 and the
+    coverage floors SFM_NEIGHBOUR_MIN_COVERAGE. Returns K3 launches."""
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.models import mvs
+    from panovlm_tpu_torch.ops import se3
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    root = os.path.dirname(sfm_cfg_path)
+    n = len(d_gt)
+    cfg_path = os.path.join(root, "mvs_sfm_config.txt")
+    with open(os.path.join(root, "chain_config.txt")) as f:
+        text = f.read()
+    with open(cfg_path, "w") as f:
+        f.write(f"{text}{ROOM_MVS_KEYS}scale = 0\nmvs_neighbor_selection = 1\n"
+                f"mvs_data_path = {root}/mvs_sfm\n")
+    cfg = load_config(cfg_path)
+    tr = TimeReport()
+    vs_mod.volscore.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with _FirstCall(mvs, ("select_neighbor_sfm", "filter_depth_maps")) as cap:
+        rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
+    wall = time.time() - t0
+    launches = vs_mod.volscore.launches
+    if rc != 0:
+        fail(f"joint_mvs with SfM-point neighbours exited {rc}")
+    log(f"joint_mvs, SfM-point neighbours, {n} frames: wall {wall:.1f} s, peak device "
+        f"memory {_peak_gib(torch)}, volscore launches {launches}")
+    for name in ("refine camera pose", "photometric pass", "geometric pass"):
+        sec = tr.time_spent.get(name, float("nan"))
+        log(f"  {name}: {sec:.2f} s ({sec / n:.3f} s per frame)")
+    if "select_neighbor_sfm" not in cap.args:
+        fail("the stage did not select neighbours from the SfM points")
+    poses = cap.args["select_neighbor_sfm"][0]
+    tracks = artifacts.read_point_tracks(os.path.join(cfg.sfm_result_path, "points.npz"))
+    sfm_table = mvs.select_neighbor_sfm(poses, tracks["points"], tracks["track_img"],
+                                        tracks["track_mask"], 4)
+    _, _, _, c_ok = artifacts.read_pose_t(os.path.join(cfg.joint_result_path,
+                                                       "camera_pose_joint.txt"))
+    knn = mvs.select_neighbor_views(poses, 4, c_ok)
+    want = np.where(sfm_table >= 0, sfm_table, knn)
+    used = np.asarray(cap.args["filter_depth_maps"][3])
+    del cap
+    if not np.array_equal(used, want):
+        fail(f"the stage's neighbour table differs from select_neighbor_sfm's on "
+             f"points.npz: {int((used != want).any(1).sum())} rows")
+    differ = int((want != knn).any(1).sum())
+    fell_back = int((sfm_table < 0).any(1).sum())
+    P = np.asarray(poses, np.float32)
+    R = se3.exp_so3(torch.from_numpy(P[:, :3])).double().numpy()
+    C = -np.einsum("nji,nj->ni", R, P[:, 3:].astype(np.float64))
+    log(f"neighbour table: {differ} of {n} rows differ from the camera-centre KNN, "
+        f"{fell_back} rows took KNN picks ({int((sfm_table < 0).sum())} entries), "
+        f"{len(tracks['points'])} SfM points; mean baseline to the neighbours "
+        f"{np.linalg.norm(C[:, None] - C[want], axis=-1).mean():.3f} m (KNN: "
+        f"{np.linalg.norm(C[:, None] - C[knn], axis=-1).mean():.3f} m)")
+    if differ == 0:
+        fail("the SfM-point table equals the KNN table: the option changed nothing")
+    if launches <= 0:
+        fail("the volscore kernel was not launched on the sweep path")
+    check_mvs_outputs(torch, cfg, d_gt, "phase 14 (a)", floors=SFM_NEIGHBOUR_MIN_COVERAGE)
+    return launches
+
+
+def _exact_config(root, mvs_cfg_path, k: int):
+    """Config of the exact-sampling run on the first k frames of phase 6's
+    dataset, with its own images, joint poses, results and depth maps."""
+    from panovlm_tpu_torch.io import artifacts
+
+    src = os.path.dirname(mvs_cfg_path)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "result", "joint"))
+    for i in range(k):
+        os.symlink(os.path.join(src, "images", f"{i:06d}.png"),
+                   os.path.join(root, "images", f"{i:06d}.png"))
+    for name in ("camera_pose_joint.txt", "lidar_pose_joint.txt"):
+        R, t, _, _ = artifacts.read_pose_t(os.path.join(src, "result", "joint", name))
+        artifacts.export_pose_t(os.path.join(root, "result", "joint", name), R[:k], t[:k])
+    cfg_path = os.path.join(root, "config.txt")
+    with open(cfg_path, "w") as f:
+        f.write(f"image_path = {root}/images\nlidar_path = {src}/undis\n"
+                f"lidar_path_undistort = {src}/undis\nresult_path = {root}/result\n"
+                f"mvs_data_path = {root}/mvs\n{ROOM_MVS_KEYS}mvs_sweep_slices = 0\n")
+    return cfg_path
+
+
+class _FirstPasses:
+    """Wraps models.mvs.estimate_depth_map and keeps, for the first call of
+    each pass (photometric: no neighbour depths; geometric: with them), its
+    arguments (tensors in host memory), the states its torch.Generator
+    arguments had before the call, and its result."""
+
+    def __init__(self, mvs):
+        self.mvs, self.calls = mvs, {}
+
+    def __enter__(self):
+        self.saved = fn = self.mvs.estimate_depth_map
+
+        def wrapped(*a, **kw):
+            name = "photometric" if a[9] is None else "geometric"
+            if name in self.calls:
+                return fn(*a, **kw)
+            gens = [x for x in (*a, *kw.values()) if type(x).__name__ == "Generator"]
+            states = [(g, g.get_state()) for g in gens]
+            res = fn(*a, **kw)
+            self.calls[name] = (_hold(list(a)), _hold(kw), states, _hold(res))
+            return res
+        self.mvs.estimate_depth_map = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mvs.estimate_depth_map = self.saved
+
+
+def run_mvs_exact(torch, vs_mod, mvs_cfg_path, d_gt, k: int, tr6):
+    """Phase 14 (b): joint_mvs with mvs_sweep_slices = 0 on the first k
+    frames of phase 6's dataset at 720 x 1440. Checked: phase 6's depth
+    bounds, no volscore launch, and frame 0's photometric and geometric
+    passes run again on their captured inputs and generator states
+    bit-equal to the stage's; prints the passes per frame beside phase 6's
+    (tr6, the sweep)."""
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.models import mvs
+    from panovlm_tpu_torch.utils.timing import TimeReport
+
+    n6 = len(d_gt)
+    cfg_path = _exact_config(os.path.join(os.path.dirname(mvs_cfg_path), "exact"),
+                             mvs_cfg_path, k)
+    cfg = load_config(cfg_path)
+    tr = TimeReport()
+    vs_mod.volscore.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with _FirstPasses(mvs) as first:
+        rc = port_main(["joint_mvs", cfg_path, "--device", "cuda"], tr=tr)
+    wall = time.time() - t0
+    if rc != 0:
+        fail(f"joint_mvs with exact sampling exited {rc}")
+    log(f"joint_mvs, exact sampling, {k} frames at {d_gt[0].shape[0]} x {d_gt[0].shape[1]}: "
+        f"wall {wall:.1f} s, peak device memory {_peak_gib(torch)}, volscore "
+        f"launches {vs_mod.volscore.launches}")
+    if vs_mod.volscore.launches != 0:
+        fail(f"the exact path launched the volscore kernel {vs_mod.volscore.launches} times")
+    for name in ("photometric pass", "geometric pass"):
+        sec = tr.time_spent.get(name, float("nan"))
+        sweep = tr6.time_spent.get(name, float("nan"))
+        log(f"  {name}: {sec:.2f} s, {sec / k:.3f} s per frame (phase 6, the sweep: "
+            f"{sweep / n6:.3f} s per frame)")
+    check_mvs_outputs(torch, cfg, d_gt[:k], "phase 14 (b)")
+    if sorted(first.calls) != ["geometric", "photometric"]:
+        fail(f"the stage's passes were not captured: {sorted(first.calls)}")
+    for name, (args, kwargs, states, out) in sorted(first.calls.items(), reverse=True):
+        for gen, state in states:
+            gen.set_state(state)
+        t0 = time.time()
+        again = mvs.estimate_depth_map(*_restore(args), **_restore(kwargs))
+        same = [bool(torch.equal(a, b)) for a, b in zip(again, _restore(out))]
+        log(f"frame 0's {name} pass again ({time.time() - t0:.1f} s): depth, normal, "
+            f"confidence {'bit-equal' if all(same) else f'DIFFER {same}'}")
+        if not all(same):
+            fail(f"exact sampling is not reproducible in the {name} pass: {same}")
+
+
+def run_odometry_options(torch, knn_mod, room_cfg_path, gt, n_scans: int):
+    """Phase 14 (c): init_lidar_pose with extraction_method = 2 and
+    lidar_ring_repair = true on phase 4's dataset. Checked: the firing-column
+    probe (tests/ring_scans.py) repaired on the card to its rings, phase 4's
+    artifacts and bounds, one knn and one knn_ring launch per round,
+    hysteresis edges in every scan; prints the repaired points. Returns the
+    kernel launches."""
+    import shutil
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.sensors import velodyne as vd
+    from ring_scans import probe
+
+    pts, expect = probe()
+    p, m = vd.pad_points(pts, 96)
+    rings = vd.repair_ring_conflicts(torch.from_numpy(p)[None].cuda(),
+                                     torch.from_numpy(m)[None].cuda())[0].cpu().numpy()
+    if not np.array_equal(rings[:len(expect)], expect):
+        fail(f"ring repair of the probe on the card: {rings[:len(expect)].tolist()} != "
+             f"{expect.tolist()}")
+    log(f"ring repair of the firing-column probe on the card: {len(expect)} rings as expected")
+
+    root = os.path.dirname(room_cfg_path)
+    os.makedirs(os.path.join(root, "result_options", "sfm"))
+    shutil.copy(os.path.join(root, "result", "sfm", "lidar_pose.txt"),
+                os.path.join(root, "result_options", "sfm", "lidar_pose.txt"))
+    cfg_path = os.path.join(root, "config_options.txt")
+    with open(cfg_path, "w") as f:
+        f.write(f"lidar_path = {root}/lidar\nresult_path = {root}/result_options\n"
+                f"lidar_path_undistort = {root}/result_options/undis\n"
+                f"data_gap_time = 0.1\n{ROOM_ODOMETRY_KEYS}"
+                f"extraction_method = 2\nlidar_ring_repair = true\n")
+    infos = []
+    torch.cuda.reset_peak_memory_stats()
+    knn_mod.knn.launches = 0
+    knn_mod.knn_ring.launches = 0
+    t0 = time.time()
+    with _EveryCall(vd, "combine_edges_hysteresis",
+                    lambda a, res: res[0].sum(dim=(1, 2)).cpu()) as hyst, \
+            _EveryCall(vd, "repair_ring_conflicts",
+                       lambda a, res: int(((res != vd.elevation_ring(a[0])) & (res >= 0))
+                                          .sum())) as repair:
+        rc = port_main(["init_lidar_pose", cfg_path, "--device", "cuda"], infos=infos)
+    wall = time.time() - t0
+    launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
+    if rc != 0:
+        fail(f"init_lidar_pose with the options exited {rc}")
+    edges = torch.cat(hyst.values).numpy()
+    log(f"odometry stage, extraction_method 2 + ring repair: wall {wall:.1f} s, peak device "
+        f"memory {_peak_gib(torch)}; hysteresis in "
+        f"{len(hyst.values)} batches ({sum(hyst.seconds):.2f} s), edge cells per scan min "
+        f"{edges.min()}, median {np.median(edges):.0f}; ring repair in "
+        f"{len(repair.values)} batches ({sum(repair.seconds):.2f} s), repaired points "
+        f"{sum(repair.values)}")
+    log(f"kernel launches: {launches} in {len(infos)} association rounds")
+    if len(edges) != 2 * n_scans or edges.min() <= 0:
+        fail(f"hysteresis edges: {len(edges)} scans extracted (want {2 * n_scans}), "
+             f"min {edges.min()}")
+    if not repair.values:
+        fail("the ring repair did not run")
+    if set(launches.values()) != {len(infos)}:
+        fail(f"launches {launches} differ from the {len(infos)} association rounds")
+    check_odometry_outputs(cfg_path, gt, n_scans)
+    return launches
+
+
 def with_shapes(main, parts, **extra):
     """A kernel's row of the JSON line: the headline shape's numbers, the
     largest error over its shapes and each shape's numbers."""
@@ -2606,6 +2922,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=454)
     ap.add_argument("--mvs-frames", type=int, default=16)
+    ap.add_argument("--mvs-exact-frames", type=int, default=6)
     ap.add_argument("--sfm-frames", type=int, default=48)
     ap.add_argument("--profile-mvs", action="store_true")
     ap.add_argument("--only-sfm", action="store_true")
@@ -2614,7 +2931,10 @@ def main():
     args = ap.parse_args()
     if args.only_sfm + args.only_floor + args.only_joint > 1:
         fail("--only-sfm, --only-floor and --only-joint exclude each other")
-    full = not (args.only_sfm or args.only_floor or args.only_joint)   # phases 3-7, 9, 11
+    if not 5 <= args.mvs_exact_frames <= args.mvs_frames:
+        fail("--mvs-exact-frames must lie in [5, --mvs-frames]: each frame needs its 4 "
+             "neighbours")
+    full = not (args.only_sfm or args.only_floor or args.only_joint)   # phases 3-7, 9, 11, 14
     chain = full or args.only_joint                                     # phases 10 and 13
 
     import torch
@@ -2636,8 +2956,10 @@ def main():
     mvs_root = tempfile.TemporaryDirectory(prefix="chip_smoke_mvs_")
     sfm_root = tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_")
     floor_root = tempfile.TemporaryDirectory(prefix="chip_smoke_floor_")
-    # three cores stay free for the three nvcc processes of the build
-    pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 4) - 3))
+    room_root = tempfile.TemporaryDirectory(prefix="chip_smoke_room_")
+    # a worker per core: the renders, not the build, keep the later phases
+    # waiting, and the three nvcc processes share the cores for their minute
+    pool = multiprocessing.get_context("spawn").Pool(os.cpu_count() or 4)
     try:
         if not (args.only_sfm or args.only_joint):   # first in the queue: one worker
             floor_async = pool.apply_async(make_room, (floor_root.name, FLOOR_SCANS))
@@ -2674,7 +2996,7 @@ def main():
 
         t0 = time.time()
         if not args.only_floor:
-            sfm_async.get(timeout=900)
+            sfm_d_gt = sfm_async.get(timeout=900)
         if full:
             d_gt = gt_async.get(timeout=900)
             log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, gray PNG "
@@ -2698,7 +3020,8 @@ def main():
                 sweep_slices=64))
 
             # 4. the odometry stage
-            launches, captured = run_odometry(torch, knn_mod, args.scans)
+            launches, captured, room_cfg, room_gt = run_odometry(torch, knn_mod,
+                                                                 room_root.name, args.scans)
 
             # 5. K1 and K2 on the stage's own inputs
             t0 = time.time()
@@ -2709,13 +3032,12 @@ def main():
             log(f"phase 5 (K1 and K2 at the stage's inputs): {time.time() - t0:.1f} s")
 
             # 6. the MVS stage
-            launches["volscore"], pm_run, vox = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
-                                                        args.profile_mvs)
+            launches["volscore"], pm_run, vox, mvs_tr = run_mvs(torch, vs_mod, mvs_cfg, d_gt,
+                                                                args.profile_mvs)
 
             # 7. K3 at the shapes of phase 6
             vrows.update(volscore_vs_plain(torch, pm_run, main_path=True))
-            rows["volscore"] = with_shapes(vrows["full"], list(vrows.values()),
-                                           library_ms=None)
+            vs_parts = list(vrows.values())
 
         if not args.only_floor:
             # 8. the SfM stage, then its reproducibility (F8)
@@ -2801,6 +3123,30 @@ def main():
             run_ta_methods(torch)
             log(f"phase 12 (b) (translation averaging at Room-{TA_FRAMES}): "
                 f"{time.time() - t1:.1f} s; phase 12 {time.time() - t0:.1f} s")
+        if full:
+            # 14. the last four options: SfM-point neighbours and exact
+            # sampling in joint_mvs, DOUBLE_EXTRACTION and the ring repair in
+            # init_lidar_pose
+            t0 = time.time()
+            option_launches = run_odometry_options(torch, knn_mod, room_cfg, room_gt,
+                                                   args.scans)
+            for name in knn_extra:
+                knn_extra[name]["launches_options"] = option_launches[name]
+            torch.cuda.empty_cache()
+            log(f"phase 14 (c) (odometry options): {time.time() - t0:.1f} s")
+            t1 = time.time()
+            run_mvs_exact(torch, vs_mod, mvs_cfg, d_gt, args.mvs_exact_frames, mvs_tr)
+            vs_extra = {"launches_exact": vs_mod.volscore.launches}
+            torch.cuda.empty_cache()
+            log(f"phase 14 (b) (exact sampling): {time.time() - t1:.1f} s")
+            t1 = time.time()
+            vs_extra["launches_sfm_neighbours"] = run_mvs_sfm_neighbours(
+                torch, vs_mod, sfm_cfg, sfm_d_gt)
+            del sfm_d_gt
+            log(f"phase 14 (a) (SfM-point neighbours): {time.time() - t1:.1f} s; "
+                f"phase 14 {time.time() - t0:.1f} s")
+            rows["volscore"] = with_shapes(vrows["full"], vs_parts, library_ms=None,
+                                           **vs_extra)
         for name, parts in knn_parts.items():   # headline: the Room stage's inputs
             rows[name] = with_shapes(parts[1] if full else parts[0], parts,
                                      **knn_extra[name])
@@ -2810,6 +3156,7 @@ def main():
         mvs_root.cleanup()
         sfm_root.cleanup()
         floor_root.cleanup()
+        room_root.cleanup()
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "panovlm_tpu"))
@@ -2831,7 +3178,9 @@ def main():
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **{k: r[k] for k in ("launches_joint", "launches_joint_tracks", "launches_floor",
-                              "launches_surgery", "launches_gps", "shapes") if k in r}}
+                              "launches_options", "launches_sfm_neighbours",
+                              "launches_exact", "launches_surgery", "launches_gps",
+                              "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""Joint panoramic MVS — the port of panovlm_tpu/models/mvs.py along the
-plane-sweep path (EstimateDepthMaps, MVS.cpp:81-166):
+"""Joint panoramic MVS — the port of panovlm_tpu/models/mvs.py
+(EstimateDepthMaps, MVS.cpp:81-166):
 
   SelectNeighborViews -> select_neighbor_views (KNN on camera centers,
-                         MVS.cpp:334-381)
+                         MVS.cpp:334-381) or select_neighbor_sfm (shared
+                         SfM points, MVS.cpp:248-332)
   Initialize          -> init_depth_normal (LiDAR depth + random fill,
                          MVS.cpp:496-584)
   passes              -> estimate_depth_map: one frame per call, sweep
-                         volumes + ops/patchmatch.run_patchmatch (the JAX
+                         volumes or exact per-plane sampling +
+                         ops/patchmatch.run_patchmatch (the JAX
                          package batches frames into one program and shards
                          them over a mesh; one card runs frame by frame)
   RemoveSmallSegments -> remove_small_segments (MVS.cpp:1504)
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as ScR
 
-from ..ops import patchmatch, spherical
+from ..ops import patchmatch, se3, spherical
 from ..ops.patchmatch import PatchMatchConfig
 from ..sensors.velodyne import voxel_downsample
 
@@ -58,6 +60,64 @@ def select_neighbor_views(poses_cw, n_neighbors: int, valid=None):
     np.fill_diagonal(d, np.inf)
     d[:, ~valid] = np.inf
     return np.argsort(d, axis=1, kind="stable")[:, :n_neighbors].astype(np.int32)
+
+
+def select_neighbor_sfm(poses_cw, points, track_img, track_mask,
+                        n_neighbors: int, min_baseline: float = 0.0,
+                        angle_threshold: float = 10.0,
+                        scale_threshold: float = 1.6):
+    """SFM_POINTS neighbor selection (SelectNeighborSFM, MVS.cpp:248-332):
+    score every ordered view pair by shared SfM-point visibility — per
+    co-visible point, an angle factor min((angle/10deg)^1.5, 1) times a
+    depth-ratio factor (1 if ~equal, quadratic falloff) — then take each
+    reference's top-scored neighbors whose baseline exceeds min_baseline.
+    Host numpy in float64, as in the JAX package, with its float32 Rodrigues
+    rotations (ops/se3.exp_so3), so that the scores and their order agree.
+
+    points (T,3) world; track_img (T,L) view ids; track_mask (T,L).
+    Returns (N, K) int32 (padded with -1 when a row lacks neighbors)."""
+    poses_cw = np.asarray(poses_cw)
+    n = len(poses_cw)
+    R = se3.exp_so3(torch.as_tensor(poses_cw[:, :3], dtype=torch.float32)).numpy()
+    C = -np.einsum("nji,nj->ni", R, poses_cw[:, 3:])
+    points = np.asarray(points)
+    track_img = np.asarray(track_img)
+    track_mask = np.asarray(track_mask)
+    L = track_img.shape[1]
+    score = np.zeros((n, n), np.float64)
+    # per-slot view rays and depths (T, L)
+    V = points[:, None, :] - C[track_img]
+    dep = np.linalg.norm(V, axis=-1)
+    Vn = V / np.maximum(dep[..., None], 1e-12)
+
+    def scale_factor(s):
+        return np.where(s > scale_threshold,
+                        scale_threshold ** 2 / np.maximum(s, 1e-12) ** 2,
+                        np.where(s >= 1.0, 1.0, s ** 2))
+
+    for a in range(L):
+        for b in range(a + 1, L):
+            m = track_mask[:, a] & track_mask[:, b]
+            if not m.any():
+                continue
+            ia, ib = track_img[m, a], track_img[m, b]
+            ang = np.degrees(np.arccos(np.clip(
+                (Vn[m, a] * Vn[m, b]).sum(-1), -1.0, 1.0)))
+            angf = np.minimum((ang / angle_threshold) ** 1.5, 1.0)
+            s_ab = dep[m, a] / np.maximum(dep[m, b], 1e-12)
+            np.add.at(score, (ia, ib), scale_factor(s_ab) * angf)
+            np.add.at(score, (ib, ia), scale_factor(1.0 / s_ab) * angf)
+    baseline = np.linalg.norm(C[:, None] - C[None], axis=-1)
+    out = np.full((n, n_neighbors), -1, np.int32)
+    for r in range(n):
+        k = 0
+        for j in np.argsort(-score[r]):
+            if k >= n_neighbors or score[r, j] <= 0:
+                break
+            if baseline[r, j] > min_baseline:
+                out[r, k] = j
+                k += 1
+    return out
 
 
 def relative_to_neighbors(poses_cw, ref: int, nei_idx, device="cpu"):
@@ -125,7 +185,8 @@ def estimate_depth_map(gray_ref, grays_nei, rays, R_nr, t_nr, depth0, normal0,
                        fixed, cfg: MVSConfig, nei_depths=None, gen=None):
     """One frame's PatchMatch pass (EstimateDepthMapSingle,
     MVS.cpp:930-1054): u8-quantise the neighbor grays (and u16 the
-    neighbor depths of the geometric pass), build the sweep volumes, run
+    neighbor depths of the geometric pass), build the sweep volumes
+    (sweep_slices > 0) or pack the views for exact sampling, run
     run_patchmatch. All tensors on one device; grays_nei (V,H,W),
     nei_depths None or (V,H,W). Returns (depth, normal, conf)."""
     patchmatch.check_config(cfg.pm)
@@ -133,9 +194,12 @@ def estimate_depth_map(gray_ref, grays_nei, rays, R_nr, t_nr, depth0, normal0,
     q_nei = torch.stack([q for q, _ in qs])
     scales = [s for _, s in qs]
     nd_q = None if nei_depths is None else spherical.quantize_u16(nei_depths, 256.0)
-    vols = patchmatch.build_sweep_volume(q_nei, scales, rays, R_nr, t_nr,
-                                         cfg.pm, nd_q)
-    vols, dvols = vols if nd_q is not None else (vols, None)
+    if cfg.pm.sweep_slices:
+        vols = patchmatch.build_sweep_volume(q_nei, scales, rays, R_nr, t_nr,
+                                             cfg.pm, nd_q)
+        vols, dvols = vols if nd_q is not None else (vols, None)
+    else:
+        vols, dvols = patchmatch.pack_views(q_nei, scales, rays, R_nr, nd_q), None
     return patchmatch.run_patchmatch(
         gray_ref, rays, depth0, normal0, fixed, R_nr, t_nr, vols, dvols,
         cfg.pm, cfg.n_iterations, cfg.propagate, gen)

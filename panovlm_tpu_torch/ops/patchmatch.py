@@ -1,5 +1,6 @@
-"""Spherical PatchMatch on plane-sweep volumes — the port of the sweep path
-of panovlm_tpu/ops/patchmatch.py (sweep_slices > 0).
+"""Spherical PatchMatch — the port of panovlm_tpu/ops/patchmatch.py: the
+plane-sweep path (sweep_slices > 0) and exact per-plane sampling
+(sweep_slices = 0, the JAX package's default).
 
 Replaces the per-pixel loops of mvs/MVS.cpp (reference): ScorePixel
 (:774-923, warp + weighted NCC + best-2 neighbour mean), InterpolatePixel
@@ -8,11 +9,14 @@ PropagateCheckerBoard (:1098-1127) and PropagateSequential (:1057-1096, as
 the JAX package's log-shift sweeps).
 
 Hypotheses are per-pixel planes (depth d along the pixel ray + unit normal
-n); a texel's depth on the plane is lambda_t = d (n.r_p) / (n.r_t). All warp
-samples of a pass are taken once, into a (V, D, H, W) bfloat16 volume per
-neighbour view (`build_sweep_volume`); candidates are then scored by the
-CUDA kernel of ops/volscore.py, the geometric term and the best-2 view mean
-stay plain torch (as they are XLA outside the kernel in JAX).
+n); a texel's depth on the plane is lambda_t = d (n.r_p) / (n.r_t). On the
+sweep path all warp samples of a pass are taken once, into a (V, D, H, W)
+bfloat16 volume per neighbour view (`build_sweep_volume`); candidates are
+then scored by the CUDA kernel of ops/volscore.py, the geometric term and
+the best-2 view mean stay plain torch (as they are XLA outside the kernel
+in JAX). On the exact path (`pack_views`) every texel of every candidate
+plane is warped into each neighbour and sampled there, batched over the
+candidates in plain torch, as JAX computes it in XLA outside any kernel.
 
 Sampling follows the JAX package's default packed path: neighbour grays are
 u8-quantised with a per-view scale, neighbour depths u16-quantised (x256),
@@ -31,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from . import spherical
-from .volscore import volscore
+from .volscore import clamp_den, ncc_cost_from_moments, volscore
 
 # sweep slices sampled together in build_sweep_volume: bounds its
 # (chunk, H, W, 3) float32 temporaries
@@ -54,20 +58,19 @@ class PatchMatchConfig(NamedTuple):
     prune_candidates: int = 2        # pre-rank on sparse texels, full-score the best k
     prune_texels: int = 5            # 5 = centre + corners, 9 = + edge midpoints
     prune_views: int = 2             # views used for pre-ranking (0 = all)
-    sweep_slices: int = 64           # inverse-depth slices of the sweep volume
+    sweep_slices: int = 0            # inverse-depth slices of the sweep volume;
+                                     # 0 = exact per-plane sampling
     prune_slice_stride: int = 4      # pre-ranking reads every k-th slice
 
 
 def check_config(cfg: PatchMatchConfig):
-    """The port runs the plane-sweep path only."""
-    if cfg.sweep_slices <= 0:
-        raise NotImplementedError(
-            "sweep_slices = 0 (exact per-plane sampling) is not ported; set "
-            "mvs_sweep_slices > 0 (ROADMAP.md)")
+    """Both paths draw random depths log-uniform in [min_depth, max_depth],
+    and the sweep slices are uniform in 1/depth: min_depth must be > 0."""
     if not cfg.min_depth > 0:
         raise ValueError(
-            f"min_depth = {cfg.min_depth}: the sweep slices are uniform in "
-            "1/depth and need min_depth > 0 (ROADMAP F7)")
+            f"min_depth = {cfg.min_depth}: the random depths are log-uniform "
+            "and the sweep slices uniform in 1/depth, both need min_depth > 0 "
+            "(ROADMAP F7)")
 
 
 def _patch_offsets(cfg: PatchMatchConfig):
@@ -129,6 +132,31 @@ def build_sweep_volume(q_nei, scales, rays, R_nr, t_nr, cfg: PatchMatchConfig,
     return vols if dvols is None else (vols, dvols)
 
 
+class PackedViews(NamedTuple):
+    """The neighbour views of exact per-plane sampling (sweep_slices = 0),
+    read as the JAX package's packed path reads them: u8-quantised grays q
+    (V,H,W) with their scales (V,), the geometric pass's u16-quantised
+    depths (V,H,W) or None, and each view's rotated rays R_nr r (V,H,W,3)."""
+    q: torch.Tensor
+    scales: torch.Tensor
+    depth_q: torch.Tensor | None
+    rays_rot: torch.Tensor
+
+    def head(self, k: int) -> "PackedViews":
+        """The first k views (the nearest, in the neighbour table's order)."""
+        return PackedViews(self.q[:k], self.scales[:k],
+                           None if self.depth_q is None else self.depth_q[:k],
+                           self.rays_rot[:k])
+
+
+def pack_views(q_nei, scales, rays, R_nr, nei_depths_q=None) -> PackedViews:
+    """PackedViews from spherical.quantize_u8 grays q_nei (V,H,W) and their
+    scales, and spherical.quantize_u16 depths (V,H,W) or None."""
+    return PackedViews(q_nei, torch.stack([torch.as_tensor(sc, device=rays.device)
+                                           for sc in scales]),
+                       nei_depths_q, torch.einsum("vij,hwj->vhwi", R_nr, rays))
+
+
 def _vol_interp(vol, sigma):
     """Hat-weighted interpolation over the slice axis of vol (D,H,W) at
     per-pixel slice coordinates sigma (...,H,W) in [0, D-1]: the two
@@ -154,17 +182,22 @@ def random_normals(n_raw, rays):
     return torch.where(flip, -n, n)
 
 
-def geometric_cost(rays, depth, R_nr, t_nr, cfg: PatchMatchConfig, dvol,
-                   vol_stride: int = 1):
+def geometric_cost(rays, depth, R_nr, t_nr, cfg: PatchMatchConfig, dvol=None,
+                   vol_stride: int = 1, depth_q=None):
     """Geometric-consistency penalty (MVS.cpp:126-153, 858-896) for depth
     maps (...,H,W): project the hypothesis into the neighbour, read the
-    neighbour's depth from its depth sweep volume dvol (D,H,W), back-project
-    and take the angular error in the reference view."""
+    neighbour's depth from its depth sweep volume dvol (D,H,W), or, exact,
+    from its u16-quantised depth map depth_q (H,W) where the point lands,
+    back-project and take the angular error in the reference view."""
     X = depth[..., None] * rays
     x_n = torch.einsum("ij,...j->...i", R_nr, X) + t_nr
-    inv0, inv_step = _inv_grid(cfg, vol_stride)
-    sigma = (1.0 / torch.clamp_min(depth, 1e-6) - inv0) / inv_step
-    d_n = _vol_interp(dvol, torch.clamp(sigma, 0.0, dvol.shape[0] - 1))
+    if dvol is not None:
+        inv0, inv_step = _inv_grid(cfg, vol_stride)
+        sigma = (1.0 / torch.clamp_min(depth, 1e-6) - inv0) / inv_step
+        d_n = _vol_interp(dvol, torch.clamp(sigma, 0.0, dvol.shape[0] - 1))
+    else:
+        d_n = spherical.sample_u16(depth_q, 256.0,
+                                   spherical.cam_to_image(x_n, *depth_q.shape))
     r_n = x_n / (torch.linalg.vector_norm(x_n, dim=-1, keepdim=True) + 1e-12)
     X_back = torch.einsum("ji,...j->...i", R_nr, d_n[..., None] * r_n - t_nr)
     r_back = X_back / (torch.linalg.vector_norm(X_back, dim=-1, keepdim=True) + 1e-12)
@@ -173,12 +206,50 @@ def geometric_cost(rays, depth, R_nr, t_nr, cfg: PatchMatchConfig, dvol,
     return torch.where(d_n > cfg.min_depth, pen, torch.ones_like(pen))
 
 
+def ncc_exact(gray_ref, rays, cd, cn, rays_rot, t_nr, q, scale, offsets,
+              cfg: PatchMatchConfig):
+    """Weighted-NCC cost (C,H,W) of a candidate stack cd (C,H,W), cn
+    (C,H,W,3) against one neighbour view by exact per-plane sampling (the
+    JAX ncc_cost without a volume): each texel's ray is cut with the
+    candidate plane, the point moved into the neighbour (rays_rot = R_nr r,
+    (H,W,3), plus t_nr) and its u8-quantised gray q (H,W) sampled there."""
+    H, W = gray_ref.shape
+    rho = cd * torch.sum(cn * rays, dim=-1)
+    sw, sx, sy, sxx, syy, sxy = (torch.zeros_like(cd) for _ in range(6))
+    for dv, du in offsets:
+        lam = rho / clamp_den(torch.sum(cn * _roll2(rays, dv, du), dim=-1))
+        x_n = lam[..., None] * _roll2(rays_rot, dv, du) + t_nr
+        s = spherical.sample_u8(q, scale, spherical.cam_to_image(x_n, H, W))
+        i_t = _roll2(gray_ref, dv, du)
+        w = torch.exp(-((i_t - gray_ref) ** 2) / (2 * cfg.sigma_color ** 2)) * (lam > 0)
+        sw = sw + w
+        sx = sx + w * i_t
+        sy = sy + w * s
+        sxx = sxx + w * i_t * i_t
+        syy = syy + w * s * s
+        sxy = sxy + w * i_t * s
+    return ncc_cost_from_moments(sw, sx, sy, sxx, syy, sxy, cd, cfg.min_depth,
+                                 cfg.max_depth)
+
+
 def multiview_cost(gray_ref, rays, cd, cn, R_nr, t_nr, cfg: PatchMatchConfig,
                    offsets, vols, dvols=None, vol_stride: int = 1):
     """Cost (C,H,W) of a candidate stack cd (C,H,W), cn (C,H,W,3) over the
-    views of vols (V,D,H,W): the volscore NCC plus, with dvols, the weighted
-    geometric term, reduced to the mean of each pixel's best two views
-    (MVS.cpp:905-918; JAX multiview_cost / _score_stack_kernel)."""
+    neighbour views, reduced to the mean of each pixel's best two views
+    (MVS.cpp:905-918; JAX multiview_cost / _score_stack_kernel). vols is
+    either the sweep volumes (V,D,H,W) (the volscore NCC plus, with dvols,
+    the weighted geometric term) or the views' PackedViews (exact sampling,
+    ncc_exact plus, with its depths, the weighted geometric term)."""
+    if isinstance(vols, PackedViews):
+        costs = []
+        for v in range(vols.q.shape[0]):
+            c = ncc_exact(gray_ref, rays, cd, cn, vols.rays_rot[v], t_nr[v], vols.q[v],
+                          vols.scales[v], offsets, cfg)
+            if vols.depth_q is not None:
+                c = c + cfg.geom_weight * geometric_cost(
+                    rays, cd, R_nr[v], t_nr[v], cfg, depth_q=vols.depth_q[v])
+            costs.append(c)
+        return _best_two_mean(torch.stack(costs))
     inv0, inv_step = _inv_grid(cfg, vol_stride)
     nrm = cn.permute(0, 3, 1, 2).contiguous()
     costs = volscore(vols, cd.contiguous(), nrm,
@@ -190,6 +261,11 @@ def multiview_cost(gray_ref, rays, cd, cn, R_nr, t_nr, cfg: PatchMatchConfig,
                                            dvols[v], vol_stride)
                             for v in range(dvols.shape[0])])
         costs = costs + cfg.geom_weight * geom
+    return _best_two_mean(costs)
+
+
+def _best_two_mean(costs):
+    """Mean of the two smallest of costs (V,C,H,W) over the views."""
     if costs.shape[0] == 1:
         return costs[0]
     # the two smallest over the short view axis by two min-reductions:
@@ -272,8 +348,9 @@ def _pm_step(gray_ref, rays, depth, normal, cost, R_nr, t_nr, fixed_depth,
              draws=None, gen=None):
     """Shared PatchMatch update (ProcessPixel, MVS.cpp:719-772): active
     pixels test propagated + perturbed + random candidates, pre-ranked on
-    sparse texels, and keep the argmin-cost plane. Returns (depth, normal,
-    cost)."""
+    sparse texels, and keep the argmin-cost plane. vols, dvols: the sweep
+    volumes, or the neighbours' PackedViews and None (exact sampling).
+    Returns (depth, normal, cost)."""
     if draws is None:
         draws = draw_step(gen, rays, cfg)
     cands_d, cands_n = [depth], [normal]
@@ -305,10 +382,13 @@ def _pm_step(gray_ref, rays, depth, normal, cost, R_nr, t_nr, fixed_depth,
         V = R_nr.shape[0]
         vk = min(cfg.prune_views, V) if cfg.prune_views else V
         ps = max(cfg.prune_slice_stride, 1)
-        cheap = multiview_cost(
-            gray_ref, rays, cd, cn, R_nr[:vk], t_nr[:vk], cfg,
-            _cheap_offsets(cfg), vols[:vk, ::ps],
-            None if dvols is None else dvols[:vk, ::ps], ps)
+        if isinstance(vols, PackedViews):
+            views_c, dvols_c = vols.head(vk), None
+        else:
+            views_c = vols[:vk, ::ps]
+            dvols_c = None if dvols is None else dvols[:vk, ::ps]
+        cheap = multiview_cost(gray_ref, rays, cd, cn, R_nr[:vk], t_nr[:vk], cfg,
+                               _cheap_offsets(cfg), views_c, dvols_c, ps)
         cheap = cheap * smoothness_factor(rays, depth, normal, cd, cn, cfg)
         sel_d, sel_n = [], []
         for _ in range(cfg.prune_candidates):
@@ -376,8 +456,9 @@ def run_patchmatch(gray_ref, rays, depth0, normal0, fixed, R_nr, t_nr, vols,
                    propagate: int = 1, gen=None):
     """Per-image PatchMatch as the JAX run_patchmatch does it: initial
     scoring, then 2 * n_iterations half-steps (propagate 2: sequential
-    sweeps with alternating direction; else checkerboard parity i % 2).
-    Returns (depth, normal, conf)."""
+    sweeps with alternating direction; else checkerboard parity i % 2),
+    on the sweep volumes vols, dvols or, exact, on PackedViews vols (dvols
+    None). Returns (depth, normal, conf)."""
     cost = multiview_cost(gray_ref, rays, depth0[None], normal0[None], R_nr,
                           t_nr, cfg, _patch_offsets(cfg), vols, dvols)[0]
     cost = cost * smoothness_factor(rays, depth0, normal0, depth0, normal0, cfg)

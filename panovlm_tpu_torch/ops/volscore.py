@@ -84,7 +84,8 @@ def _check(vols, depth, nrm, rays, gray, offsets):
     return dev
 
 
-def _clamp_den(d):
+def clamp_den(d):
+    """The plane-depth denominator kept 1e-6 away from 0, sign kept."""
     small = torch.abs(d) < 1e-6
     return torch.where(small, torch.sign(d) * 1e-6 + 1e-12, d)
 
@@ -105,7 +106,7 @@ def volscore_reference(vols, depth, nrm, rays, gray, offsets, inv0: float,
         sw, sx, sy, sxx, syy, sxy = (zero.clone() for _ in range(6))
         for dv, du in offsets:
             r_t = torch.roll(rays, (-dv, -du), dims=(1, 2))
-            lam = rho / _clamp_den(torch.sum(nrm * r_t[None], dim=1))
+            lam = rho / clamp_den(torch.sum(nrm * r_t[None], dim=1))
             sigma = (1.0 / torch.clamp_min(lam, 1e-6) - inv0) / inv_step
             sigma = torch.clamp(sigma, 0.0, D - 1)
             sig_t = torch.roll(sigma, (dv, du), dims=(1, 2))
@@ -124,17 +125,23 @@ def volscore_reference(vols, depth, nrm, rays, gray, offsets, inv0: float,
             sxx += w * i_t * i_t
             syy += w * s * s
             sxy += w * i_t * s
-        eps = 1e-6
-        mx = sx / (sw + eps)
-        my = sy / (sw + eps)
-        vx = sxx / (sw + eps) - mx * mx
-        vy = syy / (sw + eps) - my * my
-        cov = sxy / (sw + eps) - mx * my
-        ncc = torch.clamp(cov / torch.sqrt(torch.clamp_min(vx * vy, eps * eps)),
-                          -1.0, 1.0)
-        valid = (sw > 1e-3) & (depth > dmin) & (depth < dmax)
-        outs.append(torch.where(valid, 1.0 - ncc, torch.full_like(ncc, 2.0)))
+        outs.append(ncc_cost_from_moments(sw, sx, sy, sxx, syy, sxy, depth, dmin, dmax))
     return torch.stack(outs)
+
+
+def ncc_cost_from_moments(sw, sx, sy, sxx, syy, sxy, depth, dmin: float, dmax: float):
+    """1 - weighted NCC from the weighted moments of the reference (x) and
+    neighbour (y) texels, 2.0 where the weights vanish or the depth lies
+    outside (dmin, dmax): the tail of the JAX package's ncc_cost."""
+    eps = 1e-6
+    mx = sx / (sw + eps)
+    my = sy / (sw + eps)
+    vx = sxx / (sw + eps) - mx * mx
+    vy = syy / (sw + eps) - my * my
+    cov = sxy / (sw + eps) - mx * my
+    ncc = torch.clamp(cov / torch.sqrt(torch.clamp_min(vx * vy, eps * eps)), -1.0, 1.0)
+    valid = (sw > 1e-3) & (depth > dmin) & (depth < dmax)
+    return torch.where(valid, 1.0 - ncc, torch.full_like(ncc, 2.0))
 
 
 def volscore(vols, depth, nrm, rays, gray, offsets, inv0: float,

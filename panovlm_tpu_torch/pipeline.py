@@ -41,6 +41,7 @@ as its JAX stage in panovlm_tpu/pipeline.py.
 `joint_mvs` (JointMVS, main.cpp:553-678; JAX pipeline.py:968-1320):
 
   result/joint/{camera,lidar}_pose_joint.txt  (input, stage 3's poses)
+  result/sfm/points.npz                    (input with mvs_neighbor_selection = 1)
   <mvs_data_path>/{depth,conf}/NNNNNN_{pho,geo,filter}.npy (u16), normal/*.npy
   result/mvs/mvs_fused.pcd
 """
@@ -402,10 +403,6 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         depth_diff_threshold=cfg.depth_diff_threshold,
         min_segment=cfg.min_segment)
     check_config(mcfg.pm)
-    if cfg.mvs_neighbor_selection == 1:
-        raise NotImplementedError(
-            "mvs_neighbor_selection = 1 (SFM_POINTS, select_neighbor_sfm) is "
-            "not ported; use 2, the camera-center KNN (ROADMAP.md)")
     for d in (cfg.mvs_result_path, cfg.mvs_depth_path, cfg.mvs_normal_path,
               cfg.mvs_conf_path):
         os.makedirs(d, exist_ok=True)
@@ -465,6 +462,18 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
             artifacts.export_pose_t(refine_txt, R_c, t_c, names)
 
     nei_table = mvs_mod.select_neighbor_views(poses, mcfg.n_neighbors, c_ok)
+    if cfg.mvs_neighbor_selection == 1:  # SFM_POINTS (MVS.h:34)
+        points_npz = os.path.join(cfg.sfm_result_path, "points.npz")
+        if os.path.exists(points_npz):
+            tr_pts = artifacts.read_point_tracks(points_npz)
+            sfm_table = mvs_mod.select_neighbor_sfm(
+                poses, tr_pts["points"], tr_pts["track_img"],
+                tr_pts["track_mask"], mcfg.n_neighbors)
+            # rows short on co-visibility fall back to their KNN picks
+            nei_table = np.where(sfm_table >= 0, sfm_table, nei_table)
+        else:
+            log.warning("SFM_POINTS neighbor selection requested but %s "
+                        "missing; using KNN", points_npz)
     # pass-level resume: every frame has final-pass depth + conf artifacts
     pass_suffix = "geo" if cfg.mvs_use_geometric else "pho"
     resume_pass = n > 0 and all(

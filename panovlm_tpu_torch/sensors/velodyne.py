@@ -1,7 +1,7 @@
 """Velodyne VLP-16 frontend — range image, segmentation, curvature, greedy
-feature picking — ported from `panovlm_tpu/sensors/velodyne.py` along its
-default `extract_features` path (method 3 ADAPTIVE, segmentation on, plain
-elevation binning).
+feature picking — ported from `panovlm_tpu/sensors/velodyne.py`: the
+ADAPTIVE (method 3) and DOUBLE_EXTRACTION (method 2) edge sets, with plain
+elevation binning or ReOrderVLP2's ring repair (`repair_ring_conflicts`).
 
 Every function takes a leading scan axis B where the JAX module was vmapped.
 Threshold decisions match the JAX package bit for bit where their inputs
@@ -9,8 +9,9 @@ do: float expressions that feed a decision are evaluated as the JAX
 package's compiled program evaluates them (`ops/exact.py`: fused
 multiply-adds, correctly rounded sqrt), the row prefix sum reproduces the
 blocked order of XLA's CPU cumsum (`_cumsum_blocked`), and the decimation
-hash is emulated in int64 masked to 32 bits. Transcendental functions
-(atan2, arccos) may still differ from XLA's in the last bit.
+hash is emulated in int64 masked to 32 bits. The ring repair and the
+hysteresis decide in integers only. Transcendental functions (atan2,
+arccos) may still differ from XLA's in the last bit.
 """
 
 from __future__ import annotations
@@ -109,6 +110,128 @@ def _shift_fill(x, k: int, dim: int, fill):
 
 
 # ----------------------------------------------------------------------------
+# packet-order conflict repair (ReOrderVLP2)
+# ----------------------------------------------------------------------------
+
+# VLP-16 interleaved firing order (Velodyne.cpp:246-254): within one firing
+# column the rings arrive as 0,8,1,9,...,7,15. _S2O[ring] = position in the
+# firing sequence; _O2S is the canonical ring sequence.
+_S2O = np.empty(16, np.int64)
+_S2O[:8] = 2 * np.arange(8)
+_S2O[8:] = 2 * np.arange(8, 16) - 15
+_O2S = np.empty(16, np.int64)
+_O2S[_S2O] = np.arange(16)
+
+
+def _first_true(m):
+    """Index of the first True along the last axis, 0 where there is none
+    (jnp.argmax of a bool array)."""
+    n = m.shape[-1]
+    idx = torch.where(m, torch.arange(n, device=m.device), n)
+    first = torch.min(idx, dim=-1).values
+    return torch.where(first < n, first, torch.zeros_like(first))
+
+
+def _lcs_len(seq, seq_valid, ref):
+    """Length of the longest common subsequence of each masked sequence
+    seq (...,L) (the entries where seq_valid) and the fixed sequence ref
+    (R,) (LongestCommonSubsequence, Velodyne.cpp:188-211): the L x R
+    dynamic programme, vectorised over the leading axes. -> (...) int64."""
+    R = ref.shape[0]
+    dp = [torch.zeros(seq.shape[:-1], dtype=torch.int64, device=seq.device)] * (R + 1)
+    for i in range(seq.shape[-1]):
+        s, v = seq[..., i], seq_valid[..., i]
+        new = [dp[0]]
+        for k in range(1, R + 1):
+            new.append(torch.where(s == int(ref[k - 1]), dp[k - 1] + 1,
+                                   torch.maximum(dp[k], new[k - 1])))
+        dp = [torch.where(v, n_k, d_k) for n_k, d_k in zip(new, dp)]
+    return dp[R]
+
+
+def repair_ring_conflicts(pts, mask, n_scans: int = N_SCANS, max_cols: int = 4096):
+    """ReOrderVLP2 (Velodyne.cpp:213-369): where two points of one firing
+    column land on the same elevation ring (noise at a ring boundary), try
+    ring - 1 for the first of them and ring + 1 for the second, and keep the
+    assignment whose ring sequence has the longer LCS against the canonical
+    interleave; only each column's most occupied conflict is repaired, as in
+    the JAX package. Firing columns are the runs of rising firing order;
+    points past the first max_cols columns keep their elevation rings (the
+    JAX package's wrapped index -1 writes nothing there either: its scatter
+    lands on column max_cols - 1, which has a smaller first count, or on a
+    slot >= 16).
+
+    pts (B,P,3), mask (B,P) -> (B,P) int64 ring per point, -1 invalid."""
+    B, P, _ = pts.shape
+    dev = pts.device
+    ring = elevation_ring(pts)
+    ok = mask & (ring >= 0) & (ring < n_scans)
+    ring_c = torch.clamp(ring, 0, n_scans - 1)
+    order = torch.as_tensor(_S2O, device=dev)[ring_c]
+
+    # the previous valid point's firing order; a new column starts where it
+    # falls
+    idx = torch.arange(P, device=dev).expand(B, P)
+    last = torch.cummax(torch.where(ok, idx, -1), dim=1).values
+    prev_i = torch.nn.functional.pad(last[:, :-1], (1, 0), value=-1)
+    prev_order = torch.where(prev_i >= 0,
+                             torch.gather(order, 1, torch.clamp_min(prev_i, 0)), -1)
+    boundary = ok & (order < prev_order)
+    col = torch.cumsum(boundary.to(torch.int64), dim=1)
+    col = torch.where(ok & (col < max_cols), col, -1)
+
+    # slot within the column: the valid-prefix count minus the column's first
+    c = torch.cumsum(ok.to(torch.int64), dim=1)
+    big = 2 ** 30
+    col_first = torch.full((B, max_cols + 1), big, dtype=torch.int64, device=dev)
+    col_first.scatter_reduce_(1, torch.where(col >= 0, col, max_cols),
+                              torch.where(ok, c, big), reduce="amin")
+    slot = torch.where(ok, c - torch.gather(col_first, 1, torch.clamp_min(col, 0)), 16)
+    in_col = ok & (slot < 16) & (col >= 0)
+
+    # (max_cols, 16) matrices of ring and point index; one spare cell takes
+    # the points outside every column
+    cell = torch.where(in_col, col * 16 + slot, max_cols * 16)
+    ring_m = torch.full((B, max_cols * 16 + 1), -1, dtype=torch.int64, device=dev)
+    ring_m.scatter_(1, cell, torch.where(in_col, ring_c, -1))
+    pidx_m = torch.full_like(ring_m, -1)
+    pidx_m.scatter_(1, cell, torch.where(in_col, idx, -1))
+    ring_m = ring_m[:, :-1].reshape(B, max_cols, 16)
+    pidx_m = pidx_m[:, :-1].reshape(B, max_cols, 16)
+    valid_m = ring_m >= 0
+
+    # the most occupied ring of each column (the first on ties)
+    occ = torch.sum(ring_m[..., None] == torch.arange(n_scans, device=dev), dim=2)
+    top = torch.max(occ, dim=-1, keepdim=True).values
+    conflict_ring = _first_true(occ == top)
+    has_conflict = top[..., 0] >= 2
+
+    # the first and second slots on the conflicted ring
+    is_conf = valid_m & (ring_m == conflict_ring[..., None])
+    slots = torch.arange(16, device=dev)
+    first_s = _first_true(is_conf)
+    second_s = _first_true(is_conf & (slots > first_s[..., None]))
+
+    # both candidate repairs scored in one batch
+    cand_slot = torch.stack([first_s, second_s])
+    cand_ring = torch.stack([conflict_ring - 1, conflict_ring + 1])
+    seqs = torch.where(slots == cand_slot[..., None], cand_ring[..., None], ring_m)
+    s1, s2 = _lcs_len(seqs, valid_m.expand_as(seqs), _O2S)
+    s1 = torch.where(conflict_ring - 1 >= 0, s1, 0)
+    s2 = torch.where(conflict_ring + 1 < n_scans, s2, 0)
+
+    use_first = s1 > s2
+    fix_slot = torch.where(use_first, first_s, second_s)
+    fix_ring = torch.where(use_first, conflict_ring - 1, conflict_ring + 1)
+    fix_pt = torch.gather(pidx_m, 2, fix_slot[..., None])[..., 0]
+    do_fix = has_conflict & (fix_ring >= 0) & (fix_ring < n_scans) & (fix_pt >= 0)
+
+    out = torch.nn.functional.pad(torch.where(ok, ring_c, -1), (0, 1))
+    out.scatter_(1, torch.where(do_fix, fix_pt, P), torch.where(do_fix, fix_ring, -1))
+    return out[:, :P]
+
+
+# ----------------------------------------------------------------------------
 # range image
 # ----------------------------------------------------------------------------
 
@@ -132,9 +255,21 @@ def sweep_fraction_from(pts, start_ori):
     return div_const(mod(ori - start_ori[..., None], _TWO_PI), _TWO_PI)
 
 
-def build_range_image(pts, mask, n_scans: int = N_SCANS, horizon: int = HORIZON):
+def elevation_ring(pts):
+    """VLP-16 ring of each point from its elevation (VerticalAngleToScanID,
+    Velodyne.cpp:170-186), out-of-range rings included. pts (...,3) ->
+    (...) int64."""
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    vert = torch.atan2(-y, exact.sqrt(fma(x, x, z * z)))
+    return torch.floor(fma(vert, torch.full_like(vert, _RAD2DEG),
+                           torch.full_like(vert, 15.0)) / 2.0 + 0.5).to(torch.int64)
+
+
+def build_range_image(pts, mask, n_scans: int = N_SCANS, horizon: int = HORIZON,
+                      ring=None):
     """Scatter points into the (n_scans, horizon) range image of each scan:
-    ring from the VLP-16 elevation formula, column from the azimuth relative
+    ring from the VLP-16 elevation formula (or `ring` (B,P), -1 invalid, as
+    `repair_ring_conflicts` gives it), column from the azimuth relative
     to the first valid point. A cell keeps its nearest return (range
     quantized to 2 mm), ties to the lowest point index — the JAX sort's
     order, here as one scatter-min of packed (range, index) keys.
@@ -142,9 +277,8 @@ def build_range_image(pts, mask, n_scans: int = N_SCANS, horizon: int = HORIZON)
     B, P, _ = pts.shape
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     rng = exact.sqrt(exact.sum_of_products([(x, x), (y, y), (z, z)]))
-    vert = torch.atan2(-y, exact.sqrt(fma(x, x, z * z)))
-    ring = torch.floor(fma(vert, torch.full_like(vert, _RAD2DEG),
-                           torch.full_like(vert, 15.0)) / 2.0 + 0.5).to(torch.int64)
+    if ring is None:
+        ring = elevation_ring(pts)
     ring_ok = (ring >= 0) & (ring < n_scans)
     ring = torch.clamp(ring, 0, n_scans - 1)
 
@@ -455,6 +589,50 @@ def gather_masked(values, mask, cap: int):
     return torch.where(out_mask[..., None], out, torch.zeros_like(out)), out_mask
 
 
+def _window_min(lab, dr: int, dc: int, fill: int):
+    """Minimum of lab (B,S,W) over the (2 dr + 1) x (2 dc + 1) window of each
+    cell, cells outside the image taken as fill: a column-wise, then a
+    row-wise min of shifted copies (the same integers as the min over every
+    shift of the window)."""
+    S, W = lab.shape[-2:]
+    p = torch.nn.functional.pad(lab, (dc, dc, dr, dr), value=fill)
+    rows = p[..., 0:S, :]
+    for k in range(1, 2 * dr + 1):
+        rows = torch.minimum(rows, p[..., k:k + S, :])
+    out = rows[..., 0:W]
+    for k in range(1, 2 * dc + 1):
+        out = torch.minimum(out, rows[..., k:k + W])
+    return out
+
+
+def combine_edges_hysteresis(strict_img, loose_img, h_size: int = 3,
+                             v_size: int = 2, min_segment: int = 5,
+                             iters: int = 10):
+    """CombineEdgeFeatures (Velodyne.cpp:1191-1267): hysteresis between a
+    strict and a loose edge image (B,S,W). The cells of either image are
+    flooded with the minimum label over the (+-v_size, +-h_size) window for
+    `iters` rounds, as the JAX package does; a label keeps its cells when it
+    has >= min_segment of them and at least one strict cell.
+
+    Returns (keep (B,S,W) bool, labels (B,S,W) int64, S*W where dropped)."""
+    B, S, W = strict_img.shape
+    mask = strict_img | loose_img
+    big = S * W
+    lin = torch.arange(big, device=mask.device).reshape(S, W)
+    labels = torch.where(mask, lin, big)
+    for _ in range(iters):
+        labels = torch.where(mask, _window_min(labels, v_size, h_size, big), big)
+    flat = labels.reshape(B, big)
+    sizes = torch.zeros((B, big + 1), dtype=torch.int64, device=mask.device)
+    sizes.scatter_add_(1, flat, mask.reshape(B, big).to(torch.int64))
+    seeded = torch.zeros_like(sizes)
+    seeded.scatter_reduce_(1, flat, strict_img.reshape(B, big).to(torch.int64),
+                           reduce="amax")
+    ok = (sizes >= min_segment) & (seeded > 0)
+    keep = torch.gather(ok, 1, flat).reshape(B, S, W) & mask
+    return keep, torch.where(keep, labels, big)
+
+
 def _decimation_hash(cell):
     """Per-cell uniform in [0,1): uint32(cell * 2654435761) / 2^32, with
     the wrapping uint32 multiply emulated in int64 masked to 32 bits."""
@@ -476,16 +654,10 @@ def extract_features(pts, mask, max_curvature: float = 5.0,
     bool masks, int32 rows and line labels)."""
     from . import lidar_lines
 
-    if method == 2:
-        raise NotImplementedError(
-            "extraction_method=2 (DOUBLE_EXTRACTION hysteresis) is not ported "
-            "yet (ROADMAP.md, method=2 hysteresis)")
-    if repair_rings:
-        raise NotImplementedError(
-            "lidar_ring_repair=true (ReOrderVLP2 repair_ring_conflicts) is not "
-            "ported yet (ROADMAP.md, repair_ring_conflicts)")
-
-    img = build_range_image(pts, mask)
+    # repair_rings: ReOrderVLP2's LCS conflict resolution (the variant the
+    # reference uses where packet order may be corrupted, mvs/MVS.cpp:518)
+    ring = repair_ring_conflicts(pts, mask) if repair_rings else None
+    img = build_range_image(pts, mask, ring=ring)
     ground = mark_ground(img["xyz"], img["valid"])
     if segment:
         keep = segment_range_image(img["range"], img["valid"]) | ground
@@ -508,6 +680,27 @@ def extract_features(pts, mask, max_curvature: float = 5.0,
     picked_e, disabled, eidx, eok = greedy_pick(
         seq, curv, edge_eligible, 30, True, extents)
 
+    hyst_keep = None
+    if method == 2:
+        # DOUBLE_EXTRACTION: a strict pick pass (a tenth of the curvature
+        # bound, twice the angle margin) seeds the hysteresis over the loose
+        # picks, both as range-image cells
+        strict_eligible = (
+            interior & window_ok & ~seq["ground"]
+            & (curv > f32(0.1)) & (curv <= f32(max_curvature / 10.0))
+            & (vang >= f32(2.0 * intersect_angle_threshold))
+            & (vang <= f32(180.0 - 2.0 * intersect_angle_threshold)))
+        picked_s, _, _, _ = greedy_pick(seq, curv, strict_eligible, 30, True, extents)
+        W_img = seq["valid"].shape[-1]
+
+        def to_image(picked):
+            col = torch.where(picked & seq["valid"], seq["col"], W_img)
+            img_ = torch.zeros(picked.shape[:-1] + (W_img + 1,), dtype=torch.bool,
+                               device=picked.device)
+            return img_.scatter_(-1, col, True)[..., :W_img]
+
+        hyst_keep, _ = combine_edges_hysteresis(to_image(picked_s), to_image(picked_e))
+
     plane_eligible = (interior & window_ok & (curv >= 0) & (curv <= f32(0.02))
                       & ~picked_e & ~disabled)
     picked_f, disabled_f, fidx, fok = greedy_pick(
@@ -516,7 +709,18 @@ def extract_features(pts, mask, max_curvature: float = 5.0,
     less_flat_sw = (interior & window_ok & (curv >= 0) & (curv < f32(0.3))
                     & ~picked_e & ~picked_f & ~all_disabled)
 
-    edge_pts, edge_mask, edge_rows = picks_to_buffer(seq, eidx, eok, CAP_EDGE)
+    B, S, W = seq["valid"].shape
+    rows = torch.arange(S, device=pts.device)[:, None].expand(S, W)
+    if hyst_keep is not None:
+        # the hysteresis-validated cells, gathered from the image grid in
+        # row-major order, their rows carried as row + 0.5
+        pack = torch.cat([img["xyz"], (rows.to(torch.float32) + 0.5)
+                          .expand(B, S, W)[..., None]], dim=-1)
+        g, edge_mask = gather_masked(pack, hyst_keep & img["valid"], CAP_EDGE)
+        edge_pts = g[..., :3]
+        edge_rows = torch.where(edge_mask, g[..., 3].to(torch.int32), -1)
+    else:
+        edge_pts, edge_mask, edge_rows = picks_to_buffer(seq, eidx, eok, CAP_EDGE)
     sharp_pts, sharp_mask, _ = picks_to_buffer(seq, eidx[:, :3], eok[:, :3],
                                                CAP_SHARP)
     flat_pts, flat_mask, flat_rows, flat_grd = picks_to_buffer(
@@ -526,8 +730,6 @@ def extract_features(pts, mask, max_curvature: float = 5.0,
     # an angular grid, cell footprint grows ~r^2), decided by a per-cell
     # hash, rescaled to the CAP_SURF budget (stands in for the reference's
     # 0.2 m pcl::VoxelGrid, Velodyne.cpp:1076-1080)
-    B, S, W = seq["valid"].shape
-    rows = torch.arange(S, device=pts.device)[:, None].expand(S, W)
     r = seq["range"]
     p_base = torch.clamp_max(r * r * f32(1.218e-4 / 0.04), 1.0)
     expect = torch.sum(torch.where(less_flat_sw, p_base, 0.0), dim=(1, 2))

@@ -154,8 +154,9 @@ def test_resumed_run_reads_back_the_pass_artifacts(runs):
 
 def test_unported_refinement_and_neighbour_selection_raise(runs):
     """RefineCameraPose is ported (tests/test_torch_sfm_stage.py): with SfM
-    state files that hold no tracks it now fails on their content, not as
-    unported; neighbour selection 1 and min_depth 0 still raise."""
+    state files that hold no tracks it fails on their content, not as
+    unported; min_depth 0 raises (F7). Neighbour selection 1 is ported
+    (tests/test_torch_mvs_options.py)."""
     cfg = _copy(os.path.dirname(runs["port"][0].result_path), "refine")
     for name in ("frames.npz", "points.npz"):
         os.makedirs(cfg.sfm_result_path, exist_ok=True)
@@ -163,9 +164,6 @@ def test_unported_refinement_and_neighbour_selection_raise(runs):
     os.remove(os.path.join(cfg.mvs_result_path, "camera_pose_after_refine.txt"))
     with pytest.raises(KeyError):
         tpipeline.joint_mvs(cfg, device="cpu")
-    cfg.mvs_neighbor_selection = 1
-    with pytest.raises(NotImplementedError, match="select_neighbor_sfm"):
-        tpipeline.joint_mvs(cfg, device="cpu")
-    cfg.mvs_neighbor_selection, cfg.min_depth = 2, 0.0
+    cfg.min_depth = 0.0
     with pytest.raises(ValueError, match="F7"):
         tpipeline.joint_mvs(cfg, device="cpu")

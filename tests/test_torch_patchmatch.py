@@ -221,7 +221,8 @@ def test_init_depth_normal_with_injected_draws_matches_jax(scene):
     draws = {"d_rand": _t(jnp.exp(jax.random.uniform(k1, (H, W), minval=lo, maxval=hi))),
              "n_rand": _t(jax.random.normal(k2, (H, W, 3)))}
     tcfg = tmvs.MVSConfig(pm=tpm.PatchMatchConfig(min_depth=cfg.pm.min_depth,
-                                                  max_depth=cfg.pm.max_depth),
+                                                  max_depth=cfg.pm.max_depth,
+                                                  sweep_slices=cfg.pm.sweep_slices),
                           keep_lidar_constant=True)
     td, tn, tf = tmvs.init_depth_normal(tsp.pixel_ray_grid(H, W), _t(lidar), tcfg,
                                         draws=draws)

@@ -106,10 +106,3 @@ def test_range_image_and_curvature_stages_match_jax(scans):
     assert (np.asarray(curv) == tcurv[0].numpy()).all()
     assert (np.asarray(m) == tm[0].numpy()).all()
     assert (np.asarray(wok) == twok[0].numpy()).all()
-
-
-@pytest.mark.parametrize("kw", [{"method": 2}, {"repair_rings": True}])
-def test_unported_options_raise(scans, kw):
-    pts, msk = scans
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvd.extract_features(torch.from_numpy(pts[:1]), torch.from_numpy(msk[:1]), **kw)
