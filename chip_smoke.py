@@ -39,7 +39,8 @@ Run from the root of a checkout. Phases, each fatal on failure:
      chunks; prints the valid shares of queries, targets and pairs;
   6. the MVS stage (`python -m panovlm_tpu_torch joint_mvs`, in-process) on
      the first --mvs-frames frames of the same loop: 2880 x 5760 panoramas
-     rendered by tests/synthetic.render_panorama, written as PNG, read at
+     (rendered at 1440 x 2880 and each pixel repeated 2 x 2, PANO_RENDER_DOWN)
+     as tests/synthetic.render_panorama casts the rays, written as PNG, read at
      scale -2 (720 x 1440) with the Room MVS keys (configs/Room.txt:75-87;
      min_depth 0.1, the Config default, since Room's 0 divides by zero in
      the sweep path, ROADMAP F7), undistorted scans and ground-truth joint
@@ -208,6 +209,33 @@ Run from the root of a checkout. Phases, each fatal on failure:
      tests/ring_scans.py repaired on the card to its rings, phase 4's
      artifacts and bounds, one knn and one knn_ring launch per round,
      hysteresis edges in every scan; prints the repaired points.
+  15. the stages split over ranks on the one card (torch.distributed, each
+     rank a spawned process on cuda:0 with a collective timeout,
+     RANK_TIMEOUT_S, and every group stopped and failed after
+     GROUP_DEADLINE_S; NCCL refuses two ranks on one card, so world size 2
+     runs over gloo, the collectives through host memory, and NCCL at
+     world size 1): (a) init_lidar_pose with its undistort round on the
+     loop's first MULTI_SCANS = 128 scans (make_room, in the render pool;
+     cut: the time limit), twice without a group in this process (as the
+     stage runs by default, and with sharded_solve: the group's pair
+     chunks and exact costs), on 2 gloo ranks and on 1 NCCL rank. Checked:
+     each run's artifacts and phase 4's bounds, the ranks of a group
+     bit-equal, the gloo and NCCL groups bit-equal, each within
+     ODOMETRY_TOL of the sharded run and within ODOMETRY_TOL_M of both runs
+     in its scan positions, and each group's K1 and K2 launches summed over
+     its ranks equal to the sharded run's; prints each round's costs.
+     (b) joint_optimize on
+     phase 10's arguments (chiprun_out/joint_chain.npz) on 2 gloo ranks, on
+     1 NCCL rank and without a group (JointConfig.sharded_solve, a process
+     of its own): the PCG tier (no Schur elimination), the ranks of a group
+     bit-equal, the gloo and NCCL groups bit-equal, each within JOINT_TOL
+     of the solve without a group and within phase 10's pose bounds;
+     prints the difference from phase 10's poses. (c) joint_mvs on 2 gloo
+     ranks on phase 6's dataset in a result tree of its own: every
+     artifact (depth, confidence and normal of both passes, filtered
+     depth, the fused cloud) bit-equal to phase 6's, and the ranks'
+     volscore launches summing to phase 6's. Every rank checks that it
+     imported neither jax nor panovlm_tpu.
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -219,7 +247,9 @@ and `launches_joint`, `launches_joint_tracks` (phase 13),
 `launches_floor` and `launches_options` (phase 14 (c)) their launches
 there; volscore's `launches_sfm_neighbours` and `launches_exact` its
 launches in phases 14 (a) and 14 (b); knn_desc's `launches_surgery` and
-`launches_gps` are its launches in phases 8 (c) and 8 (d)), volscore's those of the D=64
+`launches_gps` are its launches in phases 8 (c) and 8 (d); `launches_ranks`
+each kernel's launches per rank in phase 15, by sub-phase and group, empty
+for knn_desc, which no stage of phase 15 runs), volscore's those of the D=64
 full-scoring shape of phase
 3 and knn_desc's those of the fused search at the stage's batch; each
 row's max_abs_err is the largest over its shapes, and its "shapes" list
@@ -817,6 +847,10 @@ max_depth            = 5
 min_depth            = 0.1
 """
 PANO_H, PANO_W = 2880, 5760   # Room panoramas; scale -2 works at 720 x 1440
+# the MVS panoramas are rendered at half that size and each pixel repeated
+# 2 x 2 (cut: the time limit; a full-size colour render took ~80 s of host
+# time per frame and kept every timed phase waiting ~230 s after the build)
+PANO_RENDER_DOWN = 2
 
 
 def write_png_gray(path: str, img):
@@ -873,15 +907,17 @@ def render_color(C, H: int, W: int, R_wc):
 
 
 def _render_frame(args):
-    """Worker: render frame i at panorama size, as a gray PNG (phase 6) and
-    as a colour JPEG at quality 95, 4:2:0 (phase 11; frame 0's source array
-    also as .npy), and return its ground-truth depth at the working size."""
+    """Worker: render frame i at panorama size (PANO_RENDER_DOWN), as a gray
+    PNG (phase 6) and as a colour JPEG at quality 95, 4:2:0 (phase 11; frame
+    0's source array also as .npy), and return its ground-truth depth at the
+    working size."""
     path, jpg_path, C, R_wc, pano_hw, work_hw = args
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
     import numpy as np
     import synthetic
     from panovlm_tpu_torch.io import jpeg
-    rgb = render_color(C, *pano_hw, R_wc)
+    k = PANO_RENDER_DOWN
+    rgb = render_color(C, pano_hw[0] // k, pano_hw[1] // k, R_wc).repeat(k, 0).repeat(k, 1)
     write_png_gray(path, rgb[..., 0])
     jpeg.write_jpeg(jpg_path, rgb, quality=95)
     if jpg_path.endswith("000000.jpg"):
@@ -2588,8 +2624,12 @@ def run_ta_room(torch, device: str = "cuda"):
 # ta_room_inputs(), per method: a host run of tests/ta_room_reference.py
 # (the JAX package on the CPU, its Jacobian chunking off, ROADMAP F1). Where
 # it is >= 0.08 m, the port's bound is TA_METHOD_MARGIN times it.
-TA_METHOD_REF = {"chordal": 0.18840, "lud": 0.06900, "bata": 0.20236, "l1": 0.08762}
+TA_METHOD_REF = {"chordal": 0.18840, "lud": 0.06900, "bata": 0.20236, "l1": 0.10695}
 TA_METHOD_MARGIN = 1.25
+# triplets l1's L-infinity LP samples (the method's default: 20,000; cut:
+# the time limit, the host LP took 57.6-66.4 s there); TA_METHOD_REF's l1
+# is the JAX function's error with the same sample
+TA_LP_TRIPLETS = 2000
 
 
 def run_ta_methods(torch, device: str = "cuda"):
@@ -2597,16 +2637,17 @@ def run_ta_methods(torch, device: str = "cuda"):
     Room-454 pair graph. Each: its tiers, time and camera-centre error after
     a similarity, < 0.08 m or within TA_METHOD_MARGIN times the JAX
     function's (TA_METHOD_REF), and a bit-equal rerun (l1's on its first
-    LP solution). Prints the L-inf LP's size and time (scipy's HiGHS on the
-    host)."""
+    LP solution). l1's L-inf LP samples TA_LP_TRIPLETS triplets. Prints the
+    LP's size and time (scipy's HiGHS on the host)."""
     import numpy as np
     from panovlm_tpu_torch.models import translation_averaging as ta_mod
 
     kwargs, C, R_cw = ta_room_inputs()
     m = len(kwargs["pair_i"])
     triplets, _, found = ta_mod.linf_triplets(kwargs["pair_i"], kwargs["pair_j"],
-                                              np.ones(m, bool))
+                                              np.ones(m, bool), TA_LP_TRIPLETS)
     n_lam = len({k for tri in triplets for k in (tri[:2], tri[1:], tri[::2])})
+    kwargs = dict(kwargs, lp_triplets=TA_LP_TRIPLETS)
     for method, ref in TA_METHOD_REF.items():
         def solve():
             with _EveryCall(ta_mod, "solve_lm", lambda a, res: res[1]["tier"]) as tiers, \
@@ -2629,7 +2670,7 @@ def run_ta_methods(torch, device: str = "cuda"):
         if not err < bound:
             fail(f"translation averaging ({method}) error {err:.4f} m >= {bound:.4f} m")
         # the rerun takes l1's host LP solution as it came (scipy's HiGHS,
-        # deterministic, the minute of the call): the card's part again
+        # deterministic, most of the call): the card's part again
         saved = ta_mod.translation_averaging_linf_lp
         if lp.values:
             ta_mod.translation_averaging_linf_lp = lambda *a, **k: lp.values[0]
@@ -2908,6 +2949,352 @@ def run_odometry_options(torch, knn_mod, room_cfg_path, gt, n_scans: int):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 15: the stages split over ranks on the one card
+# ----------------------------------------------------------------------------
+
+MULTI_SCANS = 128       # phase 4's loop cut to its first 128 scans (cut: the time limit)
+# a group's poses against the run without a group: the largest difference
+# of a pose parameter, and of a scan position
+ODOMETRY_TOL, ODOMETRY_TOL_M = 2e-4, 0.05
+JOINT_TOL = 2e-3
+RANK_TIMEOUT_S = 300    # a rank waits this long for the others at a collective, then raises
+GROUP_DEADLINE_S = 400  # a group's ranks must all have ended by then, or the phase fails
+
+
+def _rank_body(kind, backend, world, rank, store, arg, out_path):
+    """Spawned: rank `rank` of a `world`-rank group (gloo or NCCL, file
+    store `store`; "none": one process without a group) on cuda:0, running
+    phase 15's `kind` on `arg`; writes its result, wall, kernel launches
+    and any jax import to out_path."""
+    import datetime
+    import pickle
+    sys.path[:0] = [HERE]
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(2)   # at most three ranks share the host's cores
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if backend != "none":
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+            **({"device_id": dev} if backend == "nccl" else {}))
+    try:
+        from panovlm_tpu_torch.ops import _build
+        from panovlm_tpu_torch.ops import knn as knn_mod
+        from panovlm_tpu_torch.ops import volscore as vs_mod
+        _build.load()
+        knn_mod.knn.launches = knn_mod.knn_ring.launches = vs_mod.volscore.launches = 0
+        t0 = time.time()
+        out = {"result": _RANK_KINDS[kind](torch, arg)}
+        torch.cuda.synchronize()
+        out["wall"] = time.time() - t0
+        out["launches"] = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches,
+                           "volscore": vs_mod.volscore.launches}
+        out["leaked"] = sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "jaxlib", "panovlm_tpu"))
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _rank_odometry(torch, cfg_path):
+    from panovlm_tpu_torch import pipeline
+    from panovlm_tpu_torch.config import load_config
+    infos = []
+    poses, _ = pipeline.init_lidar_pose(load_config(cfg_path), device="cuda", infos=infos)
+    return {"poses": poses, "infos": infos}
+
+
+def _joint_args(torch, path, device):
+    """joint_optimize's arguments as phase 10 captured them
+    (chiprun_out/joint_chain.npz), on `device`."""
+    import numpy as np
+    from panovlm_tpu_torch.models import camera_lidar as cl
+    z = np.load(path)
+    arcs = {k[4:]: torch.from_numpy(z[k]).to(device) for k in z.files if k.startswith("arc_")}
+    feats = {k[6:]: torch.from_numpy(z[k]).to(device) for k in z.files
+             if k.startswith("lidar_") and k != "lidar_valid" and k != "lidar_poses0"}
+    arrays = [z[k] for k in ("cam_poses0", "lidar_poses0", "track_img", "track_feat",
+                             "track_mask", "bearings", "points0", "point_ok")]
+    return ((arcs, feats, *arrays, cl.JointConfig(**json.loads(str(z["jcfg"])))),
+            {"lidar_valid": z["lidar_valid"]})
+
+
+def _rank_joint(torch, path):
+    """joint_optimize on phase 10's arguments, solved as under a group
+    (`sharded_solve`), with the group when there is one."""
+    from panovlm_tpu_torch.models import camera_lidar as cl
+    from panovlm_tpu_torch.parallel import make_mesh
+    args, kwargs = _joint_args(torch, path, "cuda")
+    args = (*args[:-1], args[-1]._replace(sharded_solve=True))
+    cam, lidar, points, infos = cl.joint_optimize(*args, **kwargs, group=make_mesh("cuda"))
+    return {"cam": cam.cpu().numpy(), "lidar": lidar.cpu().numpy(),
+            "points": points.cpu().numpy(), "infos": infos}
+
+
+def _rank_mvs(torch, cfg_path):
+    from panovlm_tpu_torch import pipeline
+    from panovlm_tpu_torch.config import load_config
+    depths, confs = pipeline.joint_mvs(load_config(cfg_path), device="cuda")
+    return {"depths": depths, "confs": confs}
+
+
+_RANK_KINDS = {"odometry": _rank_odometry, "joint": _rank_joint, "mvs": _rank_mvs}
+
+
+def run_ranks(groups, root):
+    """Starts every group of `groups` ({(kind, backend): (world, arg)}) at
+    once, each rank a spawned process on cuda:0, and waits for all of them
+    (GROUP_DEADLINE_S, then every rank is stopped and the phase fails).
+    Returns {(kind, backend): [each rank's output]}."""
+    import pickle
+    ctx = multiprocessing.get_context("spawn")
+    procs = {}
+    for (kind, backend), (world, arg) in groups.items():
+        store = os.path.join(root, f"store_{kind}_{backend}")
+        procs[kind, backend] = [ctx.Process(target=_rank_body, args=(
+            kind, backend, world, r, store, arg,
+            os.path.join(root, f"out_{kind}_{backend}_{r}.pkl"))) for r in range(world)]
+    every = [p for ps in procs.values() for p in ps]
+    try:
+        for p in every:
+            p.start()
+        t0 = time.time()
+        while any(p.is_alive() for p in every):
+            if time.time() - t0 > GROUP_DEADLINE_S:
+                fail(f"phase 15: ranks still running after {GROUP_DEADLINE_S} s")
+            if any(p.exitcode not in (None, 0) for p in every):
+                break
+            time.sleep(0.5)
+        if any(p.exitcode for p in every):
+            codes = {k: [p.exitcode for p in ps] for k, ps in procs.items()}
+            fail(f"phase 15: a rank failed: exit codes {codes}")
+    finally:
+        for p in every:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = {}
+    for (kind, backend), ps in procs.items():
+        out[kind, backend] = []
+        for r in range(len(ps)):
+            with open(os.path.join(root, f"out_{kind}_{backend}_{r}.pkl"), "rb") as f:
+                res = pickle.load(f)
+            if res["leaked"]:
+                fail(f"phase 15: rank {r} of {kind} {backend} imported {res['leaked']}")
+            out[kind, backend].append(res)
+        walls = ", ".join(f"{o['wall']:.1f}" for o in out[kind, backend])
+        log(f"phase 15 {kind} {backend}: walls {walls} s; launches per rank "
+            f"{[o['launches'] for o in out[kind, backend]]}")
+        for r, o in enumerate(out[kind, backend][1:], 1):
+            if _bits(o["result"]) != _bits(out[kind, backend][0]["result"]):
+                fail(f"phase 15: rank {r} of the {kind} {backend} group differs from its "
+                     "rank 0 (every decision is the group's)")
+    return out
+
+
+def _odometry_variant(src_cfg, root, label):
+    """The Room config with its own result and undistort directories, the
+    stage-1 poses copied in."""
+    import shutil
+    res = os.path.join(root, f"result_{label}")
+    os.makedirs(os.path.join(res, "sfm"))
+    shutil.copy(os.path.join(root, "result", "sfm", "lidar_pose.txt"),
+                os.path.join(res, "sfm", "lidar_pose.txt"))
+    with open(src_cfg) as f:
+        text = f.read()
+    path = os.path.join(root, f"config_{label}.txt")
+    with open(path, "w") as f:
+        f.write(text.replace(f"{root}/result", res))
+    return path
+
+
+def _mvs_variant(root, mvs_cfg_path):
+    """Phase 6's MVS config with a result tree and depth maps of its own."""
+    src = os.path.dirname(mvs_cfg_path)
+    res = os.path.join(root, "mvs_result")
+    os.makedirs(os.path.join(res, "joint"))
+    for name in ("camera_pose_joint.txt", "lidar_pose_joint.txt"):
+        os.symlink(os.path.join(src, "result", "joint", name), os.path.join(res, "joint", name))
+    with open(mvs_cfg_path) as f:
+        text = f.read()
+    cfg_path = os.path.join(root, "mvs_config.txt")
+    with open(cfg_path, "w") as f:
+        f.write(text.replace(f"result_path = {src}/result", f"result_path = {res}")
+                .replace(f"mvs_data_path = {src}/mvs", f"mvs_data_path = {root}/mvs"))
+    return cfg_path
+
+
+def run_multi(torch, knn_mod, root, odo_cfg, odo_gt, sfm_gt, mvs_cfg, k3_launches):
+    """Phase 15: the odometry's two runs without a group in this process,
+    then every group at once: (a) init_lidar_pose on the first MULTI_SCANS
+    scans of the loop, (b) joint_optimize on phase 10's arguments, each on
+    2 gloo ranks and 1 NCCL rank, with (b)'s sharded solve without a group
+    in a process of its own beside them, (c) joint_mvs on 2 gloo ranks on
+    phase 6's dataset; then each sub-phase's checks. Returns {sub-phase:
+    {backend: [launches per rank]}}."""
+    from panovlm_tpu_torch import pipeline
+    from panovlm_tpu_torch.config import load_config
+
+    cfgs = {label: _odometry_variant(odo_cfg, root, label)
+            for label in ("plain", "sharded", "gloo", "nccl")}
+    single = {}
+    for label in ("plain", "sharded"):
+        knn_mod.knn.launches = knn_mod.knn_ring.launches = 0
+        t0 = time.time()
+        infos = []
+        poses, _ = pipeline.init_lidar_pose(load_config(cfgs[label]), device="cuda",
+                                            infos=infos, sharded_solve=label == "sharded")
+        launches = {"knn": knn_mod.knn.launches, "knn_ring": knn_mod.knn_ring.launches}
+        single[label] = {"poses": poses, "infos": infos, "launches": launches}
+        log(f"phase 15 (a) {label} run: {time.time() - t0:.1f} s, launches {launches}")
+    torch.cuda.empty_cache()
+    joint_path = os.path.join(HERE, "chiprun_out", "joint_chain.npz")
+    mvs15 = _mvs_variant(root, mvs_cfg)
+    t0 = time.time()
+    out = run_ranks({("odometry", "gloo"): (2, cfgs["gloo"]),
+                     ("odometry", "nccl"): (1, cfgs["nccl"]),
+                     ("joint", "gloo"): (2, joint_path), ("joint", "nccl"): (1, joint_path),
+                     ("joint", "none"): (1, joint_path), ("mvs", "gloo"): (2, mvs15)}, root)
+    log(f"phase 15: the five groups and the joint solve without one side by side, "
+        f"{time.time() - t0:.1f} s")
+    check_multi_odometry(out, cfgs, odo_gt, single)
+    check_multi_joint(out, root, joint_path, sfm_gt)
+    check_multi_mvs(out, mvs_cfg, mvs15, k3_launches)
+    launches = {"odometry": {"sharded, no group": [single["sharded"]["launches"]]}}
+    for (kind, backend), ranks in out.items():
+        launches.setdefault(kind, {})[backend] = [o["launches"] for o in ranks]
+    return launches
+
+
+def _pose_gap(a, b):
+    """(max scan-position difference in m, in deg, max |parameter
+    difference|, bit-equal) of two (N, 6) pose arrays."""
+    import numpy as np
+    from panovlm_tpu_torch.utils import poses as pose_util
+    (Ra, ta), (Rb, tb) = pose_util.params_to_world(a), pose_util.params_to_world(b)
+    dm = float(np.linalg.norm(ta - tb, axis=1).max())
+    ddeg = float(np.degrees(np.arccos(np.clip(
+        (np.einsum("nij,nij->n", Ra, Rb) - 1) / 2, -1, 1))).max())
+    return dm, ddeg, float(np.abs(a - b).max()), a.tobytes() == b.tobytes()
+
+
+def check_multi_odometry(out, cfgs, gt, single):
+    """Phase 15 (a)'s checks: each run's artifacts and phase 4's bounds; the
+    gloo and NCCL groups bit-equal, each within ODOMETRY_TOL of the run
+    without a group that solves as they do (`sharded_solve`) and within
+    ODOMETRY_TOL_M of the default run in its scan positions; each group's
+    K1 and K2 launches, summed over its ranks, the sharded run's."""
+    for label in ("sharded", "gloo", "nccl"):
+        check_odometry_outputs(cfgs[label], gt, MULTI_SCANS)
+    runs = {label: out["odometry", label][0]["result"] for label in ("gloo", "nccl")}
+    runs.update(single)
+    for label, run in runs.items():
+        log(f"phase 15 (a) {label}: per round cost "
+            + ", ".join(f"{i['initial_cost']:.9g} -> {i['final_cost']:.9g} "
+                        f"({i['iterations']} it)" for i in run["infos"]))
+    bad = []
+    for a, b in (("gloo", "nccl"), ("gloo", "sharded"), ("nccl", "sharded"),
+                 ("gloo", "plain"), ("nccl", "plain")):
+        dm, ddeg, dp, same = _pose_gap(runs[a]["poses"], runs[b]["poses"])
+        log(f"phase 15 (a) {a} - {b}: max {dm * 1000:.3f} mm, {ddeg:.4f} deg per scan, max "
+            f"|difference| of the parameters {dp:.3g}{' (bit-equal)' if same else ''}")
+        if b == "nccl" and not same:
+            bad.append("the gloo and NCCL groups' poses are not bit-equal")
+        if b == "sharded" and not dp <= ODOMETRY_TOL:
+            bad.append(f"{a} - {b}: {dp:.3g} > {ODOMETRY_TOL}")
+        if not dm < ODOMETRY_TOL_M:
+            bad.append(f"{a} - {b}: {dm:.4f} m")
+    for label in ("gloo", "nccl"):
+        summed = {k: sum(o["launches"][k] for o in out["odometry", label])
+                  for k in single["sharded"]["launches"]}
+        if summed != single["sharded"]["launches"]:
+            bad.append(f"{label} launches {summed} summed over the ranks, the sharded run "
+                       f"{single['sharded']['launches']}")
+    if bad:
+        fail(f"phase 15 (a): {bad}")
+
+
+def check_multi_joint(out, root, path, gt):
+    """Phase 15 (b)'s checks: the gloo and NCCL groups bit-equal, each
+    within JOINT_TOL of the same solve without a group and within phase
+    10's pose bounds; prints the difference from phase 10's poses."""
+    import numpy as np
+    from panovlm_tpu_torch.io import artifacts
+    from panovlm_tpu_torch.utils import poses as pose_util
+
+    z = np.load(path)
+    bound = [JOINT_LIDAR_MARGIN * r for r in JOINT_LIDAR_REF]
+    ref = out["joint", "none"][0]["result"]
+    bad = []
+    for label in ("gloo", "nccl", "none"):
+        res = out["joint", label][0]["result"]
+        cam_txt, lidar_txt = (os.path.join(root, f"{k}_pose_{label}.txt")
+                              for k in ("camera", "lidar"))
+        artifacts.export_pose_t(cam_txt, *pose_util.params_to_world(res["cam"]))
+        artifacts.export_pose_t(lidar_txt, *pose_util.params_to_world(res["lidar"]))
+        rot, dist, all_ok = sfm_pose_errors(cam_txt, gt)
+        _, t, _, ok = artifacts.read_pose_t(lidar_txt)
+        err = np.abs(np.linalg.norm(np.diff(t, axis=0), axis=1)
+                     - np.linalg.norm(np.diff(gt[1], axis=0), axis=1))
+        gap = max(float(np.abs(res[k] - ref[k]).max()) for k in ("cam", "lidar"))
+        same = _bits(res) == _bits(ref)
+        log(f"phase 15 (b) {label}: tiers {sorted({i['tier'] for i in res['infos']})}, LM "
+            f"iterations {[int(i['iterations']) for i in res['infos']]}; cameras vs ground truth "
+            f"{rot:.4f} deg, {dist * 1000:.2f} mm; LiDAR consecutive-scan distance error max "
+            f"{err.max() * 1000:.2f} mm, median {np.median(err) * 1000:.2f} mm (bounds "
+            f"{bound[0] * 1000:.2f}, {bound[1] * 1000:.2f} mm); max |{label} - phase 10| cameras "
+            f"{np.abs(res['cam'] - z['out_cam']).max():.3g}, LiDAR "
+            f"{np.abs(res['lidar'] - z['out_lidar']).max():.3g}; max |{label} - no group| "
+            f"{gap:.3g}{' (bit-equal)' if same else ''}")
+        if not (all_ok and rot < 1.0 and dist < 0.08):
+            bad.append(f"{label} cameras {rot:.3f} deg, {dist:.4f} m")
+        if not (ok.all() and err.max() < bound[0] and np.median(err) < bound[1]):
+            bad.append(f"{label} LiDAR {err.max():.4f} / {np.median(err):.4f} m")
+        if not gap <= JOINT_TOL:
+            bad.append(f"{label} {gap:.3g} from the solve without a group")
+    gloo, nccl = out["joint", "gloo"][0]["result"], out["joint", "nccl"][0]["result"]
+    if _bits(gloo) != _bits(nccl):
+        bad.append("the gloo and NCCL groups' results are not bit-equal")
+    if bad:
+        fail(f"phase 15 (b): {bad}")
+
+
+def check_multi_mvs(out, mvs_cfg_path, cfg_path, k3_launches):
+    """Phase 15 (c)'s checks: every frame's depth, normal and confidence
+    artifact of both passes, the filtered depths and the fused cloud
+    bit-equal to phase 6's; the ranks' K3 launches sum to phase 6's."""
+    from panovlm_tpu_torch.config import load_config
+
+    launches = [o["launches"]["volscore"] for o in out["mvs", "gloo"]]
+    if sum(launches) != k3_launches:
+        fail(f"phase 15 (c): volscore launches {launches} do not sum to phase 6's {k3_launches}")
+    a, b = load_config(mvs_cfg_path), load_config(cfg_path)
+    n = 0
+    for d_a, d_b in ((a.mvs_depth_path, b.mvs_depth_path), (a.mvs_conf_path, b.mvs_conf_path),
+                     (a.mvs_normal_path, b.mvs_normal_path),
+                     (a.mvs_result_path, b.mvs_result_path)):
+        names = sorted(x for x in os.listdir(d_a) if x.endswith((".npy", ".pcd")))
+        if sorted(x for x in os.listdir(d_b) if x.endswith((".npy", ".pcd"))) != names:
+            fail(f"phase 15 (c): {d_b} does not hold phase 6's artifacts")
+        for name in names:
+            with open(os.path.join(d_a, name), "rb") as fa, \
+                    open(os.path.join(d_b, name), "rb") as fb:
+                if fa.read() != fb.read():
+                    fail(f"phase 15 (c): {name} differs from phase 6's")
+            n += 1
+    log(f"phase 15 (c): {n} artifacts bit-equal to phase 6's (depth, confidence and normal "
+        f"of both passes, filtered depth, fused cloud); volscore launches per rank {launches} "
+        f"(phase 6: {k3_launches})")
+
+
 def with_shapes(main, parts, **extra):
     """A kernel's row of the JSON line: the headline shape's numbers, the
     largest error over its shapes and each shape's numbers."""
@@ -2957,6 +3344,7 @@ def main():
     sfm_root = tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_")
     floor_root = tempfile.TemporaryDirectory(prefix="chip_smoke_floor_")
     room_root = tempfile.TemporaryDirectory(prefix="chip_smoke_room_")
+    multi_root = tempfile.TemporaryDirectory(prefix="chip_smoke_multi_")
     # a worker per core: the renders, not the build, keep the later phases
     # waiting, and the three nvcc processes share the cores for their minute
     pool = multiprocessing.get_context("spawn").Pool(os.cpu_count() or 4)
@@ -2964,6 +3352,7 @@ def main():
         if not (args.only_sfm or args.only_joint):   # first in the queue: one worker
             floor_async = pool.apply_async(make_room, (floor_root.name, FLOOR_SCANS))
         if full:
+            multi_async = pool.apply_async(make_room, (multi_root.name, MULTI_SCANS))
             mvs_cfg, gt_async = start_mvs_dataset(mvs_root.name, args.mvs_frames, pool)
         if not args.only_floor:
             sfm_cfg, sfm_async, sfm_gt = start_sfm_dataset(sfm_root.name, args.sfm_frames,
@@ -2998,6 +3387,7 @@ def main():
         if not args.only_floor:
             sfm_d_gt = sfm_async.get(timeout=900)
         if full:
+            multi_cfg, multi_gt, _ = multi_async.get(timeout=900)
             d_gt = gt_async.get(timeout=900)
             log(f"MVS dataset: {len(d_gt)} panoramas at 4x {d_gt[0].shape}, gray PNG "
                 f"and colour JPEG")
@@ -3145,6 +3535,20 @@ def main():
             del sfm_d_gt
             log(f"phase 14 (a) (SfM-point neighbours): {time.time() - t1:.1f} s; "
                 f"phase 14 {time.time() - t0:.1f} s")
+            # 15. the odometry, joint and MVS stages split over ranks on the
+            # one card: gloo between ranks on cuda:0, and a 1-rank NCCL group
+            t0 = time.time()
+            torch.cuda.empty_cache()
+            multi = run_multi(torch, knn_mod, multi_root.name, multi_cfg, multi_gt, sfm_gt,
+                              mvs_cfg, launches["volscore"])
+            log(f"phase 15 (ranks): {time.time() - t0:.1f} s")
+            for name in knn_extra:
+                knn_extra[name]["launches_ranks"] = {
+                    kind: {b: [r[name] for r in ranks] for b, ranks in multi[kind].items()}
+                    for kind in ("odometry", "joint")}
+            vs_extra["launches_ranks"] = {"mvs": {b: [r["volscore"] for r in ranks]
+                                                  for b, ranks in multi["mvs"].items()}}
+            rows["knn_desc"]["launches_ranks"] = {}
             rows["volscore"] = with_shapes(vrows["full"], vs_parts, library_ms=None,
                                            **vs_extra)
         for name, parts in knn_parts.items():   # headline: the Room stage's inputs
@@ -3157,6 +3561,7 @@ def main():
         sfm_root.cleanup()
         floor_root.cleanup()
         room_root.cleanup()
+        multi_root.cleanup()
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "panovlm_tpu"))
@@ -3180,7 +3585,7 @@ def main():
          **{k: r[k] for k in ("launches_joint", "launches_joint_tracks", "launches_floor",
                               "launches_options", "launches_sfm_neighbours",
                               "launches_exact", "launches_surgery", "launches_gps",
-                              "shapes") if k in r}}
+                              "launches_ranks", "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,15 @@ persisted pair set of init_camera_pose without rerunning the stage):
     python -m panovlm_tpu_torch dump_global_poses <config.txt> [out.txt]
 
 each with --device cuda|cpu (default cuda).
+
+On N ranks (one process per device; NCCL between cards, gloo with
+`--device cpu`):
+
+    python -m torch.distributed.run --nproc-per-node N -m panovlm_tpu_torch <stage> <config.txt>
+
+init_lidar_pose, joint_optimization and joint_mvs split their work over
+the ranks; init_camera_pose,
+colorize_lidar_map and the pair-surgery verbs run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import sys
 
 STAGES = ("init_camera_pose", "init_lidar_pose", "joint_optimization",
          "colorize_lidar_map", "joint_mvs")
+# verbs that neither package splits over devices or processes
+RANK0_ONLY = ("init_camera_pose", "colorize_lidar_map")
 # verb -> its arguments after the config: integers, or one optional path
 SURGERY = {"add_pair": ("i", "j"), "recompute_pairs": ("idx1", "idx2"),
            "set_straight_motion": ("start", "end", "len"),
@@ -49,14 +60,33 @@ def main(argv=None, infos: list | None = None, tr=None) -> int:
         except ValueError:
             parser.error(f"{args.verb}: {' '.join(want)} must be integers")
 
-    from . import pipeline
-    from .config import load_config
+    import torch
+    import torch.distributed as dist
+
     from .device import resolve
-    from .utils.timing import TimeReport
+    from .parallel.multihost import initialize_distributed
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    device = resolve(args.device)
+    ranks = initialize_distributed(args.device)
+    try:
+        device = resolve(args.device)
+        if ranks and device.type == "cuda":   # this rank's own card
+            device = torch.device("cuda", torch.cuda.current_device())
+        if ranks and dist.get_rank() != 0 and (args.verb in SURGERY
+                                               or args.verb in RANK0_ONLY):
+            return 0
+        return _run(args, extra, device, infos, tr)
+    finally:
+        if ranks:
+            dist.destroy_process_group()
+
+
+def _run(args, extra, device, infos, tr) -> int:
+    from . import pipeline
+    from .config import load_config
+    from .utils.timing import TimeReport
+
     cfg = load_config(args.config)
     if args.verb in SURGERY:
         from . import pair_surgery

@@ -26,18 +26,29 @@ def _warm_cpu_math():
 
 
 def resolve(device) -> torch.device:
-    """`cuda` or `cpu` (a name or a torch.device) -> torch.device, with full
-    float32 for matmuls and convolutions (no TF32) and the CPU math set up.
-    Every stage function and pair-surgery verb calls it, so a library caller
-    gets what the CLI gets. Raises if CUDA is asked for and no card is
-    visible."""
-    kind = device.type if isinstance(device, torch.device) else device
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    if kind == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+    """`cuda`, `cuda:N` or `cpu` (a name or a torch.device) -> torch.device,
+    with full float32 for matmuls and convolutions (no TF32) and the CPU
+    math set up. An indexed CUDA device, a rank's own card, becomes the
+    current device. Every stage function and pair-surgery verb calls it, so
+    a library caller gets what the CLI gets. Raises if CUDA is asked for
+    and no card is visible, or the index names no card."""
+    try:
+        dev = torch.device(device)
+    except (RuntimeError, TypeError) as e:
+        raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {device!r}") from e
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {device!r}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {device}: torch.cuda.is_available() is False")
+        if dev.index is not None:
+            n = torch.cuda.device_count()
+            if not 0 <= dev.index < n:
+                raise ValueError(f"--device {device}: this host has {n} CUDA device(s), "
+                                 f"cuda:0 to cuda:{n - 1}")
+            torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     _warm_cpu_math()
-    return torch.device(device)
+    return dev

@@ -170,6 +170,10 @@ class JointConfig(NamedTuple):
     # ones to every pair (AssociateTrack, CameraLidarTrackAssociate.cpp:
     # 103-204); only with both track kinds on
     use_track_associate: bool = False
+    # solve as under a process group (`joint_optimize(group=)`) without one:
+    # no Schur elimination, every block's rows in `parallel.shard_blocks`'
+    # chunks, exact costs; the single-process counterpart of the group path
+    sharded_solve: bool = False
 
 
 def _cl_pairs(n_frames, n_lidars, k):
@@ -243,7 +247,7 @@ def build_cl_blocks(cl_assoc, arc_batch, fi, li, weight,
 def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
                    track_img, track_feat, track_mask, bearings, points0,
                    point_ok, cfg: JointConfig = JointConfig(), lidar_valid=None, grays=None,
-                   tr=None):
+                   tr=None, group=None):
     """JointOptimize, MAPPING mode (CameraLidarOptimizer.cpp:177-298).
     arc_batch / lidar_batch: stacked dicts of tensors on the working
     device (arc_batch with "desc" when the image-line matching should use
@@ -252,9 +256,17 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
     optional per-frame float [0, 1] images, which filter the image-line
     matches by LK flow (MatchPanoramaLine, PanoramaLineMatch.cpp:48-118).
     With a TimeReport `tr`, the image-line tracks are timed as its phase
-    "image line tracks". Returns (cam_poses, lidar_poses, points, infos),
-    one info dict per round, with the line counts before and after the
-    track gates and the LK points tracked."""
+    "image line tracks". group: a `parallel.sharding.DataGroup`; the
+    association stays replicated (every rank runs it whole, as the JAX
+    package does under a mesh), each rank keeps its chunks of every
+    residual family's rows (`parallel.shard_blocks`) and the solve sums
+    over the ranks, without the Schur elimination (dense or PCG by the
+    parameter count, as JAX's sharded solve); `cfg.sharded_solve` solves
+    so without a group, and gives the group's bits. Returns (cam_poses,
+    lidar_poses, points, infos), one info dict per round, with the line
+    counts before and after the track gates and the LK points tracked; the
+    same on every rank."""
+    from ..parallel import replicated, shard_blocks
     from . import line_tracks
     dev = arc_batch["normal"].device
 
@@ -265,6 +277,7 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
     cam_poses = on_dev(cam_poses0, torch.float32)
     lidar_poses = on_dev(lidar_poses0, torch.float32)
     points = on_dev(points0, torch.float32)
+    cam_poses, lidar_poses, points = replicated((cam_poses, lidar_poses, points), group)
     point_ok = on_dev(point_ok, torch.bool)
     n_frames, n_lidars = cam_poses.shape[0], lidar_poses.shape[0]
     lidar_valid = (np.ones(n_lidars, bool) if lidar_valid is None
@@ -335,9 +348,11 @@ def joint_optimize(arc_batch, lidar_batch, cam_poses0, lidar_poses0,
                       l_assoc, pair_r, pair_n, angle_residual=cfg.angle_residual,
                       normalize_distance=cfg.normalize_distance,
                       weight=cfg.lidar_weight, group="lidar"))
+        sharded = group is not None or cfg.sharded_solve
         out, info = solve_lm({"cam": cam_poses, "lidar": lidar_poses, "pts": points},
-                             blocks, fixed, LMOptions(max_iters=cfg.max_lm_iters),
-                             schur="pts")
+                             shard_blocks(blocks, group) if sharded else blocks, fixed,
+                             LMOptions(max_iters=cfg.max_lm_iters, exact_costs=sharded),
+                             schur=None if sharded else "pts", group=group)
         cam_poses, lidar_poses, points = out["cam"], out["lidar"], out["pts"]
         infos.append({"line_pairs": int(cl_assoc["mask"].sum()), "lidar_pairs": len(pr),
                       **counts,

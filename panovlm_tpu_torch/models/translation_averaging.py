@@ -294,12 +294,14 @@ def translation_averaging_linf_lp(aa_global, pair_i, pair_j, rel_aa, rel_t, mask
 def translation_averaging(aa_global, pair_i, pair_j, rel_aa, rel_t, scales,
                           mask=None, method: str = "softl1",
                           upper_scale_ratio=1.3, lower_scale_ratio=0.9,
-                          t_init=None, irls_iters: int = 3, device="cpu"):
+                          t_init=None, irls_iters: int = 3, lp_triplets: int = 20000,
+                          device="cpu"):
     """EstimateGlobalTranslation (sfm/SfM.cpp:1047-1344): the DLT init (or
     `t_init`, the init_translation_GPS path, :1218-1240, with the unmeasured
     scales set to the median measured one), one of the averaging methods,
     then the scale gauge re-anchored so the measured pair scales hold on
-    median. Returns (t_fw (N,3), s (M,)) float32."""
+    median. lp_triplets: the most triplets "l1"'s L-infinity LP samples.
+    Returns (t_fw (N,3), s (M,)) float32."""
     m = len(pair_i)
     if mask is None:
         mask = np.ones(m, bool)
@@ -342,7 +344,7 @@ def translation_averaging(aa_global, pair_i, pair_j, rel_aa, rel_t, scales,
         # the LP's translations polished by three Huber solves; the init
         # (DLT or GPS) when the graph has no triplets or the LP fails
         t_lp, lp_ok = translation_averaging_linf_lp(aa_global, pair_i, pair_j, rel_aa,
-                                                    rel_t, mask)
+                                                    rel_t, mask, max_triplets=lp_triplets)
         t, s = (t_lp, s0) if lp_ok else (t0, s0)
         for sc in (0.1, 0.03, 0.01):
             common["t0"], common["s0"] = t, s

@@ -22,9 +22,17 @@ are joined in float64 and rounded once. The result is the same on the card
 and on the CPU, within (terms) x 2^-62 x max|term| of the exact sum before
 that rounding. The device SIFT and VLAD (F8), the LM normal equations,
 translation averaging, L1-ADMM and the voxel grid (F9) sum through them.
+
+With a process group (`parallel.sharding.DataGroup`) the terms are spread
+over its ranks: the scale comes from an all-reduce MAX of every rank's
+largest |term| and the two words from an all-reduce SUM, so the sum has the
+same bits however the terms are split, one rank included. `group_sum` is
+the exact total of a tensor (the LM costs).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -92,13 +100,16 @@ CHUNK = 1 << 22
 LO_MASK = (1 << 31) - 1
 
 
-def _fixed_scale(srcs):
-    """2^(62 - e), where 2^e bounds the largest |term| of every src."""
+def _fixed_scale(srcs, group=None):
+    """2^(62 - e), where 2^e bounds the largest |term| of every src (of
+    every rank's, with a group)."""
     big = torch.zeros((), dtype=torch.float64, device=srcs[0].device)
     for s in srcs:
         if s.numel():
             lo, hi = torch.aminmax(s)
             big = torch.maximum(big, torch.maximum(lo.abs(), hi.abs()).double())
+    if group is not None:
+        big = group.all_reduce(big, "max")
     e = torch.frexp(big).exponent
     return torch.ldexp(torch.ones((), dtype=torch.float64, device=big.device),
                        torch.clamp(62 - e, max=1000))
@@ -108,7 +119,7 @@ def _add_fixed(acc_hi, acc_lo, add, src, scale):
     """Adds the low and high int64 words of src in fixed point into acc_lo
     and acc_hi, about CHUNK terms at a time: add(acc, words, r0, r1)
     scatters the words of src's rows r0:r1."""
-    rows = max(1, CHUNK // max(1, src[0].numel()))
+    rows = max(1, CHUNK // max(1, math.prod(src.shape[1:])))
     for r0 in range(0, src.shape[0], rows):
         q = src[r0:r0 + rows].to(torch.float64, copy=True).mul_(scale).round_().to(torch.int64)
         lo = torch.bitwise_and(q, LO_MASK)
@@ -117,36 +128,53 @@ def _add_fixed(acc_hi, acc_lo, add, src, scale):
         add(acc_hi, q.bitwise_right_shift_(31), r0, r0 + rows)
 
 
-def _join(acc_hi, acc_lo, scale, dtype):
+def _join(acc_hi, acc_lo, scale, dtype, group=None):
+    if group is not None:
+        acc_hi, acc_lo = group.all_reduce(torch.stack([acc_hi, acc_lo]), "sum")
     return (acc_hi.double().mul_(2.0 ** 31).add_(acc_lo.double()).div_(scale)).to(dtype)
 
 
-def index_sum(n: int, index, src):
+def index_sum(n: int, index, src, group=None, *, scale_only: bool = False):
     """zeros((n, *src.shape[1:])).index_add_(0, index, src) for finite float
     terms: the same bits on every run, device and order of the terms. Each
     term is rounded to a multiple of 2^(e - 62), where 2^e bounds the
     largest |term|, split into a high and a low int64 word and summed
-    exactly; the two sums are joined in float64 and rounded once."""
+    exactly; the two sums are joined in float64 and rounded once.
+
+    group: the terms of every rank of the group are summed, and every rank
+    gets the sum (each rank must call, with its own terms, maybe none).
+    scale_only: only the scale is the group's; the words stay this rank's
+    (sums whose destinations all lie on one rank, as the per-run sums of a
+    block sharded at run boundaries)."""
     out_shape = (n, *src.shape[1:])
-    if src.numel() == 0:
+    if src.numel() == 0 and group is None:
         return torch.zeros(out_shape, dtype=src.dtype, device=src.device)
-    scale = _fixed_scale([src])
+    scale = _fixed_scale([src], group)
     acc_hi, acc_lo = (torch.zeros(out_shape, dtype=torch.int64, device=src.device)
                       for _ in range(2))
     _add_fixed(acc_hi, acc_lo, lambda acc, w, r0, r1: acc.index_add_(0, index[r0:r1], w),
                src, scale)
-    return _join(acc_hi, acc_lo, scale, src.dtype)
+    return _join(acc_hi, acc_lo, scale, src.dtype, None if scale_only else group)
 
 
-def scatter_sum(n: int, parts):
+def group_sum(x, group=None):
+    """x.sum() as `index_sum` sums it: exact in fixed point, the same bits
+    however the terms lie over the group's ranks. Returns a 0-d tensor."""
+    flat = x.reshape(-1)
+    return index_sum(1, torch.zeros(flat.shape, dtype=torch.int64, device=x.device),
+                     flat, group)[0]
+
+
+def scatter_sum(n: int, parts, group=None):
     """The sum over (index, src) in parts of
     zeros((*src.shape[:-1], n)).scatter_add_(-1, index, src), in the words
-    of `index_sum` with one scale for every part."""
+    of `index_sum` with one scale for every part, over the group's ranks
+    when a group is given."""
     parts = list(parts)
     lead = parts[0][1].shape[:-1]
     parts = [(index.reshape(-1, index.shape[-1]), src.reshape(-1, src.shape[-1]))
              for index, src in parts]
-    scale = _fixed_scale([src for _, src in parts])
+    scale = _fixed_scale([src for _, src in parts], group)
     dev = parts[0][1].device
     acc_hi, acc_lo = (torch.zeros((parts[0][1].shape[0], n), dtype=torch.int64, device=dev)
                       for _ in range(2))
@@ -154,4 +182,4 @@ def scatter_sum(n: int, parts):
         _add_fixed(acc_hi, acc_lo,
                    lambda acc, w, r0, r1, index=index:
                    acc[r0:r1].scatter_add_(-1, index[r0:r1].long(), w), src, scale)
-    return _join(acc_hi, acc_lo, scale, parts[0][1].dtype).reshape(*lead, n)
+    return _join(acc_hi, acc_lo, scale, parts[0][1].dtype, group).reshape(*lead, n)

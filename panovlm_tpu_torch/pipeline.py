@@ -74,6 +74,26 @@ log = logging.getLogger("panovlm")
 EXTRACT_BATCH = 64
 
 
+def _data_group(device):
+    """The ranks of this run (`parallel.make_mesh`: the initialised default
+    process group, `torchrun` or a caller's `init_process_group`), or None
+    in a single process: the counterpart of the JAX package's `_data_mesh()`.
+    The odometry, joint and MVS stages split their work over it; only rank
+    0 writes the pose text, PLY and PCD exports."""
+    from .parallel import make_mesh
+    return make_mesh(device)
+
+
+def _writes(group) -> bool:
+    return group is None or group.rank == 0
+
+
+def _done(group):
+    """Every rank leaves the stage after rank 0's exports are on disk."""
+    if group is not None:
+        group.barrier()
+
+
 def _list_files(path, exts):
     out = []
     for e in exts:
@@ -126,22 +146,26 @@ def extract_all_features(scans, cap: int, cfg: Config, device):
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
-def _odometry_config(cfg: Config) -> lidar_odometry.OdometryConfig:
+def _odometry_config(cfg: Config, sharded_solve: bool = False) -> lidar_odometry.OdometryConfig:
     return lidar_odometry.OdometryConfig(
         num_iteration_lidar=cfg.num_iteration_lidar,
         angle_residual=cfg.angle_residual,
         normalize_distance=cfg.normalize_distance,
         point_to_line=cfg.point_to_line_residual,
         line_to_line=cfg.line_to_line_residual,
-        point_to_plane=cfg.point_to_plane_residual)
+        point_to_plane=cfg.point_to_plane_residual,
+        sharded_solve=sharded_solve)
 
 
 def init_lidar_pose(cfg: Config, tr: TimeReport | None = None, device="cuda",
-                    infos: list | None = None):
+                    infos: list | None = None, sharded_solve: bool = False):
     """LiDAR odometry + undistortion (InitLidarPose, main.cpp:372-452).
     Returns (poses (N, 6) numpy, valid). When `infos` is a list, the
-    per-round solver records of both odometry runs are appended to it."""
+    per-round solver records of both odometry runs are appended to it.
+    sharded_solve: both odometry runs solve as under a process group
+    without one (`OdometryConfig.sharded_solve`)."""
     device = device_mod.resolve(device)
+    group = _data_group(device)
     tr = tr or TimeReport()
     infos = [] if infos is None else infos
     os.makedirs(cfg.odo_result_path, exist_ok=True)
@@ -158,28 +182,31 @@ def init_lidar_pose(cfg: Config, tr: TimeReport | None = None, device="cuda",
         batch = extract_all_features(scans, _scan_cap(scans), cfg, device)
     with tr.phase("estimate poses"):
         poses_t, round_infos = lidar_odometry.estimate_poses(
-            batch, poses0, valid, _odometry_config(cfg))
+            batch, poses0, valid, _odometry_config(cfg, sharded_solve), group=group)
         poses = poses_t.cpu().numpy()
         infos.extend(round_infos)
     with tr.phase("export"):
-        R, t = pose_util.params_to_world(poses)
-        artifacts.export_pose_t(
-            os.path.join(cfg.odo_result_path, "lidar_pose_refined.txt"), R, t, names)
-        viz.camera_centers_pcd(
-            os.path.join(cfg.odo_result_path, "lidar_center_refined.pcd"), poses, valid)
-        viz.camera_pose_ply(
-            os.path.join(cfg.odo_result_path, "lidar_pose_refined.ply"), poses, valid)
+        if _writes(group):
+            R, t = pose_util.params_to_world(poses)
+            artifacts.export_pose_t(
+                os.path.join(cfg.odo_result_path, "lidar_pose_refined.txt"), R, t, names)
+            viz.camera_centers_pcd(
+                os.path.join(cfg.odo_result_path, "lidar_center_refined.pcd"), poses, valid)
+            viz.camera_pose_ply(
+                os.path.join(cfg.odo_result_path, "lidar_pose_refined.ply"), poses, valid)
 
     # undistort with the solved poses, re-estimate, export the undistorted
     # clouds + poses (main.cpp:414-448, max_iter = 1)
     if cfg.lidar_path_undistort:
         with tr.phase("undistort + re-estimate"):
             poses, valid = _undistort_round(cfg, scans, valid, names, poses,
-                                            device, infos)
+                                            device, infos, group, sharded_solve)
+    _done(group)
     return poses, valid
 
 
-def _undistort_round(cfg: Config, scans, valid, names, poses, device, infos):
+def _undistort_round(cfg: Config, scans, valid, names, poses, device, infos, group=None,
+                     sharded_solve: bool = False):
     """One undistort -> re-estimate round (main.cpp:414-448, max_iter = 1):
     slerp each point's pose between its scan's and the next valid scan's
     (LidarOdometry::UndistortLidars, LidarOdometry.cpp:189-263), write the
@@ -225,6 +252,8 @@ def _undistort_round(cfg: Config, scans, valid, names, poses, device, infos):
     for i, m in enumerate(lens):
         p = und_np[i, :m].astype(np.float32)
         undist.append(p)
+        if not _writes(group):
+            continue
         raw = p @ vd.AXIS_SWAP  # back to the sensor's z-up frame (S^-1 = S^T)
         pointcloud.write_pcd(os.path.join(cfg.lidar_path_undistort, names[i]),
                              raw if m else np.zeros((1, 3), np.float32),
@@ -233,9 +262,11 @@ def _undistort_round(cfg: Config, scans, valid, names, poses, device, infos):
 
     batch = extract_all_features(undist, _scan_cap(undist), cfg, device)
     poses2_t, round_infos = lidar_odometry.estimate_poses(
-        batch, poses, valid, _odometry_config(cfg))
+        batch, poses, valid, _odometry_config(cfg, sharded_solve), group=group)
     infos.extend(round_infos)
     poses2 = poses2_t.cpu().numpy()
+    if not _writes(group):
+        return poses2, valid
     R, t = pose_util.params_to_world(poses2)
     artifacts.export_pose_t(
         os.path.join(cfg.odo_result_path, "lidar_pose_undis_refined.txt"), R, t, names)
@@ -257,6 +288,7 @@ def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda")
     from .utils import panorama_line as pl
 
     device = device_mod.resolve(device)
+    group = _data_group(device)
     tr = tr or TimeReport()
     os.makedirs(cfg.joint_result_path, exist_ok=True)
     grays, names = images.load_images(cfg.image_path, cfg.scale)
@@ -307,24 +339,27 @@ def joint_optimization(cfg: Config, tr: TimeReport | None = None, device="cuda")
             arc_batch, lidar_batch, cam_poses0, lidar_poses0, tracks["track_img"],
             tracks["track_feat"], tracks["track_mask"], frames["bearings"],
             tracks["points"], point_ok, jcfg,
-            lidar_valid=lidar_valid & pose_ok[:len(lidar_valid)], grays=grays, tr=tr)
+            lidar_valid=lidar_valid & pose_ok[:len(lidar_valid)], grays=grays, tr=tr,
+            group=group)
         cam_poses, lidar_poses = cam_t.cpu().numpy(), lidar_t.cpu().numpy()
         points, point_ok = points_t.cpu().numpy(), point_ok.cpu().numpy()
     with tr.phase("export"):
-        R_c, t_c = pose_util.params_to_world(cam_poses)
-        artifacts.export_pose_t(os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"),
-                                R_c, t_c, names)
-        R_l, t_l = pose_util.params_to_world(lidar_poses)
-        artifacts.export_pose_t(os.path.join(cfg.joint_result_path, "lidar_pose_joint.txt"),
-                                R_l, t_l, lidar_names)
-        artifacts.export_point_tracks(
-            os.path.join(cfg.joint_result_path, "points.npz"), tracks["track_img"],
-            tracks["track_feat"], tracks["track_mask"], points, point_ok)
-        for kind, poses in (("camera", cam_poses), ("lidar", lidar_poses)):
-            viz.camera_centers_pcd(
-                os.path.join(cfg.joint_result_path, f"{kind}_center_joint.pcd"), poses)
-            viz.camera_pose_ply(
-                os.path.join(cfg.joint_result_path, f"{kind}_pose_joint.ply"), poses)
+        if _writes(group):
+            R_c, t_c = pose_util.params_to_world(cam_poses)
+            artifacts.export_pose_t(os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"),
+                                    R_c, t_c, names)
+            R_l, t_l = pose_util.params_to_world(lidar_poses)
+            artifacts.export_pose_t(os.path.join(cfg.joint_result_path, "lidar_pose_joint.txt"),
+                                    R_l, t_l, lidar_names)
+            artifacts.export_point_tracks(
+                os.path.join(cfg.joint_result_path, "points.npz"), tracks["track_img"],
+                tracks["track_feat"], tracks["track_mask"], points, point_ok)
+            for kind, poses in (("camera", cam_poses), ("lidar", lidar_poses)):
+                viz.camera_centers_pcd(
+                    os.path.join(cfg.joint_result_path, f"{kind}_center_joint.pcd"), poses)
+                viz.camera_pose_ply(
+                    os.path.join(cfg.joint_result_path, f"{kind}_pose_joint.ply"), poses)
+    _done(group)
     return cam_poses, lidar_poses
 
 
@@ -381,15 +416,24 @@ def _pose_T(R, t):
 def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
     """Panoramic PatchMatch MVS (JointMVS, main.cpp:553-678), one frame per
     PatchMatch call. Returns (depths, confs) (N,H,W) numpy after segment
-    removal and gap filling, as the JAX stage does."""
+    removal and gap filling, as the JAX stage does.
+
+    Over several ranks (`_data_group`) each rank runs the frames of its
+    `process_slice` in both passes and writes their artifacts; after each
+    pass every frame's float32 depth, normal and confidence are broadcast
+    from the rank that owns it, so that every rank holds the single rank's
+    stack for the geometric pass, the filter and the fuse. Rank 0 writes
+    the refinement and the fused cloud."""
     from .io import images
     from .models import mvs as mvs_mod
     from .ops import spherical
     from .ops.patchmatch import PatchMatchConfig, check_config
+    from .parallel.multihost import process_slice
     from .utils.depth_completion import compute_depth_images
     from .utils.membudget import assert_host_budget
 
     device = device_mod.resolve(device)
+    group = _data_group(device)
     tr = tr or TimeReport()
     mcfg = mvs_mod.MVSConfig(
         pm=PatchMatchConfig(
@@ -420,12 +464,21 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         os.path.join(cfg.joint_result_path, "camera_pose_joint.txt"))
     poses = pose_util.world_to_params(R_c, t_c)
     joint_lidar = os.path.join(cfg.joint_result_path, "lidar_pose_joint.txt")
+    refine_txt = os.path.join(cfg.mvs_result_path, "camera_pose_after_refine.txt")
+    refined = os.path.exists(refine_txt)
+    # pass-level resume: every frame has final-pass depth + conf artifacts
+    pass_suffix = "geo" if cfg.mvs_use_geometric else "pho"
+    resume_pass = n > 0 and all(
+        os.path.exists(os.path.join(p, f"{i:06d}_{pass_suffix}.npy"))
+        for i in range(n) for p in (cfg.mvs_depth_path, cfg.mvs_conf_path))
+    ranks = (group.rank, group.world) if group is not None else (0, 1)
+    my = process_slice(n, *ranks)
+    _done(group)   # every rank has looked at the tree before any rank writes to it
 
     with tr.phase("refine camera pose"):
         # MVS::RefineCameraPose (mvs/MVS.cpp:383-428)
-        refine_txt = os.path.join(cfg.mvs_result_path, "camera_pose_after_refine.txt")
         R_l = t_l = None
-        if os.path.exists(refine_txt):
+        if refined:
             # stage-internal resume: re-derive the rigid lidar move from the
             # saved refine result
             R_c2, t_c2, _, _ = artifacts.read_pose_t(refine_txt)
@@ -459,7 +512,8 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
             for i, T_cl in enumerate(T_cl_list or []):
                 T_wl = _pose_T(R_c[i], t_c[i]) @ T_cl
                 R_l[i], t_l[i] = T_wl[:3, :3], T_wl[:3, 3]
-            artifacts.export_pose_t(refine_txt, R_c, t_c, names)
+            if _writes(group):
+                artifacts.export_pose_t(refine_txt, R_c, t_c, names)
 
     nei_table = mvs_mod.select_neighbor_views(poses, mcfg.n_neighbors, c_ok)
     if cfg.mvs_neighbor_selection == 1:  # SFM_POINTS (MVS.h:34)
@@ -474,11 +528,6 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         else:
             log.warning("SFM_POINTS neighbor selection requested but %s "
                         "missing; using KNN", points_npz)
-    # pass-level resume: every frame has final-pass depth + conf artifacts
-    pass_suffix = "geo" if cfg.mvs_use_geometric else "pho"
-    resume_pass = n > 0 and all(
-        os.path.exists(os.path.join(p, f"{i:06d}_{pass_suffix}.npy"))
-        for i in range(n) for p in (cfg.mvs_depth_path, cfg.mvs_conf_path))
     if resume_pass:
         log.info("MVS resume: all %d _%s depth/conf artifacts present; "
                  "skipping PatchMatch passes", n, pass_suffix)
@@ -521,11 +570,12 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         return torch.as_tensor(np.asarray(a), device=device)
 
     def run_pass(init_for, nei_depths, seed, suffix):
-        """One PatchMatch pass over every frame, each frame's artifacts
-        written as it finishes; frames whose artifacts exist are read back
-        instead (frame-level resume)."""
+        """One PatchMatch pass over this rank's frames, each frame's
+        artifacts written as it finishes; frames whose artifacts exist are
+        read back instead (frame-level resume). Then every rank gets every
+        frame from the rank that owns it."""
         n_resumed = 0
-        for i in range(n):
+        for i in range(my.start, my.stop):
             paths = (os.path.join(cfg.mvs_depth_path, f"{i:06d}_{suffix}.npy"),
                      os.path.join(cfg.mvs_conf_path, f"{i:06d}_{suffix}.npy"),
                      os.path.join(cfg.mvs_normal_path, f"{i:06d}_{suffix}.npy"))
@@ -550,6 +600,12 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
         if n_resumed:
             log.info("mvs pass %s: resumed %d frames from per-frame artifacts",
                      suffix, n_resumed)
+        if group is not None:
+            for r in range(group.world):
+                s = process_slice(n, r, group.world)
+                if s.stop > s.start:
+                    for a in (depths, normals, confs):
+                        a[s] = group.broadcast(torch.from_numpy(a[s]), r).numpy()
 
     if resume_pass:
         with tr.phase("load cached depth maps"):
@@ -581,14 +637,16 @@ def joint_mvs(cfg: Config, tr: TimeReport | None = None, device="cuda"):
                                               cfg.depth_diff_threshold, cfg.min_segment)
             depths[i] = mvs_mod.gap_interpolation(d).cpu().numpy()
         fd, _ = mvs_mod.filter_depth_maps(depths, confs, poses, nei_table, mcfg, device)
-        for i in range(n):
+        for i in range(my.start, my.stop):
             artifacts.export_depth_u16(
                 os.path.join(cfg.mvs_depth_path, f"{i:06d}_filter.npy"), fd[i])
     with tr.phase("fuse + export"):
-        colors, _ = images.load_images(cfg.image_path, cfg.scale, color=True)
-        pts, cols = mvs_mod.fuse_depth_maps(fd, np.stack(colors), poses, device=device)
-        pointcloud.write_pcd(os.path.join(cfg.mvs_result_path, "mvs_fused.pcd"),
-                             pts, rgb=np.clip(cols * 255, 0, 255))
+        if _writes(group):
+            colors, _ = images.load_images(cfg.image_path, cfg.scale, color=True)
+            pts, cols = mvs_mod.fuse_depth_maps(fd, np.stack(colors), poses, device=device)
+            pointcloud.write_pcd(os.path.join(cfg.mvs_result_path, "mvs_fused.pcd"),
+                                 pts, rgb=np.clip(cols * 255, 0, 255))
+    _done(group)
     return depths, confs
 
 

@@ -50,6 +50,30 @@ preconditioner blocks and each CG iteration's J^T J v) goes through
 `ops/exact.index_sum`: float `index_add_` on the card adds with atomics in
 a varying order, and the solve amplifies its last-bit differences into
 different poses from run to run (ROADMAP F9).
+
+A block may be cut into chunks of `ResidualBlock.chunk` rows: every
+per-row quantity (the residuals and their robust costs, the Jacobians,
+the products J^T r, J^T J and, in PCG, J^T J v) is then computed one chunk
+at a time, over that chunk's valid rows. A batched product or a short
+reduction on the card, and a vectorised loop on the CPU, can give a row
+other last bits at another place in a batch of another size; within a
+chunk a row has one place, so its bits depend on its chunk alone, not on
+the rows around the chunk. Only the exact sums join the chunks.
+
+With a process group (`solve_lm(..., group=)`, `parallel.sharding.
+DataGroup`) each rank holds whole chunks of every block's observation rows
+(`parallel.shard_blocks`, or the odometry's pair chunks) and the
+parameters whole. Every sum over rows (the gradient, J^T J or its blocks,
+each CG iteration's J^T J v, the preconditioner, the costs) is an exact sum
+over the group, so every rank gets the same bits whatever the split, one
+rank included. The vectors of parameter size and every decision taken on
+them (LM accept or reject, the early stop, the CG exit test, a failed
+Cholesky) are then the same on every rank, and no rank decides alone.
+Without a group the costs are float sums unless `LMOptions.exact_costs`
+asks for the group's (the joint stage's LM path on the Room chain turns on
+their last bits, so it keeps float costs). The tier under a group follows
+the JAX package's sharded solves: no Schur elimination, dense or PCG by
+the parameter count.
 """
 
 from __future__ import annotations
@@ -60,7 +84,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import jacrev, vmap
 
-from ..ops.exact import index_sum
+from ..ops.exact import group_sum, index_sum
 from . import robust
 
 _SCHUR_PAIR_CHUNK = 1 << 21   # row pairs per scatter into the reduced matrix
@@ -76,7 +100,9 @@ class ResidualBlock:
     per-observation constants. `run_length` > 1 promises that every index
     tensor is constant over consecutive runs of that length (the pair x
     point layout of the LiDAR blocks), so Hessian blocks are summed per run
-    before they are scattered."""
+    before they are scattered. `chunk` > 0 cuts the rows into chunks of
+    that many (a multiple of `run_length` where the block has runs), each
+    evaluated on its own; 0: one chunk."""
     fn: Callable
     groups: tuple
     indices: tuple
@@ -87,6 +113,7 @@ class ResidualBlock:
     loss_scale: float = 1.0
     name: str = ""
     run_length: int = 1
+    chunk: int = 0
 
 
 class LMOptions(NamedTuple):
@@ -100,6 +127,8 @@ class LMOptions(NamedTuple):
     # the dense tier up to this many parameters (the Schur tier: this many
     # after the elimination), PCG above; 0 disables both
     dense_max_params: int = 6144
+    # sum the costs exactly (`ops/exact.group_sum`), as under a group
+    exact_costs: bool = False
 
 
 def _flat_layout(groups: dict):
@@ -113,13 +142,13 @@ def _flat_layout(groups: dict):
 
 
 class _Rows(NamedTuple):
-    """The valid observation rows of one block, gathered once per solve
-    (masked rows contribute exactly zero, so they are never evaluated)."""
+    """The valid observation rows of one chunk of a block (masked rows
+    contribute exactly zero, so they are never evaluated)."""
     block: ResidualBlock
     indices: tuple        # per group argument, (m,) int64 parameter rows
     data: tuple           # (m, ...) per-observation constants
     weight: torch.Tensor  # (m,)
-    run: torch.Tensor | None    # (m,) run of each row, None without runs
+    run: torch.Tensor | None    # (m,) run of each row within the chunk, None without runs
     run_first: torch.Tensor | None  # (R,) first row of each run
 
 
@@ -127,24 +156,43 @@ class _Outer(NamedTuple):
     """One block's share of J^T J: per row (or run) the flat parameter ids
     (n, W_t) and the outer product of its Jacobian (n, W_t, W_t); per group
     argument (group, its parameter rows (n,), its first column in W_t, its
-    width), which locate the block-diagonal parts."""
+    width), which locate the block-diagonal parts; the rows (runs) of each
+    chunk, in order."""
     fidx: torch.Tensor
     outer: torch.Tensor
     args: tuple
+    splits: list
 
 
-def _valid_rows(block: ResidualBlock) -> _Rows:
-    rows = torch.nonzero(block.mask, as_tuple=True)[0]
-    run = run_first = None
+def _has_runs(block: ResidualBlock) -> bool:
+    return block.run_length > 1 and block.mask.shape[0] % block.run_length == 0
+
+
+def _valid_rows(block: ResidualBlock, whole: bool = False):
+    """(block, [_Rows of each chunk that has valid rows]); whole=True takes
+    the block as one chunk."""
+    n = block.mask.shape[0]
     rl = block.run_length
-    if rl > 1 and block.mask.shape[0] % rl == 0:
-        _, run, counts = torch.unique_consecutive(
-            torch.div(rows, rl, rounding_mode="floor"),
-            return_inverse=True, return_counts=True)
-        run_first = torch.cumsum(counts, 0) - counts
-    return _Rows(block, tuple(i[rows].long() for i in block.indices),
-                 tuple(d[rows] for d in block.data), block.weight[rows],
-                 run, run_first)
+    step = n if whole or block.chunk <= 0 else block.chunk
+    if _has_runs(block) and step % rl and step < n:
+        raise ValueError(f"block {block.name!r}: chunk {step} cuts its runs of {rl}")
+    chunks = []
+    for c0 in range(0, n, max(step, 1)):
+        rows = torch.nonzero(block.mask[c0:c0 + step], as_tuple=True)[0]
+        if rows.numel() == 0:
+            continue
+        if c0:
+            rows = rows + c0
+        run = run_first = None
+        if _has_runs(block):
+            _, run, counts = torch.unique_consecutive(
+                torch.div(rows, rl, rounding_mode="floor"),
+                return_inverse=True, return_counts=True)
+            run_first = torch.cumsum(counts, 0) - counts
+        chunks.append(_Rows(block, tuple(i[rows].long() for i in block.indices),
+                            tuple(d[rows] for d in block.data), block.weight[rows],
+                            run, run_first))
+    return block, chunks
 
 
 def _params(rows: _Rows, x: dict):
@@ -156,77 +204,114 @@ def _finite(r):
     return torch.where(torch.isfinite(r), r, torch.zeros_like(r))
 
 
-def _block_cost(block: ResidualBlock, r):
+def _rho(block: ResidualBlock, r):
+    """Squared norms s (m,) of the rows of r and their robust costs."""
     s = torch.sum(r * r, dim=-1)
-    return 0.5 * torch.sum(robust.rho(block.loss, s, block.loss_scale)), s
+    return s, robust.rho(block.loss, s, block.loss_scale)
 
 
-def _total_cost(x: dict, all_rows) -> torch.Tensor:
-    total = torch.zeros((), dtype=torch.float32, device=next(iter(x.values())).device)
-    for rows in all_rows:
-        if rows.weight.numel():
-            r = _finite(vmap(rows.block.fn)(*_params(rows, x), *rows.data)
-                        * rows.weight[:, None])
-            total = total + _block_cost(rows.block, r)[0]
+def _cost(rhos: list, dev, group=None, exact: bool = False):
+    """0.5 * the sum of the chunks' robust costs: a float sum, or exact over
+    the group's ranks (every rank must call, with its chunks, maybe none)."""
+    rho = (rhos[0] if len(rhos) == 1 else
+           torch.cat(rhos) if rhos else torch.zeros(0, dtype=torch.float32, device=dev))
+    return 0.5 * (group_sum(rho, group) if exact or group is not None else torch.sum(rho))
+
+
+def _cat(parts: list, empty):
+    return parts[0] if len(parts) == 1 else torch.cat(parts) if parts else empty
+
+
+def _total_cost(x: dict, all_rows, group=None, exact: bool = False) -> torch.Tensor:
+    dev = next(iter(x.values())).device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for block, chunks in all_rows:
+        if not chunks and group is None:
+            continue
+        rhos = [_rho(block, _finite(vmap(block.fn)(*_params(rows, x), *rows.data)
+                                    * rows.weight[:, None]))[1] for rows in chunks]
+        total = total + _cost(rhos, dev, group, exact)
     return total
 
 
-def _linearize_blocks(x: dict, all_rows, offs: dict, P: int):
+def _linearize_chunk(rows: _Rows, x: dict, offs: dict):
+    """One chunk's robust costs, flat parameter ids (m, W_t), gradient terms
+    J^T r (m, W_t) and outer products J^T J (m, W_t, W_t) of its
+    IRLS-whitened rows."""
+    block = rows.block
+
+    def fn_aux(*args):
+        r = block.fn(*args)
+        return r, r
+
+    Js, r = vmap(jacrev(fn_aux, argnums=tuple(range(len(block.groups))),
+                        has_aux=True))(*_params(rows, x), *rows.data)
+    r = _finite(r * rows.weight[:, None])
+    s, rho = _rho(block, r)
+    w = torch.sqrt(robust.rho_prime(block.loss, s, block.loss_scale))
+    scale = (rows.weight * w)[:, None, None]
+    J = torch.cat([_finite(Jk) * scale for Jk in Js], dim=-1)   # (m, r_dim, sum W)
+    fidx = torch.cat([offs[gr] + i[:, None] * Jk.shape[-1]
+                      + torch.arange(Jk.shape[-1], device=J.device)
+                      for gr, i, Jk in zip(block.groups, rows.indices, Js)], dim=-1)
+    return (rho, fidx, torch.einsum("mri,mr->mi", J, r * w[:, None]),
+            torch.einsum("mri,mrj->mij", J, J))
+
+
+def _linearize_blocks(x: dict, all_rows, offs: dict, P: int, group=None,
+                      exact: bool = False):
     """Cost, gradient g = J^T F and the block-sparse J^T J (one _Outer per
     block) of the IRLS-whitened residual vector F at x."""
     dev = next(iter(x.values())).device
     cost = torch.zeros((), dtype=torch.float32, device=dev)
     g = torch.zeros(P, dtype=torch.float32, device=dev)
     parts = []
-    for rows in all_rows:
-        block = rows.block
-        if rows.weight.numel() == 0:
+    for block, chunks in all_rows:
+        if not chunks and group is None:
             continue
-
-        def fn_aux(*args):
-            r = block.fn(*args)
-            return r, r
-
-        Js, r = vmap(jacrev(fn_aux, argnums=tuple(range(len(block.groups))),
-                            has_aux=True))(*_params(rows, x), *rows.data)
-        r = _finite(r * rows.weight[:, None])
-        c, s = _block_cost(block, r)
-        cost = cost + c
-        w = torch.sqrt(robust.rho_prime(block.loss, s, block.loss_scale))
-        scale = (rows.weight * w)[:, None, None]
-        J = torch.cat([_finite(Jk) * scale for Jk in Js], dim=-1)   # (m, r_dim, sum W)
-        fidx = torch.cat([offs[gr] + i[:, None] * Jk.shape[-1]
-                          + torch.arange(Jk.shape[-1], device=dev)
-                          for gr, i, Jk in zip(block.groups, rows.indices, Js)],
-                         dim=-1)                                     # (m, sum W)
+        Ws = [x[gr].shape[1] for gr in block.groups]
+        Wt = sum(Ws)
+        lin = [_linearize_chunk(rows, x, offs) for rows in chunks]
+        f = dict(dtype=torch.float32, device=dev)
+        cost = cost + _cost([c[0] for c in lin], dev, group, exact)
+        fidx = _cat([c[1] for c in lin], torch.zeros((0, Wt), dtype=torch.int64, device=dev))
         g = g + index_sum(P, fidx.reshape(-1),
-                          torch.einsum("mri,mr->mi", J, r * w[:, None]).reshape(-1))
-        outer = torch.einsum("mri,mrj->mij", J, J)      # (m, sum W, sum W)
-        idx = rows.indices
-        if rows.run is not None:   # sum each run before the scatter
-            outer = index_sum(rows.run_first.shape[0], rows.run, outer)
-            fidx = fidx[rows.run_first]
-            idx = tuple(i[rows.run_first] for i in idx)
-        c0 = [0]
-        for Jk in Js:
-            c0.append(c0[-1] + Jk.shape[-1])
-        parts.append(_Outer(fidx, outer, tuple(
-            (gr, i, c, Jk.shape[-1]) for gr, i, c, Jk in zip(block.groups, idx, c0, Js))))
+                          _cat([c[2] for c in lin], torch.zeros((0, Wt), **f)).reshape(-1),
+                          group)
+        outer = _cat([c[3] for c in lin], torch.zeros((0, Wt, Wt), **f))
+        idx = tuple(_cat([rows.indices[k] for rows in chunks],
+                         torch.zeros(0, dtype=torch.int64, device=dev))
+                    for k in range(len(Ws)))
+        splits = [rows.weight.shape[0] for rows in chunks]
+        if _has_runs(block):   # sum each run (whole on one rank) before the scatter
+            n_runs = [rows.run_first.shape[0] for rows in chunks]
+            r0 = [sum(n_runs[:k]) for k in range(len(chunks))]
+            m0 = [sum(splits[:k]) for k in range(len(chunks))]
+            run = _cat([rows.run + o for rows, o in zip(chunks, r0)],
+                       torch.zeros(0, dtype=torch.int64, device=dev))
+            first = _cat([rows.run_first + o for rows, o in zip(chunks, m0)],
+                         torch.zeros(0, dtype=torch.int64, device=dev))
+            outer = index_sum(sum(n_runs), run, outer, group, scale_only=True)
+            fidx = fidx[first]
+            idx = tuple(i[first] for i in idx)
+            splits = n_runs
+        c0 = [sum(Ws[:k]) for k in range(len(Ws))]
+        parts.append(_Outer(fidx, outer, tuple(zip(block.groups, idx, c0, Ws)), splits))
     return cost, g, parts
 
 
-def _linearize(x: dict, all_rows, offs: dict, P: int):
+def _linearize(x: dict, all_rows, offs: dict, P: int, group=None, exact: bool = False):
     """Cost, gradient g = J^T F and dense H = J^T J (P, P) of the
     IRLS-whitened residual vector F at x."""
-    cost, g, parts = _linearize_blocks(x, all_rows, offs, P)
+    cost, g, parts = _linearize_blocks(x, all_rows, offs, P, group, exact)
     Hf = torch.zeros(P * P, dtype=torch.float32, device=g.device)
     for p in parts:
         flat = p.fidx[:, :, None] * P + p.fidx[:, None, :]
-        Hf = Hf + index_sum(P * P, flat.reshape(-1), p.outer.reshape(-1))
+        Hf = Hf + index_sum(P * P, flat.reshape(-1), p.outer.reshape(-1), group)
     return cost, g, Hf.reshape(P, P)
 
 
-def _precond_blocks(x: dict, parts, free: dict):
+def _precond_blocks(x: dict, parts, free: dict, group=None):
     """Block-diagonal J^T J: one (W, W) block per parameter row of each
     group (JAX `_precond_blocks`: each group argument's own block, so a row
     that one observation references twice gets no cross term), fixed
@@ -237,7 +322,7 @@ def _precond_blocks(x: dict, parts, free: dict):
         blk = [p.outer[:, c:c + W, c:c + W]
                for p in parts for gr, _, c, W in p.args if gr == g]
         if idx:
-            B = index_sum(v.shape[0], torch.cat(idx), torch.cat(blk))
+            B = index_sum(v.shape[0], torch.cat(idx), torch.cat(blk), group)
         else:
             B = torch.zeros(v.shape + v.shape[-1:], dtype=v.dtype, device=v.device)
         f = free[g].to(B.dtype)
@@ -290,22 +375,24 @@ def _inv3(A):
     return adj / det[..., None, None]
 
 
-def _schur_linearize(x: dict, all_rows, offs_r: dict, Pr: int, eg: str, free: dict):
+def _schur_linearize(x: dict, all_rows, offs_r: dict, Pr: int, eg: str, free: dict,
+                     exact: bool = False):
     """Cost, the rest groups' gradient (Pr,) and dense H (Pr, Pr), the
     eliminated group's gradient (T, WE), and for its block: per valid row
     the point index, J_E (m, r, WE), U = J_rest^T J_E (m, Wr, WE) and the
     flat rest-parameter ids (m, Wr). Fixed coordinates of the rest groups
-    are zeroed in U, those of the points in J_E (as `_schur_pass` does)."""
+    are zeroed in U, those of the points in J_E (as `_schur_pass` does).
+    all_rows holds each block whole (one chunk)."""
     dev = next(iter(x.values())).device
     cost = torch.zeros((), dtype=torch.float32, device=dev)
     g_r = torch.zeros(Pr, dtype=torch.float32, device=dev)
     Hf = torch.zeros(Pr * Pr, dtype=torch.float32, device=dev)
     gE = torch.zeros_like(x[eg])
     part = None
-    for rows in all_rows:
-        block = rows.block
-        if rows.weight.numel() == 0:
+    for block, chunks in all_rows:
+        if not chunks:
             continue
+        rows, = chunks
 
         def fn_aux(*args):
             r = block.fn(*args)
@@ -314,8 +401,8 @@ def _schur_linearize(x: dict, all_rows, offs_r: dict, Pr: int, eg: str, free: di
         Js, r = vmap(jacrev(fn_aux, argnums=tuple(range(len(block.groups))),
                             has_aux=True))(*_params(rows, x), *rows.data)
         r = _finite(r * rows.weight[:, None])
-        c, s = _block_cost(block, r)
-        cost = cost + c
+        s, rho = _rho(block, r)
+        cost = cost + _cost([rho], dev, exact=exact)
         w = torch.sqrt(robust.rho_prime(block.loss, s, block.loss_scale))
         scale = (rows.weight * w)[:, None, None]
         Js = [_finite(Jk) * scale for Jk in Js]
@@ -366,9 +453,11 @@ def _track_pairs(eidx, T: int):
     return order, p, q
 
 
-def _tier(groups: dict, options: LMOptions, schur: str | None):
-    """JAX's tier selection (`lm.py:698-709`): (tier, Schur group or None)."""
-    if schur is not None:
+def _tier(groups: dict, options: LMOptions, schur: str | None, group=None):
+    """JAX's tier selection (`lm.py:698-709`): (tier, Schur group or None).
+    Under a group no Schur elimination, as in the JAX package's sharded
+    solves (`camera_lidar.py:327-340`)."""
+    if schur is not None and group is None:
         _, Pr = _flat_layout({k: v for k, v in groups.items() if k != schur})
         if options.dense_max_params and Pr <= options.dense_max_params:
             return "schur", schur
@@ -379,14 +468,18 @@ def _tier(groups: dict, options: LMOptions, schur: str | None):
 
 
 def solve_lm(groups: dict, blocks, fixed: dict | None = None,
-             options: LMOptions = LMOptions(), schur: str | None = None):
+             options: LMOptions = LMOptions(), schur: str | None = None, group=None):
     """Run LM. groups: {name: (N, W) float32}. fixed: {name: (N, W) bool}
     frozen coordinates (gauge fixing). schur: name of a group to eliminate
     per row (it must appear in exactly one block, once per row, beside
     other groups); dropped, as in JAX, when the reduced system exceeds
-    `options.dense_max_params`. Returns (groups, info) with info keys
-    initial_cost, final_cost, iterations, lambda, nu, done, tier ("dense",
-    "schur" or "pcg") and cg_iterations (per LM iteration of the PCG tier)."""
+    `options.dense_max_params`, and under a group. group: a
+    `parallel.sharding.DataGroup`; blocks then hold this rank's rows
+    (`parallel.shard_blocks`), groups and fixed the same on every rank.
+    Returns (groups, info) with info keys initial_cost, final_cost,
+    iterations, lambda, nu, done, tier ("dense", "schur" or "pcg") and
+    cg_iterations (per LM iteration of the PCG tier), the same on every
+    rank of a group."""
     dev = next(iter(groups.values())).device
     if fixed is None:
         fixed = {g: torch.zeros(v.shape, dtype=torch.bool, device=dev)
@@ -399,7 +492,7 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
                 or groups[schur].shape[1] != 3):
             raise ValueError(f"group {schur!r} is not eliminable (one block, once "
                              "per row, beside other groups, width 3)")
-    tier, schur = _tier(groups, options, schur)
+    tier, schur = _tier(groups, options, schur, group)
     rest = {k: v for k, v in groups.items() if k != schur}
     offs, P = _flat_layout(rest)
     keys = sorted(rest)
@@ -409,12 +502,13 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
         return {k: v[offs[k]:offs[k] + groups[k].numel()].reshape(groups[k].shape)
                 for k in keys}
 
-    all_rows = [_valid_rows(b) for b in blocks]
+    exact = options.exact_costs or group is not None
+    all_rows = [_valid_rows(b, whole=schur is not None) for b in blocks]
     x = {k: v.clone() for k, v in groups.items()}
     lam = torch.tensor(options.init_lambda, dtype=torch.float32, device=dev)
     nu = torch.tensor(2.0, dtype=torch.float32, device=dev)
     done = torch.tensor(False, device=dev)
-    init_cost = _total_cost(x, all_rows)
+    init_cost = _total_cost(x, all_rows, group, exact)
     if schur is not None:
         fE = free[schur].to(torch.float32)
         T = groups[schur].shape[0]
@@ -423,9 +517,9 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
     while it < options.max_iters:
         fail = 0
         if tier == "pcg":
-            cost, g, parts = _linearize_blocks(x, all_rows, offs, P)
+            cost, g, parts = _linearize_blocks(x, all_rows, offs, P, group, exact)
             g = g * fvec
-            B = _precond_blocks(x, parts, free)
+            B = _precond_blocks(x, parts, free, group)
             D2 = torch.cat([torch.diagonal(B[k], dim1=-2, dim2=-1).reshape(-1)
                             for k in keys])
             damp = lam * (D2 + _EPS)
@@ -437,9 +531,10 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
 
             def Hv(v):
                 v = v * fvec
-                hv = index_sum(P, fidx, torch.cat([
-                    torch.einsum("nij,nj->ni", p.outer, v[p.fidx]).reshape(-1)
-                    for p in parts]))
+                hv = index_sum(P, fidx, _cat([   # chunk by chunk, as linearised
+                    torch.einsum("nij,nj->ni", o, v[f]).reshape(-1) for p in parts
+                    for o, f in zip(p.outer.split(p.splits), p.fidx.split(p.splits))],
+                    v[:0]), group)
                 return hv * fvec + damp * v
 
             def Minv(r):
@@ -453,9 +548,10 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
             pred = 0.5 * torch.dot(dflat, damp * dflat - g)
         else:
             if schur is None:
-                cost, g, H = _linearize(x, all_rows, offs, P)
+                cost, g, H = _linearize(x, all_rows, offs, P, group, exact)
             else:
-                cost, g, H, gE, part = _schur_linearize(x, all_rows, offs, P, schur, free)
+                cost, g, H, gE, part = _schur_linearize(x, all_rows, offs, P, schur, free,
+                                                         exact)
                 gE = gE * fE
             g = g * fvec
             H = H * fvec[:, None] * fvec[None, :]
@@ -490,7 +586,7 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
                 delta[schur] = dp
                 pred = pred + 0.5 * torch.sum(dp * (lam * (dV + _EPS) * dp - gE))
         x_new = {k: x[k] + delta[k] for k in x}
-        cost_new = _total_cost(x_new, all_rows)
+        cost_new = _total_cost(x_new, all_rows, group, exact)
         gain = (cost - cost_new) / torch.clamp_min(pred, 1e-30)
         accept = (cost_new < cost) & (pred > 0) & (fail == 0)
         x = {k: torch.where(accept, x_new[k], x[k]) for k in x}
@@ -503,7 +599,7 @@ def solve_lm(groups: dict, blocks, fixed: dict | None = None,
         it += 1
         if bool(done):
             break
-    info = {"initial_cost": init_cost, "final_cost": _total_cost(x, all_rows),
+    info = {"initial_cost": init_cost, "final_cost": _total_cost(x, all_rows, group, exact),
             "iterations": it, "lambda": lam, "nu": nu, "done": done,
             "tier": tier, "cg_iterations": cg_counts}
     return x, info

@@ -5,6 +5,9 @@ chip_smoke.py (TA_METHOD_REF), and the time.
 
     python tests/ta_room_reference.py [method ...]     (default: chordal lud bata l1)
 
+l1's L-infinity LP samples chip_smoke.TA_LP_TRIPLETS of the graph's
+triplets, as phase 12 (b) has the port do.
+
 The JAX solver's Jacobian chunking is turned off (obs_chunk=None,
 jac_chunk=None): above 8192 rows its chunked pass calls the deleted
 _chunk_arrays (ROADMAP F1); unchunked it computes the same sums.
@@ -26,6 +29,8 @@ def main(methods):
     import chip_smoke
     from panovlm_tpu.models import translation_averaging as ta
     ta.LMOptions = functools.partial(ta.LMOptions, obs_chunk=None, jac_chunk=None)
+    ta.translation_averaging_linf_lp = functools.partial(
+        ta.translation_averaging_linf_lp, max_triplets=chip_smoke.TA_LP_TRIPLETS)
     kwargs, C, R_cw = chip_smoke.ta_room_inputs()
     for method in methods:
         t0 = time.time()

@@ -29,7 +29,8 @@ def _float_lm(monkeypatch):
     """Patch the LM module's exact sums back to float index_add_."""
     from panovlm_tpu_torch.solver import lm
 
-    def float_sum(n, index, src):
+    def float_sum(n, index, src, group=None, **kw):
+        assert group is None
         return torch.zeros((n, *src.shape[1:]), dtype=src.dtype).index_add_(0, index, src)
     monkeypatch.setattr(lm, "index_sum", float_sum)
     return lm

@@ -44,7 +44,8 @@ assert not loaded, loaded
 assert len(mods) > 30, mods
 for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg",
           "native.jpeg", "models.texture", "ops.lbd", "native.lk", "models.line_tracks",
-          "pair_surgery", "utils.gps"):
+          "pair_surgery", "utils.gps", "parallel.sharding", "parallel.halo",
+          "parallel.multihost"):
     assert "panovlm_tpu_torch." + m in mods, m
 print("ok")
 """
