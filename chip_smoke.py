@@ -236,6 +236,21 @@ Run from the root of a checkout. Phases, each fatal on failure:
      depth, the fused cloud) bit-equal to phase 6's, and the ranks'
      volscore launches summing to phase 6's. Every rank checks that it
      imported neither jax nor panovlm_tpu.
+  16. the image formats the JAX package reads through cv2, after phase 11
+     (printed before phase 13): (a) the port's decoders give cv2's digests
+     on embedded probes of each kind (FORMAT_PROBES: progressive with
+     successive approximation and restarts, a progressive file cut after
+     its third scan, CMYK, YCCK, RGB-coded, 16-bit RGB, bilevel, palette +
+     tRNS and Adam7 PNG); (b) the render workers of phase 1 re-code the
+     first PROGRESSIVE_FRAMES colour JPEGs as progressive files from the
+     coefficients of their baseline files: load_images_u8 gives the
+     baseline files' bits, and the colorize stage on phase 11's frames with
+     those files in place writes phase 11's colorized_map.pcd byte for
+     byte; (c) the workers re-write one 2880 x 5760 gray PNG and one RGB
+     frame as Paeth-filtered, Adam7 and 16-bit (v * 257) PNGs: each decodes
+     to the 8-bit filter-0 file's bits (the 16-bit RGB file's gray read to
+     libpng's 16-bit conversion of them), load_images_u8 too. Prints the
+     one-thread decode times of the full-size files.
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -922,6 +937,8 @@ def _render_frame(args):
     jpeg.write_jpeg(jpg_path, rgb, quality=95)
     if jpg_path.endswith("000000.jpg"):
         np.save(jpg_path[:-4] + "_source.npy", rgb)
+    write_format_variants(os.path.dirname(os.path.dirname(path)),
+                          int(os.path.basename(path)[:6]), rgb)
     return synthetic.render_panorama(C, *work_hw, R_wc=R_wc)[1]
 
 
@@ -935,7 +952,7 @@ def start_mvs_dataset(root: str, n: int, pool, pano_hw=(PANO_H, PANO_W)):
 
     scans, poses = room_loop(n, sweep_alpha=0.0)
     R, t = _camera_convention(poses)   # T_cl = identity: camera at the LiDAR
-    for d in ("images", "color", "undis", "result/joint"):
+    for d in ("images", "color", "undis", "result/joint", "progressive", "png_variants"):
         os.makedirs(os.path.join(root, d))
     for i, scan in enumerate(scans):
         write_pcd(os.path.join(root, "undis", f"{i:06d}.pcd"), scan,
@@ -2129,6 +2146,7 @@ def run_colorize_phase(torch, mvs_cfg_path, device: str = "cuda"):
     log(f"colorize stage rerun: colorized_map.pcd {'bit-equal' if again == blob else 'DIFFERS'}")
     if again != blob:
         fail("the colorize stage is not reproducible")
+    return blob
 
 
 def run_colorize_chain(torch, sfm_cfg_path, device: str = "cuda"):
@@ -2141,6 +2159,326 @@ def run_colorize_chain(torch, sfm_cfg_path, device: str = "cuda"):
     log(f"colorized map of the chain: {len(pts)} fused points (floor {CHAIN_MIN_FUSED})")
     if not len(pts) >= CHAIN_MIN_FUSED:
         fail(f"{len(pts)} fused points < {CHAIN_MIN_FUSED} on phase 10's outputs")
+
+
+# ----------------------------------------------------------------------------
+# phase 16: the image formats the JAX package reads through cv2 (progressive,
+# CMYK / YCCK, RGB-coded JPEG; every PNG), on the datasets of phases 6 and 11
+# ----------------------------------------------------------------------------
+
+# small files, one per kind (cv2- or PIL-written; YCCK and Adam7 by
+# tests/image_forge.py, as no tool writes them), each with the SHA-256 of
+# what cv2.imread gives for it in colour (RGB order) and in gray;
+# tests/test_torch_image_formats.py recomputes them with cv2
+FORMAT_PROBES = {
+    "progressive": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUf"
+        "GhsjHBYWICwgIyYnKSopGR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCj/wgARCAAYACgDASIAAhEBAxEB/8QAGAABAAMBAAAA"
+        "AAAAAAAAAAAAAAIEBQP/xAAXAQEBAQEAAAAAAAAAAAAAAAAEBQMC/90ABAAB/9oADAMBAAIQAxAAAAHK0ath"
+        "Bv/QtcojZf/Rg7l2f//SUzmd/9PP0RzP/9TVELL/xAAcEAADAAIDAQAAAAAAAAAAAAAAAQIDERITITL/2gAI"
+        "AQEAAQUCiz//0IWz/9FQf//Srw//0+Z//9RYz//Vl6P/1llP/9f6P//Q6T//0W0f/9KvT//TSZ//1MR//9WN"
+        "H//EAB8RAAICAgEFAAAAAAAAAAAAAAECAAMEEQUSISMxM//aAAgBAwEBPwGwq/yn/9DFSxD5PU//0Rdj67z/"
+        "0uPHSZ//07m2s//UWsGf/8QAHBEAAQQDAQAAAAAAAAAAAAAAAAECAwQREhQz/9oACAECAQE/AbbmyeJ//9CG"
+        "KVjsyn//0emqh//SoJop/9O67Zh//9RY0yf/xAAXEAEAAwAAAAAAAAAAAAAAAAAAESEx/9oACAEBAAY/An//"
+        "0H//0cf/0qf/03//1Jf/1bx//9Z//9d//9CX/9F//9J//9N//9R//9V//8QAHBAAAgIDAQEAAAAAAAAAAAAA"
+        "AAERITFBYVGx/9oACAEBAAE/IWNr4f/Qq0vT/9FH0f/SF//TkoV0f//Uioqzg//Vh2cD/9aZLZ//15n3p//Q"
+        "TN6LZ//RgppWf//SR6dP/9Py30//1GhbP//VaNvHT//aAAwDAQACAAMAAAAQl//Q1//RO//Sd//T9//U9//E"
+        "ABgRAQEBAQEAAAAAAAAAAAAAAAEAESEx/9oACAEDAQE/EBM93//Q3sf/0cgXb//SPYv/03yS/9TQVb//xAAa"
+        "EQADAQADAAAAAAAAAAAAAAAAAREhMXGR/9oACAECAQE/EEc5n//Q2xD/0Uik5T//0tFb2f/Tbuj/1Lrr9P/E"
+        "ACQQAQACAQMDBAMAAAAAAAAAAAERIQAxQVFhgfBxkaHBsdHx/9oACAEBAAE/EBxYuOGvMZ//0Cct2qT85//R"
+        "CiwWeE/Of//SAwRTqdDz95//0+/Cq1NPfbP/1JQjc9Vs+z0z/9UCKBQp1+s//9YGQiYCaemf/9ddIMy4N5//"
+        "0GasJBtz2v8AGf/ROQk1erJn/9IhBG6Su3Pnf//Tja7BAitvXzt//9QQWkFaz/fvP//VlTYysJ1380z/2Q==",
+        ".jpg", {"color": "3b42706c54b4d33f012b32bfb2fa01ab884e614d2c5eea0e5f949941265ae3f7",
+                 "gray": "5b55f3eddeb48825654bf09a53f1ad83014a1d839591ff5177f1418d20a88b41"}),
+    "progressive cut after scan 3": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUf"
+        "GhsjHBYWICwgIyYnKSopGR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCj/wgARCAAYACgDASIAAhEBAxEB/8QAGAABAAMBAAAA"
+        "AAAAAAAAAAAAAAIEBQP/xAAXAQEBAQEAAAAAAAAAAAAAAAAEBQMC/90ABAAB/9oADAMBAAIQAxAAAAHK0ath"
+        "Bv/QtcojZf/Rg7l2f//SUzmd/9PP0RzP/9TVELL/xAAcEAADAAIDAQAAAAAAAAAAAAAAAQIDERITITL/2gAI"
+        "AQEAAQUCiz//0IWz/9FQf//Srw//0+Z//9RYz//Vl6P/1llP/9f6P//Q6T//0W0f/9KvT//TSZ//1MR//9WN"
+        "H//EAB8RAAICAgEFAAAAAAAAAAAAAAECAAMEEQUSISMxM//aAAgBAwEBPwGwq/yn/9DFSxD5PU//0Rdj67z/"
+        "0uPHSZ//07m2s//UWsGf",
+        ".jpg", {"color": "a6b41ed3eb97688a9727dce5688663e6c87094585f972dae6d4c63d9cf9c2127",
+                 "gray": "a07628f4b37ca65ed2a03603d351fdf632a410a42560bba9a38836419c1cb690"}),
+    "CMYK": (
+        "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAi"
+        "LCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AAFAgAGAAgBEMRAE0RAFkRAEsRAP/EAB8AAAEFAQEBAQEBAAAA"
+        "AAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNC"
+        "scEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6"
+        "g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq"
+        "8fLz9PX29/j5+v/aAA4EQwBNAFkASwAAPwDk9P8AEE88nO7cCFO7gY4Hbr3/ACrr9Q8PQxI7KOUGTtIOO/P6"
+        "1vvfy/aVDdeD159x+Zz/AJxXI2HiG5mlVSxHQMBnp7Dr6V3mh2AvUCTY4XaRgc/jjmvPdavTYtIFKqPyJ5P4"
+        "etSiBJ1CknHAYhevOM/XrXomiWEVzFGZV68O27n6j9K6OTwzZeQqqqjj5T0P/wCv/PPFc5H4nuWmADHB6ggk"
+        "ZHfJ7VDfadCI9y7QDnHIH4gfh6+1b8mgWoh8xBlfmxn1z/8Aqrldejjs1fyCAx6BR07jA6n/AOvmuv0WRrtm"
+        "LSEuFKn5ePr147VyesKsDlI1BC5524OfbH0Pt+dcl4gt47BXMRTJOSpOenpn2NYkfhAWUxZ0bAbqy5XOTn/P"
+        "WtWbxZ/aES5ldt/r1I7j/PWu6uNIe2y7KGPZsjIx379sfhWRD4RNnKZcMAoLEbcdO/tx/Otuy1RNMVOgJXBz"
+        "8vGRn+lZV5pZ1OQOFBOdwx07fh/P+tUpLv7GxCuAU5PPBGT3/HrWvaammjIMMAI+o6Y/P+XSrY8cpKrBWynb"
+        "AxnsPft29faoE8ETJN5oQMTgKXPOPT9KzbjXAFC4G5TgknIPHp+P/wCurMnjpPKEe4PyQMdfx/Tms27l/tZj"
+        "gjcxGAT0bj0+p/yKu2kD6WqllXA5K45P1P8AjWBqTG7PyyKyYGG/ur9Pwqnd3K6lEsZYjec+nYHr613Oq3No"
+        "4ba65YEcHGT7c/zrhdMs7z7Uu4FVwF+9nH4j6+leyarJEEKAjLfNz6dB05//AFV22pzWbRfKqu7Dv1AHv17V"
+        "5V4likuHcR72GMDAwBjj8/6V6h4dMUTJ56lnGAAq4x7n+grz/WD5geLftCEEHHUdM59a8r8Qo00oaPI6AZXr"
+        "6e2OP89a5NLS7a8LElQpHBGDj6Y/Guza6szCAMY+6Apzx/8AWGPWuRuIp2mIbLZAzkEnPf8An2rkTDeeeGww"
+        "VueATj1613nh0ONrTIchSFYYHXP4/wCfxrgvETvMXMasWCnofUf54/yX2gYZErYbBUbiSefau/8ADhCqrs4Y"
+        "AYO48qMdcY/pX//Z",
+        ".jpg", {"color": "46b0df803d895a36b36c8d7641cc814174357d676c40b7dfb200f0325fd92052",
+                 "gray": "430bfbbd5e3a0282724d65b748394718183e1fb55fed46440a45ea30a71d9a6f"}),
+    "RGB-coded": (
+        "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAi"
+        "LCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AAEQgAGAAgA1IRAEcRAEIRAP/EAB8AAAEFAQEBAQEBAAAAAAAA"
+        "AAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEV"
+        "UtHwJDNicoIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SF"
+        "hoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz"
+        "9PX29/j5+v/aAAwDUgBHAEIAAD8A67UvD9ta5PKhPmDZziuPstfu7p5g7HB+8zH9Ov4f/rrBNhEkTMM54AB/"
+        "iPHvn149vWuA8Qag9gWRXJk3YADHHQfl2/z09C0WyjvyGOGDLgM/057Y6fyPWq0s7RoiKdwzjHQbenr7f55r"
+        "mYPEc8k4Qs2SVBBzyOMgV0r+HLcRk42sBxwMnHv6f4/lYstQnBXLfLu65znH8u5+tdfocr3zRhypD9h6ev8A"
+        "n06cVxeuRJp7F0UDI4AHQ545rr9JlaZlK5IAyxGTt7dPr/KtabxfHdswZgJM8ALjn156nn071mQ+E2spJXWM"
+        "4AByvPUj8M1wNprPmhSx3YPXIGM8cfh/KsyXTP7a+ZY8E55xkde3FatpqbaUjI0pGxjy46kd/bFXkthcYBUb"
+        "QBjv+QP51nL4JudwlKMc9OBjGOOMf54q0vjlNogaTOec7scY6579K0LbQjvUnA2H5cHnAHHYn/GtOCFtIJQx"
+        "kNv6gdOnb8R+lULi6GqyuB8yyZGF5yc/574rfsIhaIrMnA6Bh9D07fWuI0q2vIrseZ5rL1ORjH68f/WrudXu"
+        "YJImVABnkNt4+h614/pqSRzLvX5exYrz7fl35/CvUvDpijUK4OSdoAbqcZ7+1eW+IklnuGZG+b7u5RkAk4J/"
+        "rnjr1rv9EkBCmQBlUEBmPXr09en049q62WeyMXyeVuzlN3p2/l/nrXJRwaiJ2IdiODjJ59u/OTjr/Suvt2tg"
+        "i/vDk87h1yPb8M1wviTaULRZwOPQAc4xXe+G1WIrG4BJwNpBB/Xt/nvUN2ucliQQMgscg/h9a//Z",
+        ".jpg", {"color": "933d4a1d42882254c87efab9a634e7e85f6d90c804828531f61238479b399f99",
+                 "gray": "c61d6dad61e64590ca54d43712a5a173c3938420a49e44538dd1999b11e63157"}),
+    "YCCK": (
+        "/9j/7gAOQWRvYmUAZAAAAAAC/9sAhAAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAi"
+        "LCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQyAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjL/wAAUCAAQABgEASIAAhEBAxEBBCIB/8QA1QAAAwEAAAAAAAAA"
+        "AAAAAAAAAQUGAwEBAQAAAAAAAAAAAAAAAAAABAYCAQEAAAAAAAAAAAAAAAAAAAUGAwADAQAAAAAAAAAAAAAA"
+        "AAABBQYEEAABAgMFBgYDAAAAAAAAAAABAhEAAyEEBRIxkQYVIkFRgRMWU2FxkpPR4REAAAYDAQAAAAAAAAAA"
+        "AAAAAAEDBAURAhIxYRIAAgIDAAAAAAAAAAAAAAAAAQMAAgQRIRMAAAUCBAYDAAAAAAAAAAAAAAECA/AEEQUG"
+        "FSESMVFxscGB0eH/2gAOBAEAAhEDIgQzAD8Aq7xuCzyMZSlFKggu3y/eIK+LynWJZUhhwjCAMm9tRnD+btgm"
+        "3qKcaVAF1OWq5fLLXpCydc+8ypSEKXiNcQz/AHzg0Smq2yt9z0TtTVg0gSmqsKbbbNVtp5lhEYpVLZM7Sew/"
+        "czAl8uAt7hW/QnWEZpn6I5O09omTvCWpT4iRmxbkOQo2sb79n+kfyCHw2Jny8U9UuopxCnQ07aQPK83pZvr/"
+        "ACKJWRirLUiCSEZQp0yVTi7pue5PgbdTV18BgWWzTdStp2nMHQilvof/2Q==",
+        ".jpg", {"color": "e7d9892c41b6226c9b384e5bcd694c8ee1c11ed2f218b7ac17779dbba14ad70e",
+                 "gray": "21fbbb6c4c17e70d00b3133a5cf2ea5408941a4518f231d2d48a7d1299bf77f3"}),
+    "16-bit RGB PNG": (
+        "iVBORw0KGgoAAAANSUhEUgAAABAAAAAMEAIAAAC0FXaVAAAEl0lEQVQ4EQGMBHP7AUiEhNeTSgYb/tj+QuY4"
+        "847+piTlAUXqJPTz9VkZzQ/HBZ/7yQXeDn7jDuw5/FoIuyBE+1IR+PBaCr/1AgI6AooGoRCfCxEQhe+5+SD0"
+        "Jv+H+WcNPh4F8xL63uBZ/7j2zQE8qlVZlXgQByeSAUwSbf7zDdr1qO/u9pf87gU87mXzsBal/SMq5uEM+KPh"
+        "YCHeFEgOY+5S/90POQ8236DzPfBhFrISoyQx7Y0DPvLU+Hj0YgsSGMP7xwWB3CgFKO72AVUBW0FTxrTR94MJ"
+        "4wUu+CP+M/ZuDSMG++W2+/z2vBJiGHsG/uqr9l8GbQQbAaMIzxHO+8IO7OPPB30GvwGx+xL3ZAVC8o0QWuQU"
+        "GD0IDetIBRcHKPlw2vL9CR8iDFT9y+80AU3wUNi+SgWI9EkFsA9wD2EFqRO3+kgAe+iFBAH8A/vvCF/XcAI5"
+        "FpQRBfzQ5aPuUh4iLRjv3+1j/ZUCYBC3AeTeDt5lBCADXxy2A1YD8upSHmv9Gf+iCHn05AuYAxLotgFvQCCR"
+        "uqHmYCAqDMsR7eiGE8MKWgSj/XvpJRVJ74webgni7q3emQbE/aMXVQjG8tEFPhBx/nf3UBJz5s8HHx18/5H7"
+        "JfgP2V/uyfw4+swG9yi6CNT/+vJc8XD+pyU771IBejEVpOm3/6YUt/EB5BcG/gqmBon6Qe96HKwGBORI4OgG"
+        "2fyYAtYWjPjqCEUiUwkA6wr2evWiHgMEJdX/23keoO4TCdsDtBEtDEQcTPKP+F8Wl/GvAKoD7ei1AOUZcvBo"
+        "AXYgIfPVVegu9FkVFwRWEqrhvCAyC9AFofqV/K4Bivm9G1/5G+frDvHfDh2lFkr/Uu7b9lPmausUHin0mAeA"
+        "9G7nHw1lGkPziu8sJEIMz/zQCYjVcuzmAZ8WbhORCGrpWAFdhR7Q090Q+xOLGCX/1P+a3dT2QPD4Cx8UlwgZ"
+        "/aoCMAgP6KUBSC0q/5rdyQ4G9YcV6hG7+sYCQgb97Kj6swb59n7c6AZu8/YLXgOu0gj3lBWY7W0ZLA2cEUbu"
+        "eiYR4v4BYIYbEsfO/UsDiA66/4kax+hiCBn9QPezGNAbvRDP/Ar+pPVR5JULDvHj/IT6qfsUBHkb3/qHDeQA"
+        "6NToAeQs6AUb2kPnDAIxHAIan+Zo4JkE7uxS/nYec/OxBoz7ewt5AWErR+vN0fWa6rEFvxxgFiL+Kery+h/+"
+        "0wboCintFwh/+n37+PmzAw/87AUaCVfx2ABgK2r+jO93+fvwF/u/GtbYGxZeAZ8TeugN/jTXAglBGObyr+rA"
+        "/f8RoCALGsT0cQFMaESxxgUPixX05jQIevqeGyH4RQHy2dD6Z/F/GMMbFxxL8w3p2Pw79D8IYBTg8YQGRfYp"
+        "9aLvlgiI9b8JQxMMD/sGxATC2HoClxIOFKrgMPi05eQiDyAr9G/fYfsE9ysBV9pNVLE0DokaHODUANjuPRmR"
+        "AVAWeu2FAgb/8QKU7xTqJvKuEwkpxvoo+gDspwNG/8D8xv78BdAFdAUqAk0mbPMx7S/x0AEM+ir63vuAF6Ap"
+        "9fRY7RPmZgeICyUaouUPDPQ4utu5G1EAAAAASUVORK5CYII=",
+        ".png", {"color": "928c9e8d2649b38d09ab5f69850e5c14f2d379a03b82255cd5bf171bffe29603",
+                 "gray": "bea1dd8c00f8005bc29f751b30f03db859a97fed321944bca68c5feb8bb28bce"}),
+    "bilevel PNG": (
+        "iVBORw0KGgoAAAANSUhEUgAAADAAAAAgAQAAAAB8r8axAAAAPElEQVQIHRXBgQ0AAACCIP3/aFtgnHHGGWec"
+        "ccYZZ5xxxhlnnHHGGWecccYZZ5xxxhlnnHHGGWecccYZN1HSIAEb85OAAAAAAElFTkSuQmCC",
+        ".png", {"color": "d397edef4cf4719aa6670603a4abe242d870f1ac33e619dc894b24dc1eb9b413",
+                 "gray": "e6d1b616fc8f6230c07d0e573527b701e7f377803916cc22f51faa21917d9160"}),
+    "palette + tRNS PNG": (
+        "iVBORw0KGgoAAAANSUhEUgAAACAAAAAYBAMAAABpfeIHAAAAFVBMVEU5x0NVqVaBiXJkkGqbbXt9c3e4Q4YJ"
+        "QaQiAAAAA3RSTlP//wDXyg1BAAAA+ElEQVR4nE2PMXLCQBAEe1dKDSscUywiFhZfsP9fEkUun3gAOoqYWwcQ"
+        "eLKeoGtGDl8Xns3u0o39pR9OyPcmz10SspHR50HV6HCm24SFadQtPqdyAyb0s88KGm5ELAuUsa0ByGRgkd1p"
+        "Uv5HhlYB1m+EY1IA6TGAzbVCoXhOCiLGNkoNifk4SePJVUGnCXmOm1avrpqFeobO7pZ9J1HFsK9XZPGKOHO3"
+        "4XhCGpQ1rQRtKrIudUhReyDi+BRjCIjJjxhASauzQmRfMgBKNgVM5tf2sq9QgOhfhf6mrAAp3m99WxQEf3MR"
+        "UwU0vZxcQaUB8ccOV0qSj+oPUyJkGNrfavMAAAAASUVORK5CYII=",
+        ".png", {"color": "cca2ae13e7be693f1d054d4abc0c4f38cbed8d08f61ddf9c9e1587bb56210ad4",
+                 "gray": "89df3498ce188c7a6390af04f19b785689b58662df7574ece91253422bfa9a56"}),
+    "Adam7 PNG": (
+        "iVBORw0KGgoAAAANSUhEUgAAAB4AAAAUCAIAAAFizioFAAAABGdBTUEAALGPC/xhBQAABvdJREFUeJwN0/tT"
+        "FIcBwPF93u7t7b1v71buxUNUEBhNbBwzfaSTWrVBgwaaRNukYFFR0OOhqIAaRCKCkAoijiMmnczUpp3U1um0"
+        "mfyQmaaT1ozJUNOC8oa7A+6199jb3bvd2936L3w/8wWafZUXehtHznUP9baDX32v8bsK5sM2pXC6BKrt/ts3"
+        "bryn+eVDf3QB3U37bgy09F/ouXDuLvjlthPjB6enttle/HwL1Hb24Z6JvLGG7c6YB5guq/9yb/P7p07WDlZv"
+        "/+InGx799FfjnYMt4+Bg3Su6IneCgZc0VqkQt62tkoatSEoA+hp3jvTUnu+vbm6t6+nvHR46P9I6DH5e0ry4"
+        "Gff/cGnOpAbLwhzo2PxZBaSnVtfHVTKORslwTocnlQzvBuBtB2wrdCRAIYS8gfoHVfwfmxaXkLGaZ1sXSosn"
+        "La996uBJiQgXfbcJAr7Ys+veW3v+3PDu7caqvkv1Xb49vo8rm0ePHPhD1c/Han482lj1SW31zWPvXTvTdOpj"
+        "8Al9ktNJjNWQdIQEF/LvQgHWcI/LFa6QNGXYZDSR5ko2yaxjtnRjCocmX2ZmPWDIzScKyIiLhRgpyVvzF60b"
+        "n0rEnL4gsO0lQbWJWjPDxTRZ2HpFntzELr8wBZJJPiGCUUcBYtkxoXr9lopJ+gePvPicyeKvKOZzEYVEHpeF"
+        "I6sxD+bMsrDernrDCvmtSimlW6YoPRBO8m4nKIrrmXk7UIxRwKXLu1o6DjX31Xb4atoHK9/vquse7ugeaOy5"
+        "emzoxvH2Eye72trbuu80tVy5ePY++PfKurQHhPnoE4q0ZMiZopVwHszm8mQmbTaJjNlmihjgsFwOoiC3BXLN"
+        "gMX/NKKzxV4/rwKKouaR+pwMLsuvLE25c35PfKnkWU5vlTmD4vfD9dAuDS0Rzti8mB91LcdNkaADA+xkgpLi"
+        "hGTWZaGgGzGpKS1ROksisjayhvPBVY9n0xKbQPkinbJkYugUpwC0SR9dNJQmUV5P0k+RcAkKPNx7+M6Pjv71"
+        "6Ju/bz11umtf49mf7R1tePvDmrf/VL3jQc3Ov7zz+oOGqtsNl/s/uH10ELzWsVsTluO04shpJJV8iuVBguJ2"
+        "IqoqiwjA4pnMvCefNgkwGmOi0Fd5C1MFRNxLfktrVyC+XFbdfpX62l7yNWGccm6eKNkQtAOP4uZnBifkhY2d"
+        "sqINAVzWQuhohc6uIfqgaoyijoCLWNRY1yRZxaB1NMMlY3kZRDQpM3qYRmVkOWQELEbCVcgrRBjO2W3eGclW"
+        "pMIJOhKcSZtlJqwCd3w1g+d2XD/0/d8drBo/fbjT9+rFS7sG6vbfajngu7qv6+Tuq75ftp6r77pX/V7nGy33"
+        "2s5cPNx+85Cvp6VmqL7zbvuJa90Xek8eGWpp+qij99qFvp6R1ltj15su+7pGwM8OHNTJnApvEIUFBXHPQorR"
+        "ISgGTTK1LBnQSZDTmM2yVs2sA5d4zEwwuANcilhIg5JDIULNMGk3yPKkCNMCnNRTRQCLJPJJcU1c9UCbF/Mt"
+        "jyn0yZprutgcAT2CRiObo2KEVQp4Y9YJYEn38/pQmvITeHKlQvcvFxPdmJ0rDyyXCEFTcMUewG0LORoKv5hR"
+        "qbkFAwfjACPJloQA+9YVr1IZJ6CuSCyUA4SMAGtlU0JVYDZrFhhMI5pVKYzxCKZ6cC0URhVQiMVTNpdlDY1S"
+        "eg8WnWc2yM44neZyGYeatXJ+FY1oINSGzKGEkaBSRo5P8awb4yEkGotDOCx5tITAGS2YupwIFVuIFIEL7Mp6"
+        "DSLr6UyucCrGYPjWZDbGOraLWJj1soFAYRLjHBBi01u1gO75KA+bdo76qu/XH/zkwL6Bwzt73t1/79Ib4xff"
+        "6euuvHGqpn+08vTYvubB3b4P6s/c9e2/X9/26a+P/PZ01Uetx+++9eaDw7+40VV7s+74rSud402t9242nu84"
+        "1j/UOdw7cP03YPtwBatxUYw2wKchDILTmWLEFpI1NjHG6uyExRRZ9K+XnQEg7hULlnMhzGLVw9lUHBVI2c6Z"
+        "RJ0xRwaEnOqJuENezibzM0mdx0qnIgK0aoWmS1cn8heh/CBQlpTXJybK/Qy+ENVQshYwL4VKEDJKcEbcJKyI"
+        "ZSn71qfElv+5N4XyX5oscwXAF76xFz7dXDKxzojbi6JuYb7UjnmAKIYCCmzuk2YRVGdOh6BY3KkwNh3Hsh4b"
+        "bbDxqSApIhqtaqZDuCltdyzZrShqWwS0gN05rdfkohhXLsfCnqwVNqXQ5/bLuQyUIeyp1ZzEwwDyX1ZjI4P+"
+        "HOwtMEt+EmVIinKkUliS4z1OzvXEg0YA87q0EPAiCuJ8ZpWyiaxk1tOKlsdCyxJBFVqwZ2mpIJoJ4YKdImOh"
+        "MC8idnTr4v8BVDRg7Ecn4uQAAAAASUVORK5CYII=",
+        ".png", {"color": "063e658e0d48b3d6ebd48190973d32f34057e47aebfed36dd2edac5984a186b2",
+                 "gray": "c9a2b6c83a19fabf8bf6819fe14ba034ebfebefc94e19a23fdf8a9f8b43c9383"}),
+}
+# the MVS frames re-coded as progressive files from the coefficients that
+# their baseline files carry (phase 16 (b)); the frame whose gray PNG and
+# the frame whose RGB array are re-written as PNG variants (phase 16 (c))
+PROGRESSIVE_FRAMES = 4
+GRAY_VARIANT_FRAME, RGB_VARIANT_FRAME = 4, 5
+PNG_VARIANTS = {"paeth": {"filters": 4}, "adam7": {"interlace": True}, "16bit": {}}
+
+
+def write_format_variants(root: str, i: int, rgb):
+    """Render worker: frame i's extra files for phase 16: a progressive
+    re-coding (image_forge.spectral_script: DC successive approximation,
+    spectral selection) of the coefficients of its baseline JPEG, or its
+    gray plane / RGB array as Paeth-filtered, Adam7 and 16-bit (v * 257)
+    PNGs beside an 8-bit filter-0 RGB PNG."""
+    import numpy as np
+    import image_forge as forge
+    if i < PROGRESSIVE_FRAMES:
+        comps, q, w, h = forge.port_components(rgb, 95)
+        with open(os.path.join(root, "progressive", f"{i:06d}.jpg"), "wb") as f:
+            f.write(forge.jpeg_bytes(comps, w, h, q, forge.spectral_script(3)))
+    for frame, kind, img in ((GRAY_VARIANT_FRAME, "gray", None), (RGB_VARIANT_FRAME, "rgb", rgb)):
+        if i != frame:
+            continue
+        img = np.ascontiguousarray(rgb[..., 0]) if img is None else img
+        ctype = 0 if img.ndim == 2 else 2
+        out = os.path.join(root, "png_variants", kind)
+        if ctype == 2:
+            with open(f"{out}_filter0.png", "wb") as f:
+                f.write(forge.png_bytes(img, 2, 8, filters=0, level=1))
+        for name, kw in PNG_VARIANTS.items():
+            deep = name == "16bit"
+            with open(f"{out}_{name}.png", "wb") as f:
+                f.write(forge.png_bytes(img.astype(np.uint16) * 257 if deep else img, ctype,
+                                        16 if deep else 8, level=1, **kw))
+
+
+def check_format_probes(names=None):
+    """Phase 16 (a): the port's decoders on this machine give cv2's digests
+    on every embedded probe, in colour and in gray."""
+    import base64
+    import hashlib
+    from panovlm_tpu_torch.native import jpeg as native_jpeg
+    from panovlm_tpu_torch.native import png as native_png
+    for name in names or FORMAT_PROBES:
+        b64, ext, want = FORMAT_PROBES[name]
+        data = base64.b64decode(b64)
+        decode = native_png.decode if ext == ".png" else native_jpeg.decode
+        got = {kind: hashlib.sha256(decode(data, kind == "color").tobytes()).hexdigest()
+               for kind in ("color", "gray")}
+        log(f"format probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
+        if got != want:
+            fail(f"the decoder built here does not give cv2's bits on the {name} probe")
+
+
+def _one_thread_ms(read, path, color, reps: int = 2):
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        img = read(path, color)
+        best = min(best, time.perf_counter() - t0)
+    return img, best * 1000
+
+
+def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cuda"):
+    """Phase 16: (a) the probes; (b) the progressive re-codings of the first
+    PROGRESSIVE_FRAMES colour frames load with their baseline files' bits,
+    and the colorize stage on the frames with those files in place writes
+    phase 11's colorized_map.pcd; (c) the full-size PNG variants load with
+    the 8-bit filter-0 files' bits (the 16-bit RGB file's gray read: libpng
+    converts at 16 bits, rounding, before it strips the low byte). Prints
+    one-thread decode times of the full-size files."""
+    import shutil
+    import numpy as np
+    from panovlm_tpu_torch.io import images
+    from panovlm_tpu_torch.io.jpeg import read_jpeg
+
+    root = os.path.dirname(mvs_cfg_path)
+    check_format_probes()
+    # (b) progressive frames
+    prog_dir, color_dir = os.path.join(root, "progressive"), os.path.join(root, "color")
+    base_dir = os.path.join(root, "progressive_baseline")
+    mixed_dir = os.path.join(root, "color_progressive")
+    os.makedirs(base_dir)
+    os.makedirs(mixed_dir)
+    for name in sorted(os.listdir(color_dir)):
+        if not name.endswith(".jpg"):
+            continue
+        src = os.path.join(color_dir, name)
+        prog = os.path.join(prog_dir, name)
+        if os.path.exists(prog):
+            os.link(src, os.path.join(base_dir, name))
+            shutil.copyfile(prog, os.path.join(mixed_dir, name))
+        else:
+            os.link(src, os.path.join(mixed_dir, name))
+    n_prog = len(os.listdir(prog_dir))
+    if n_prog != PROGRESSIVE_FRAMES:
+        fail(f"{n_prog} progressive frames written, {PROGRESSIVE_FRAMES} expected")
+    for color in (True, False):
+        a, names_a = images.load_images_u8(prog_dir, 0, color=color)
+        b, names_b = images.load_images_u8(base_dir, 0, color=color)
+        same = names_a == names_b and all(np.array_equal(x, y) for x, y in zip(a, b))
+        log(f"progressive re-codings of {n_prog} frames ({'colour' if color else 'gray'}, "
+            f"{a[0].shape}): {'the baseline bits' if same else 'DIFFER'}")
+        if not same:
+            fail("a progressive frame does not decode to its baseline file's bits")
+        del a, b
+    p0 = os.path.join(prog_dir, "000000.jpg")
+    img0, ms_prog = _one_thread_ms(read_jpeg, p0, True)
+    h0, w0 = img0.shape[:2]
+    del img0
+    _, ms_base = _one_thread_ms(read_jpeg, os.path.join(color_dir, "000000.jpg"), True)
+    log(f"one-thread decode of a 2880 x 5760 colour JPEG: progressive {ms_prog:.1f} ms "
+        f"({os.path.getsize(p0) / 2**20:.2f} MiB), baseline {ms_base:.1f} ms")
+    with open(os.path.join(root, "color_config.txt")) as f:
+        text = f.read().replace(f"image_path = {root}/color", f"image_path = {mixed_dir}")
+    cfg_path = os.path.join(root, "progressive_config.txt")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    blob = run_colorize(torch, cfg_path, f"{n_prog} progressive frames", device)[0]
+    log(f"colorize stage with {n_prog} progressive frames: colorized_map.pcd "
+        f"{'bit-equal to phase 11' if blob == phase11_pcd else 'DIFFERS'}")
+    if blob != phase11_pcd:
+        fail("the colorize stage on progressive frames differs from phase 11")
+    # (c) PNG variants
+    var = os.path.join(root, "png_variants")
+    refs = {"gray": os.path.join(root, "images", f"{GRAY_VARIANT_FRAME:06d}.png"),
+            "rgb": os.path.join(var, "rgb_filter0.png")}
+    for kind, ref_path in refs.items():
+        for color in (True, False):
+            ref, ms = _one_thread_ms(images.read_png, ref_path, color)
+            log(f"one-thread decode of the {ref.shape} {kind} PNG, filter 0, "
+                f"{'colour' if color else 'gray'} read: {ms:.1f} ms")
+            for name in PNG_VARIANTS:
+                path = os.path.join(var, f"{kind}_{name}.png")
+                img, ms = _one_thread_ms(images.read_png, path, color)
+                want = ref
+                if kind == "rgb" and name == "16bit" and not color:
+                    c = images.read_png(ref_path, True).astype(np.int64) * 257
+                    want = (((9797 * c[..., 0] + 19234 * c[..., 1] + 3737 * c[..., 2] + 16384)
+                             >> 15) >> 8).astype(np.uint8)
+                same = np.array_equal(img, want)
+                log(f"  {name} ({os.path.getsize(path) / 2**20:.2f} MiB): {ms:.1f} ms, "
+                    f"{'the expected bits' if same else 'DIFFERS'}")
+                if not same:
+                    fail(f"the {kind} {name} PNG does not decode to the filter-0 file's bits")
+        tmp = os.path.join(var, f"{kind}_load")
+        os.makedirs(tmp)
+        for name in ("paeth", "adam7"):
+            os.link(os.path.join(var, f"{kind}_{name}.png"), os.path.join(tmp, f"{name}.png"))
+        loaded, _ = images.load_images_u8(tmp, 0, color=kind == "rgb")
+        ref = images.read_png(ref_path, kind == "rgb")
+        if not all(np.array_equal(x, ref) for x in loaded):
+            fail(f"load_images_u8 of the {kind} PNG variants differs from the filter-0 file")
 
 
 # ----------------------------------------------------------------------------
@@ -3476,9 +3814,15 @@ def main():
             # 11. the colorize stage on the MVS dataset's colour JPEGs, then
             # on phase 10's outputs
             t0 = time.time()
-            run_colorize_phase(torch, mvs_cfg)
+            pcd11 = run_colorize_phase(torch, mvs_cfg)
             run_colorize_chain(torch, sfm_cfg)
             log(f"phase 11 (colorize): {time.time() - t0:.1f} s")
+            # 16. the image formats: probes, progressive frames through the
+            # colorize stage, full-size PNG variants
+            t0 = time.time()
+            run_formats_phase(torch, mvs_cfg, pcd11)
+            del pcd11
+            log(f"phase 16 (image formats): {time.time() - t0:.1f} s")
 
         if chain:
             # 13. the line-track modes and the CALIBRATION mode on phase 10's

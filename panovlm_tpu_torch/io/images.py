@@ -1,25 +1,32 @@
 """Panorama loading without cv2 or PIL — the counterpart of `load_images` and
-`load_mask` (panovlm_tpu/pipeline.py:49-84), which read with cv2.
+`load_mask` (panovlm_tpu/pipeline.py:49-84), which read with cv2.imread.
 
-  * `read_png`: 8-bit, non-interlaced PNG (gray, gray+alpha, RGB, RGBA,
-    palette) decoded with zlib and numpy, all five row filter types;
+  * `read_png`: every PNG that cv2.imread reads (each colour type and bit
+    depth, Adam7 interlacing, tRNS, gAMA / sRGB, eXIf orientation), with
+    cv2's bits, through the host C++ decoder native/png.cpp (zlib inflates):
+    16-bit samples keep their high byte, 1/2/4-bit gray scales to 0-255,
+    alpha is dropped, and a gray read of a colour or palette file is
+    libpng's png_set_rgb_to_gray (see `rgb_to_gray`; through libpng's gamma
+    tables when the file's gAMA or sRGB is not within 5 % of 1);
   * `rgb_to_gray`: the gray that cv2.imread(IMREAD_GRAYSCALE) gives for an
-    RGB PNG. cv2 hands that conversion to libpng (png_set_rgb_to_gray with
-    0.299 / 0.587), which truncates: (9797 R + 19234 G + 3737 B) >> 15.
-    cv2.cvtColor(COLOR_BGR2GRAY) rounds with other weights
-    ((9798 R + 19235 G + 3735 B + 16384) >> 15) and differs on ~half the
-    pixels; load_images reads with imread, so the port follows imread;
+    8-bit RGB PNG without gamma. cv2 hands that conversion to libpng
+    (png_set_rgb_to_gray with 0.299 / 0.587), which truncates:
+    (9797 R + 19234 G + 3737 B) >> 15. cv2.cvtColor(COLOR_BGR2GRAY) rounds
+    with other weights ((9798 R + 19235 G + 3735 B + 16384) >> 15) and
+    differs on ~half the pixels; load_images reads with imread, so the port
+    follows imread;
   * `pyr_down` / `pyr_up`: cv2.pyrDown / cv2.pyrUp on u8 images — the 5-tap
     [1 4 6 4 1] kernel in integer arithmetic (pyr_down in numpy uint16),
     rounded to u8 at each level,
     BORDER_REFLECT_101 (pyrUp repeats the last row and column, as cv2's
     does);
   * JPEG through `io/jpeg.read_jpeg` (the host C++ decoder
-    native/jpeg.cpp), with cv2.imread's bits: a gray read is libjpeg's Y
-    plane, not `rgb_to_gray` of the colour result.
+    native/jpeg.cpp), with cv2.imread's bits: baseline, extended and
+    progressive Huffman files with one, three or four components; a gray read is
+    libjpeg's Y plane, not `rgb_to_gray` of the colour result.
 
-`load_images` decodes and pyramids the frames on threads (the decoder's
-C call and numpy's loops release the GIL).
+`load_images` decodes and pyramids the frames on threads (the decoders' C
+calls, zlib and numpy's loops release the GIL).
 """
 
 from __future__ import annotations
@@ -36,81 +43,24 @@ import torch
 from .jpeg import read_jpeg
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row PNG filters. raw holds h rows of 1 filter byte +
-    stride bytes. Returns (h, stride) uint8."""
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    ftype, data = rows[:, 0], rows[:, 1:]
-    out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        f, line = int(ftype[y]), data[y]
-        if f == 0:                                   # None
-            cur = line.copy()
-        elif f == 1:                                 # Sub: running sum per channel
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif f == 2:                                 # Up
-            cur = line + prior
-        elif f in (3, 4):                            # Average, Paeth: byte recurrences
-            cur = bytearray(line.tobytes())
-            up = prior.tobytes()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = up[i]
-                if f == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG: unknown filter type {f} in row {y}")
-        out[y] = cur
-        prior = out[y]
-    return out
-
-
-def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit non-interlaced PNG -> uint8 (H,W) for gray, (H,W,2)
-    gray+alpha, (H,W,3) RGB (palette expanded), (H,W,4) RGBA."""
+def read_png(path: str, color: bool | None = None) -> np.ndarray:
+    """cv2.imread of a PNG file: uint8 (H, W) gray (IMREAD_GRAYSCALE) or
+    (H, W, 3) RGB with color=True (IMREAD_COLOR, then BGR -> RGB), turned
+    by the EXIF orientation. color=None reads a gray file (colour type 0 or
+    4) as gray and any other as RGB."""
+    from ..native import png
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, palette, hdr = 8, [], None, None
-    while pos < len(blob):
-        n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
-        body = blob[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
-        raise NotImplementedError(
-            f"{path}: PNG bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace}; only 8-bit non-interlaced PNG is read (ROADMAP.md)")
-    ch = _CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    img = img.reshape(h, w, ch)
-    if ctype == 3:
-        if palette is None:
-            raise ValueError(f"{path}: palette PNG without PLTE")
-        return palette[img[..., 0]]
-    return img[..., 0] if ch == 1 else img
+    if color is None:
+        color = len(blob) > 25 and bool(blob[25] & 2)   # IHDR colour type
+    try:
+        return png.decode(blob, color)
+    except (NotImplementedError, ValueError) as e:
+        raise type(e)(f"{path}: {e}") from None
 
 
 def write_png(path: str, img: np.ndarray):
@@ -140,14 +90,6 @@ def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
             >> 15).astype(np.uint8)
 
 
-def _read_png(path: str) -> np.ndarray:
-    """uint8 (H,W) gray or (H,W,3) RGB (alpha dropped) of a PNG file."""
-    img = read_png(path)
-    if img.ndim == 3:
-        img = img[..., 0] if img.shape[2] == 2 else img[..., :3]
-    return img
-
-
 def _is_jpeg(path: str) -> bool:
     ext = os.path.splitext(path)[1].lower()
     if ext not in (".jpg", ".jpeg", ".png"):
@@ -155,18 +97,12 @@ def _is_jpeg(path: str) -> bool:
     return ext != ".png"
 
 
-def _as(img: np.ndarray, color: bool) -> np.ndarray:
-    if color:
-        return img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=-1)
-    return img if img.ndim == 2 else rgb_to_gray(img)
-
-
 def read_image(path: str, color: bool = False) -> np.ndarray:
     """imread: uint8 gray (H,W), or RGB (H,W,3) with color=True (a gray
     file gives three equal channels; alpha is dropped)."""
     if _is_jpeg(path):
         return read_jpeg(path, color)
-    return _as(_read_png(path), color)
+    return read_png(path, color)
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:
@@ -248,10 +184,10 @@ def list_images(path: str):
 def _load(path: str, scale: int, color: bool) -> np.ndarray:
     if _is_jpeg(path):
         return apply_scale(read_jpeg(path, color), scale)
-    img = _read_png(path)
+    img = read_png(path, None if color else False)
     if color and img.ndim == 2:   # the pyramid (per channel) once, then three channels
-        return _as(apply_scale(img, scale), True)
-    return apply_scale(_as(img, color), scale)
+        return np.repeat(apply_scale(img, scale)[..., None], 3, axis=-1)
+    return apply_scale(img, scale)
 
 
 def load_images_u8(image_path: str, scale: int = 0, color: bool = False):

@@ -1,9 +1,10 @@
 """JPEG for the port, on a machine without cv2 (ITU-T T.81).
 
 `read_jpeg` decodes as cv2.imread does (libjpeg-turbo at its defaults), bit
-for bit: baseline and extended sequential Huffman, 8-bit, one or three
-components, through the host C++ decoder `native/jpeg.cpp`. The image
-stages read the Room and Floor panoramas and their masks with it.
+for bit, every Huffman-coded 8-bit file (sequential, multi-scan,
+progressive; gray, YCbCr, RGB-coded, CMYK, YCCK), through the host C++
+decoder `native/jpeg.cpp`. The image stages read the Room and Floor
+panoramas and their masks with it.
 
 `encode` / `write_jpeg` are a numpy baseline encoder: the port writes the
 SfM stage's depth visualisations as `depth_{i}.jpg`, as the JAX stage does
@@ -182,8 +183,11 @@ def _pad(plane: np.ndarray, H: int, W: int) -> np.ndarray:
     return np.pad(plane, ((0, H - h), (0, W - w)), mode="edge")
 
 
-def encode(img: np.ndarray, quality: int = 95) -> bytes:
-    """JPEG bytes of a uint8 (H, W) gray or (H, W, 3) RGB image."""
+def quantized_components(img: np.ndarray, quality: int = 95):
+    """The components `encode` codes for a uint8 (H, W) gray or (H, W, 3)
+    RGB image: dicts of "id", "h", "v", "tq" and "coef", the quantised
+    coefficients of the MCU-padded block grid, (rows, cols, 64) in zigzag
+    order; and the quantisation tables {slot: 64 values in natural order}."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
         raise ValueError("encode: expected uint8 (H, W) or (H, W, 3)")
@@ -192,23 +196,38 @@ def encode(img: np.ndarray, quality: int = 95) -> bytes:
     if img.ndim == 2:
         H, W = -(-h // 8) * 8, -(-w // 8) * 8
         y = _quantized(_pad(img.astype(np.float64), H, W), ql)
-        comps = [(1, 0x11, 0)]
+        return [{"id": 1, "h": 1, "v": 1, "tq": 0, "coef": y}], {0: ql}
+    H, W = -(-h // 16) * 16, -(-w // 16) * 16
+    rgb = img.astype(np.float64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0,
+           0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0]
+    ycc = [_pad(np.clip(np.round(c), 0, 255), H, W) for c in ycc]
+    # 4:2:0: each chroma sample is the mean of a 2 x 2 block
+    chroma = [c.reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3)) for c in ycc[1:]]
+    comps = [{"id": 1, "h": 2, "v": 2, "tq": 0, "coef": _quantized(ycc[0], ql)}]
+    comps += [{"id": 2 + i, "h": 1, "v": 1, "tq": 1, "coef": _quantized(c, qc)}
+              for i, c in enumerate(chroma)]
+    return comps, {0: ql, 1: qc}
+
+
+def encode(img: np.ndarray, quality: int = 95) -> bytes:
+    """JPEG bytes of a uint8 (H, W) gray or (H, W, 3) RGB image."""
+    comps, qtables = quantized_components(img, quality)
+    h, w = img.shape[:2]
+    ql = qtables[0]
+    if len(comps) == 1:
+        y = comps[0]["coef"]
         keys, bits, nbits = _tokens(y.reshape(-1, 64), _DC_LUMA, _AC_LUMA)
     else:
-        H, W = -(-h // 16) * 16, -(-w // 16) * 16
-        rgb = img.astype(np.float64)
-        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-        ycc = [0.299 * r + 0.587 * g + 0.114 * b,
-               -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0,
-               0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0]
-        ycc = [_pad(np.clip(np.round(c), 0, 255), H, W) for c in ycc]
-        # 4:2:0: each chroma sample is the mean of a 2 x 2 block
-        chroma = [c.reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3)) for c in ycc[1:]]
-        yq = _quantized(ycc[0], ql)                               # (H/8, W/8, 64)
+        qc = qtables[1]
+        yq = comps[0]["coef"]                                     # (H/8, W/8, 64)
+        H, W = yq.shape[0] * 8, yq.shape[1] * 8
         # MCU order: the 2 x 2 luma blocks of each MCU, then Cb, then Cr
         ymcu = yq.reshape(H // 16, 2, W // 16, 2, 64).transpose(0, 2, 1, 3, 4)
         ymcu = ymcu.reshape(-1, 4, 64)
-        cq = [_quantized(c, qc).reshape(-1, 64) for c in chroma]
+        cq = [c["coef"].reshape(-1, 64) for c in comps[1:]]
         n_mcu = ymcu.shape[0]
         parts = []
         for comp, (coefs, dc_t, ac_t) in enumerate((
@@ -221,7 +240,7 @@ def encode(img: np.ndarray, quality: int = 95) -> bytes:
             parts.append(((mcu * 6 + slot) * 65 + k % 65, bt, nb))
         keys, bits, nbits = (np.concatenate(x) for x in zip(*parts))
         assert keys.max() < n_mcu * 6 * 65
-        comps = [(1, 0x22, 0), (2, 0x11, 1), (3, 0x11, 1)]
+    comps = [(c["id"], c["h"] * 16 + c["v"], c["tq"]) for c in comps]
     order = np.argsort(keys, kind="stable")
     scan = _pack(bits[order], nbits[order])
 
@@ -249,9 +268,16 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 95):
 def read_jpeg(path: str, color: bool = False) -> np.ndarray:
     """cv2.imread of a JPEG file: uint8 (H, W) gray, the Y plane of a colour
     file (IMREAD_GRAYSCALE), or (H, W, 3) RGB with color=True (IMREAD_COLOR,
-    then BGR -> RGB); turned by the EXIF orientation as imread does. Raises
-    NotImplementedError naming ROADMAP.md for progressive, arithmetic,
-    lossless, 12-bit, CMYK/YCCK and multi-scan sequential files."""
+    then BGR -> RGB); turned by the EXIF orientation as imread does.
+
+    Reads baseline, extended and multi-scan sequential and progressive
+    Huffman-coded 8-bit files (a progressive file cut after any scan with
+    libjpeg's block smoothing), with one component, three (YCbCr, or RGB
+    by an Adobe transform 0 or ids 'R','G','B') or four (CMYK, YCCK; cv2's
+    CMYK -> BGR / gray arithmetic). Raises NotImplementedError naming
+    ROADMAP.md for arithmetic-coded and lossless files (which cv2 reads),
+    12-bit, hierarchical and 2-component files and a non-integral sampling
+    ratio in a component the read needs (which cv2 refuses)."""
     from ..native import jpeg as native_jpeg
     with open(path, "rb") as f:
         data = f.read()

@@ -1,9 +1,30 @@
-// Baseline JPEG decoder (ITU-T T.81, sequential Huffman, 8-bit) that gives
-// the bits of cv2.imread on libjpeg-turbo: the image stages read the Room
-// and Floor panoramas and their masks (JPEG) on a machine without cv2.
+// JPEG decoder (ITU-T T.81, Huffman coding, 8-bit) that gives the bits of
+// cv2.imread on libjpeg-turbo: the image stages read the Room and Floor
+// panoramas and their masks (JPEG) on a machine without cv2.
 //
-// Where a textbook decoder would give other bits, this one follows libjpeg
-// at its defaults (the decompression parameters cv2 leaves alone):
+// Read, as libjpeg-turbo 3.1 at its defaults (the decompression parameters
+// cv2 leaves alone) and cv2's own colour handling:
+//   * baseline and extended sequential frames (SOF0, SOF1) with one scan,
+//     decoded block by block into the sample planes; and frames whose
+//     components are split over several (non-interleaved) scans, which
+//     walk each component's own blocks;
+//   * progressive frames (SOF2): jdphuff.c's DC first, DC refine, AC first
+//     (with EOB runs) and AC refine scans into a whole-image coefficient
+//     buffer (jdcoefct.c), libjpeg's coef_bits bookkeeping per component
+//     and coefficient, and after the last scan (or where the file ends, as
+//     a download cut after its k-th scan leaves it) the block smoothing of
+//     decompress_smooth_data when a scan left coefficient bits unsent; a
+//     complete script leaves none, and its bits are those of a baseline
+//     file with the same quantised coefficients;
+//   * one component (gray), three (YCbCr; RGB when an Adobe APP14 has
+//     transform 0 or, with no JFIF or Adobe marker, the component ids are
+//     'R','G','B') and four (CMYK; YCCK when the Adobe transform is not 0),
+//     a colour read converting CMYK as cv2's icvCvt_CMYK2BGR_8u_C4C3R
+//     (c' = k - ((255 - c) k >> 8)) and a gray read as
+//     icvCvt_CMYK2Gray_8u_C4C1R ((4899 c' + 9617 m' + 1868 y' + 8192) >> 14);
+//     YCCK goes to CMYK through jdcolor.c's ycck_cmyk_convert first. A gray
+//     read of YCbCr is the Y plane (no chroma block is transformed), of RGB
+//     jdcolor.c's rgb_gray_convert (rounded tables);
 //   * IDCT: jidctint.c's jpeg_idct_islow (JDCT_ISLOW: CONST_BITS 13,
 //     PASS1_BITS 2), its output wrapped through the range-limit table;
 //   * chroma upsampling: jdsample.c's fancy (triangle) filters for h2v1 and
@@ -12,19 +33,22 @@
 //     rows above the first and below the last sample row repeat that row
 //     (jdmainct.c), and the last column's neighbour is itself;
 //   * YCbCr -> RGB: jdcolor.c's fixed-point tables (SCALEBITS 16);
-//   * a gray read of a YCbCr file copies the (upsampled) Y plane, and
-//     decodes no chroma block after the entropy step;
 //   * FF/00 stuffing, FF fill bytes (FF FF 00 is one FF data byte), zero
-//     bits past the end of a scan, restart intervals that reset the DC
-//     predictors, tables redefined between segments.
+//     bits past the end of a scan and the rest of a restart interval left as
+//     it stands once the data ran out (libjpeg's insufficient_data), restart
+//     intervals that reset the DC predictors and the EOB run, tables
+//     redefined between segments and scans, quantisation tables latched at
+//     each component's first scan, the standard Huffman tables in slots 0
+//     and 1 where a file defines none (jstdhuff.c).
 // The EXIF Orientation tag of the first APP1 segment is returned to the
 // caller, which applies it as cv2's imread does.
 //
-// Outside the scope, each reported as "unsupported": progressive,
-// arithmetic, lossless and hierarchical frames, 12-bit samples, 2 or 4
-// components, RGB-coded 3-component files (Adobe transform 0 or component
-// ids 'R','G','B'), non-integral sampling ratios, and a frame whose
-// components are split over several scans.
+// Refused, each reported as "unsupported" with the codes below: arithmetic
+// coding (SOF9-SOF15, which cv2 reads: queued in ROADMAP.md), lossless and
+// hierarchical frames, 12-bit samples (cv2 reads neither), 2 components (cv2
+// gives no image), non-integral sampling ratios in a component the read
+// upsamples (libjpeg refuses them; a gray read of YCbCr needs Y only), a
+// height set by a DNL marker.
 //
 // C interface (ctypes): pv_jpeg_info(data, n, color, &h, &w, &ch,
 // &orientation, err, errlen), then pv_jpeg_decode(data, n, color, out, err,
@@ -51,8 +75,6 @@ struct Error {
 
 [[noreturn]] void fail(int code, const std::string& msg) { throw Error{code, msg}; }
 
-// zigzag position -> natural (row-major) index; 16 extra entries keep a
-// corrupt run inside the block, as jpeg_natural_order does
 const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
@@ -116,23 +138,66 @@ void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int n
   t.defined = true;
 }
 
+// jstdhuff.c: the tables of T.81 Annex K.3 (code counts per length 1..16)
+const uint8_t kDcLumaCounts[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaCounts[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaCounts[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcChromaCounts[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 // The entropy-coded segment as a bit stream (jdhuff.c jpeg_fill_bit_buffer):
-// at a marker it stops and supplies zero bits.
+// at a marker it stops and supplies zero bits. Consuming one of those sets
+// `insufficient`, after which libjpeg decodes no further MCU until the next
+// restart marker.
 struct Bits {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t buf = 0;
   int n = 0;
-  int marker = -1;   // the marker that ended the data, once seen
+  int fake = 0;             // zero bits supplied past the data, at the end of buf
+  int marker = -1;          // the marker that ended the data, once seen
+  bool insufficient = false;
 
   void fill() {
     while (n <= 56) {
       int b = 0;
+      bool real = false;
       if (marker < 0) {
         if (p >= end) {
           marker = 0xD9;   // truncated file: as at EOI
         } else {
           b = *p++;
+          real = true;
           if (b == 0xFF) {
             int c;
             do {
@@ -141,19 +206,28 @@ struct Bits {
             if (c != 0) {
               marker = c;
               b = 0;
+              real = false;
             }
           }
         }
       }
+      if (!real) fake += 8;
       buf |= (uint64_t)b << (56 - n);
       n += 8;
+    }
+  }
+  void consume(int k) {
+    buf <<= k;
+    n -= k;
+    if (n < fake) {
+      insufficient = true;
+      fake = n;
     }
   }
   int get(int k) {   // k in 1..16
     if (n < k) fill();
     int v = (int)(buf >> (64 - k));
-    buf <<= k;
-    n -= k;
+    consume(k);
     return v;
   }
   int decode(const Huffman& t) {
@@ -161,8 +235,7 @@ struct Bits {
     int look = (int)(buf >> (64 - kLookBits));
     int l = t.look_len[look];
     if (l) {
-      buf <<= l;
-      n -= l;
+      consume(l);
       return t.look_sym[look];
     }
     int code = get(kLookBits);
@@ -175,10 +248,12 @@ struct Bits {
     return t.val[(code + t.valoffset[l]) & 0xFF];
   }
   // at a restart boundary: drop the bits left in the byte and the RSTn
-  // marker (searching for it when the data did not end at a marker)
+  // marker (searching for it when the data did not end at a marker); the
+  // data flows again unless another marker stands there
   void restart() {
     buf = 0;
     n = 0;
+    fake = 0;
     if (marker < 0) {
       while (p + 1 < end) {
         if (p[0] == 0xFF && p[1] != 0 && p[1] != 0xFF) {
@@ -189,7 +264,10 @@ struct Bits {
         p++;
       }
     }
-    if (marker >= 0xD0 && marker <= 0xD7) marker = -1;
+    if (marker >= 0xD0 && marker <= 0xD7) {
+      marker = -1;
+      insufficient = false;
+    }
   }
 };
 
@@ -310,13 +388,21 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
   }
 }
 
+enum ColourSpace { GRAY, YCC, RGB, CMYK, YCCK };
+
 struct Component {
   int id, h, v, tq;
   int td = 0, ta = 0;      // Huffman table slots of the scan
-  int bw = 0, bh = 0;      // blocks per row and column of its plane
+  int bw = 0, bh = 0;      // width_in_blocks / height_in_blocks
+  int pbw = 0, pbh = 0;    // rounded up to the sampling factors: the MCU grid
   int dw = 0, dh = 0;      // downsampled_width / _height: its real samples
   bool needed = true;
-  std::vector<uint8_t> plane;   // bw*8 x bh*8 samples
+  bool latched = false;    // quantisation table latched at its first scan
+  uint16_t q[64];
+  int coef_bits[64], prev_coef_bits[64];   // jdphuff.c's bookkeeping (-1: no scan yet)
+  std::vector<int16_t> coef;               // pbw x pbh blocks of 64, natural order
+  std::vector<uint8_t> plane;              // pbw*8 x pbh*8 samples
+  int16_t* block(int bx, int by) { return coef.data() + ((size_t)by * pbw + bx) * 64; }
 };
 
 struct Decoder {
@@ -328,12 +414,20 @@ struct Decoder {
   Huffman dc[4], ac[4];
   int restart_interval = 0;
   int width = 0, height = 0;
+  bool progressive = false;
   std::vector<Component> comps;
   int hmax = 1, vmax = 1;
+  int mcux = 0, mcuy = 0;    // MCUs of an interleaved scan; mcuy = total_iMCU_rows
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
+  ColourSpace space = GRAY;
   int orientation = 0;
   bool saw_app1 = false;
+  // the scan being read
+  std::vector<Component*> sc;
+  int Ss = 0, Se = 63, Ah = 0, Al = 0;
+  int scans = 0;             // input_scan_number
+  int last_good_row = 0;     // the last iMCU row whose decoding began with data left
 
   Decoder(const uint8_t* d, size_t len) : data(d), n(len) {}
 
@@ -394,10 +488,85 @@ struct Decoder {
     }
   }
 
+  void read_frame(bool prog) {
+    if (!comps.empty()) fail(CORRUPT, "two frame headers");
+    progressive = prog;
+    int precision = u8();
+    height = u16();
+    width = u16();
+    int nc = u8();
+    if (precision != 8) fail(UNSUPPORTED, std::to_string(precision) + "-bit samples");
+    if (height == 0) fail(UNSUPPORTED, "the height is set by a DNL marker");
+    if (width == 0) fail(CORRUPT, "zero width");
+    // libjpeg's JPEG_MAX_DIMENSION, and cv2's limit of 2^30 pixels
+    if (width > 65500 || height > 65500 || (int64_t)width * height > ((int64_t)1 << 30))
+      fail(CORRUPT, "image larger than libjpeg or cv2 read");
+    if (nc != 1 && nc != 3 && nc != 4)
+      fail(UNSUPPORTED, std::to_string(nc) + " components");
+    for (int i = 0; i < nc; i++) {
+      Component c;
+      c.id = u8();
+      int hv = u8();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+        fail(CORRUPT, "bad component parameters");
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = c.prev_coef_bits[k] = -1;
+      memset(c.q, 0, sizeof c.q);
+      comps.push_back(c);
+    }
+  }
+
+  // One marker segment that may stand before or between scans (tables,
+  // restart interval, APPn, COM); returns false for the others.
+  bool table_segment(int m, const uint8_t* seg, size_t seg_len) {
+    switch (m) {
+      case 0xC4: {
+        size_t o = 0;
+        while (o < seg_len) {
+          if (o + 17 > seg_len) fail(CORRUPT, "bad DHT segment");
+          int tc = seg[o] >> 4, th = seg[o] & 15;
+          const uint8_t* counts = seg + o + 1;
+          int total = 0;
+          for (int i = 0; i < 16; i++) total += counts[i];
+          if (tc > 1 || th > 3 || total > 256 || o + 17 + total > seg_len)
+            fail(CORRUPT, "bad DHT segment");
+          build_huffman(tc ? ac[th] : dc[th], counts, seg + o + 17, total, tc == 0);
+          o += 17 + (size_t)total;
+        }
+        return true;
+      }
+      case 0xDB: {
+        size_t o = 0;
+        while (o < seg_len) {
+          int pq = seg[o] >> 4, tq = seg[o] & 15;
+          size_t sz = pq ? 128 : 64;
+          if (pq > 1 || tq > 3 || o + 1 + sz > seg_len) fail(CORRUPT, "bad DQT segment");
+          for (int k = 0; k < 64; k++)
+            qt[tq][kNatural[k]] =
+                pq ? (uint16_t)((seg[o + 1 + 2 * k] << 8) | seg[o + 2 + 2 * k]) : seg[o + 1 + k];
+          qt_defined[tq] = true;
+          o += 1 + sz;
+        }
+        return true;
+      }
+      case 0xDD:
+        if (seg_len < 2) fail(CORRUPT, "bad DRI segment");
+        restart_interval = (seg[0] << 8) | seg[1];
+        return true;
+      case 0xDC:   // DNL: libjpeg skips it
+        return true;
+      default:
+        return (m >= 0xE0 && m <= 0xEF) || m == 0xFE;   // APPn, COM
+    }
+  }
+
+  // Marker segments up to the first SOS: the frame, the tables, JFIF, EXIF
+  // and Adobe markers. Leaves pos at the SOS segment's length.
   void read_segments() {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) fail(CORRUPT, "not a JPEG file (no SOI)");
     pos = 2;
-    bool have_frame = false;
     for (;;) {
       int m = next_marker();
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;   // no payload
@@ -409,81 +578,23 @@ struct Decoder {
       size_t next = pos + seg_len;
       switch (m) {
         case 0xC0:
-        case 0xC1: {
-          if (have_frame) fail(CORRUPT, "two frame headers");
-          int precision = u8();
-          height = u16();
-          width = u16();
-          int nc = u8();
-          if (precision != 8)
-            fail(UNSUPPORTED, std::to_string(precision) + "-bit samples");
-          if (height == 0) fail(UNSUPPORTED, "the height is set by a DNL marker");
-          if (width == 0) fail(CORRUPT, "zero width");
-          if (nc != 1 && nc != 3)
-            fail(UNSUPPORTED, std::to_string(nc) + " components (CMYK/YCCK or other)");
-          for (int i = 0; i < nc; i++) {
-            Component c;
-            c.id = u8();
-            int hv = u8();
-            c.h = hv >> 4;
-            c.v = hv & 15;
-            c.tq = u8();
-            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
-              fail(CORRUPT, "bad component parameters");
-            comps.push_back(c);
-          }
-          have_frame = true;
-          break;
-        }
+        case 0xC1:
         case 0xC2:
-        case 0xC6:
-        case 0xCA:
-        case 0xCE:
-          fail(UNSUPPORTED, "progressive JPEG");
+          read_frame(m == 0xC2);
+          break;
         case 0xC3:
         case 0xC7:
         case 0xCB:
         case 0xCF:
           fail(UNSUPPORTED, "lossless JPEG");
         case 0xC5:
+        case 0xC6:
+        case 0xCD:
+        case 0xCE:
           fail(UNSUPPORTED, "hierarchical JPEG");
         case 0xC9:
-        case 0xCD:
-        case 0xCC:
+        case 0xCA:
           fail(UNSUPPORTED, "arithmetic coding");
-        case 0xC4: {
-          size_t o = 0;
-          while (o < seg_len) {
-            if (o + 17 > seg_len) fail(CORRUPT, "bad DHT segment");
-            int tc = seg[o] >> 4, th = seg[o] & 15;
-            const uint8_t* counts = seg + o + 1;
-            int total = 0;
-            for (int i = 0; i < 16; i++) total += counts[i];
-            if (tc > 1 || th > 3 || total > 256 || o + 17 + total > seg_len)
-              fail(CORRUPT, "bad DHT segment");
-            build_huffman(tc ? ac[th] : dc[th], counts, seg + o + 17, total, tc == 0);
-            o += 17 + (size_t)total;
-          }
-          break;
-        }
-        case 0xDB: {
-          size_t o = 0;
-          while (o < seg_len) {
-            int pq = seg[o] >> 4, tq = seg[o] & 15;
-            size_t sz = pq ? 128 : 64;
-            if (pq > 1 || tq > 3 || o + 1 + sz > seg_len) fail(CORRUPT, "bad DQT segment");
-            for (int k = 0; k < 64; k++)
-              qt[tq][kNatural[k]] =
-                  pq ? (uint16_t)((seg[o + 1 + 2 * k] << 8) | seg[o + 2 + 2 * k]) : seg[o + 1 + k];
-            qt_defined[tq] = true;
-            o += 1 + sz;
-          }
-          break;
-        }
-        case 0xDD:
-          if (seg_len < 2) fail(CORRUPT, "bad DRI segment");
-          restart_interval = (seg[0] << 8) | seg[1];
-          break;
         case 0xE0:
           if (seg_len >= 14 && memcmp(seg, "JFIF\0", 5) == 0) saw_jfif = true;
           break;
@@ -499,27 +610,32 @@ struct Decoder {
             adobe_transform = seg[11];
           }
           break;
-        case 0xDC:
-          fail(UNSUPPORTED, "DNL marker");
         case 0xDA:
-          if (!have_frame) fail(CORRUPT, "scan before the frame header");
-          pos -= 2;   // back to the length: decode_scan reads the header
+          if (comps.empty()) fail(CORRUPT, "scan before the frame header");
+          pos -= 2;   // back to the length: read_scan_header reads it
           return;
         default:
-          if (m >= 0xC8 && m <= 0xCF) fail(UNSUPPORTED, "arithmetic or extension frame");
-          break;   // APPn, COM, DAC, ...: skipped
+          if (m >= 0xC8 && m <= 0xCF) fail(UNSUPPORTED, "arithmetic coding");
+          table_segment(m, seg, seg_len);   // anything else is skipped
+          break;
       }
       pos = next;
     }
   }
 
+  // jdapimin.c default_decompress_parms
   void check_colour_space() {
-    if (comps.size() != 3) return;
-    bool rgb;
-    if (saw_jfif) rgb = false;
-    else if (saw_adobe) rgb = adobe_transform == 0;
-    else rgb = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
-    if (rgb) fail(UNSUPPORTED, "RGB-coded colour (no YCbCr transform)");
+    if (comps.size() == 1) {
+      space = GRAY;
+    } else if (comps.size() == 3) {
+      bool rgb;
+      if (saw_jfif) rgb = false;
+      else if (saw_adobe) rgb = adobe_transform == 0;
+      else rgb = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+      space = rgb ? RGB : YCC;
+    } else {
+      space = saw_adobe && adobe_transform == 0 ? CMYK : (saw_adobe ? YCCK : CMYK);
+    }
   }
 
   void layout(bool color) {
@@ -527,111 +643,457 @@ struct Decoder {
       hmax = c.h > hmax ? c.h : hmax;
       vmax = c.v > vmax ? c.v : vmax;
     }
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     for (auto& c : comps) {
-      if (hmax % c.h || vmax % c.v) fail(UNSUPPORTED, "non-integral sampling ratio");
       c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
-      if (!qt_defined[c.tq]) fail(CORRUPT, "undefined quantisation table");
+      c.bw = (c.dw + 7) / 8;
+      c.bh = (c.dh + 7) / 8;
+      c.pbw = mcux * c.h;
+      c.pbh = mcuy * c.v;
     }
-    // a gray read of a colour file needs the luma component only
-    if (!color)
+    // a gray read of YCbCr (or gray) needs the luma component only
+    if (!color && (space == YCC || space == GRAY))
       for (size_t i = 1; i < comps.size(); i++) comps[i].needed = false;
+    // jdsample.c refuses a non-integral ratio in the components it upsamples
+    for (auto& c : comps)
+      if (c.needed && (hmax % c.h || vmax % c.v)) fail(UNSUPPORTED, "non-integral sampling ratio");
   }
 
-  void decode_scan() {
-    u16();   // length
+  // jstdhuff.c: the standard tables where the file defined none by the
+  // first scan
+  void default_tables() {
+    if (!dc[0].defined) build_huffman(dc[0], kDcLumaCounts, kDcVals, 12, true);
+    if (!dc[1].defined) build_huffman(dc[1], kDcChromaCounts, kDcVals, 12, true);
+    if (!ac[0].defined) build_huffman(ac[0], kAcLumaCounts, kAcLumaVals, 162, false);
+    if (!ac[1].defined) build_huffman(ac[1], kAcChromaCounts, kAcChromaVals, 162, false);
+  }
+
+  // jdmarker.c get_sos, then the checks of jdinput.c and jdphuff.c
+  void read_scan_header() {
+    int len = u16();
     int ns = u8();
-    if (ns < 1 || ns > 4) fail(CORRUPT, "bad scan header");
-    std::vector<Component*> sc;
+    if (len != ns * 2 + 6 || ns < 1 || ns > 4) fail(CORRUPT, "bad scan header");
+    sc.clear();
     for (int i = 0; i < ns; i++) {
       int id = u8(), t = u8();
       Component* c = nullptr;
       for (auto& k : comps)
         if (k.id == id) c = &k;
       if (!c) fail(CORRUPT, "scan names an unknown component");
+      for (auto* k : sc)
+        if (k == c) fail(CORRUPT, "a component twice in a scan");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        fail(CORRUPT, "undefined Huffman table");
       sc.push_back(c);
     }
-    int ss = u8(), se = u8(), ahl = u8();
-    if (ss != 0 || se != 63 || ahl != 0) fail(UNSUPPORTED, "spectral selection in a sequential scan");
-    if (sc.size() != comps.size())
-      fail(UNSUPPORTED, "the components are split over several scans");
-
-    int mcux, mcuy;
-    if (sc.size() == 1) {   // non-interleaved: one block per MCU
-      Component& c = *sc[0];
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
-      mcux = c.bw;
-      mcuy = c.bh;
-    } else {
-      mcux = (width + 8 * hmax - 1) / (8 * hmax);
-      mcuy = (height + 8 * vmax - 1) / (8 * vmax);
-      for (auto* c : sc) {
-        c->bw = mcux * c->h;
-        c->bh = mcuy * c->v;
-      }
+    Ss = u8();
+    Se = u8();
+    int a = u8();
+    Ah = a >> 4;
+    Al = a & 15;
+    scans++;
+    int blocks = 0;
+    for (auto* c : sc) blocks += ns == 1 ? 1 : c->h * c->v;
+    if (blocks > 10) fail(CORRUPT, "too many blocks in an MCU");
+    for (auto* c : sc) {   // jdinput.c latch_quant_tables
+      if (c->latched) continue;
+      if (!qt_defined[c->tq]) fail(CORRUPT, "undefined quantisation table");
+      memcpy(c->q, qt[c->tq], sizeof c->q);
+      c->latched = true;
     }
-    for (auto* c : sc)
-      if (c->needed) c->plane.assign((size_t)c->bw * 8 * (size_t)c->bh * 8, 0);
+    if (!progressive) {   // Ss, Se, Ah, Al are not checked: libjpeg only warns
+      for (auto* c : sc)
+        if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
+          fail(CORRUPT, "undefined Huffman table");
+      return;
+    }
+    bool dc_band = Ss == 0, bad = false;
+    if (dc_band) bad = Se != 0;
+    else bad = Ss > Se || Se > 63 || ns != 1;
+    if (Ah != 0 && Al != Ah - 1) bad = true;
+    if (Al > 13) bad = true;
+    if (bad) fail(CORRUPT, "bad progression parameters");
+    for (auto* c : sc) {
+      if (dc_band ? (Ah == 0 && (c->td > 3 || !dc[c->td].defined))
+                  : (c->ta > 3 || !ac[c->ta].defined))
+        fail(CORRUPT, "undefined Huffman table");
+      int lo = Ss < 1 ? Ss : 1, hi = Se > 9 ? Se : 9;
+      for (int k = lo; k <= hi; k++) c->prev_coef_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
+      for (int k = Ss; k <= Se; k++) c->coef_bits[k] = Al;
+    }
+  }
 
-    Bits bits{data + pos, data + n};
-    int pred[4] = {0, 0, 0, 0};
-    int16_t blk[64];
-    const int64_t total = (int64_t)mcux * mcuy;
+  // The MCUs of the current scan in order: calls mcu(mx, my) after the
+  // restart bookkeeping; `direct` decodes regardless of insufficient data
+  // (the caller then sees zero blocks).
+  template <class F>
+  void each_mcu(Bits& bits, F&& mcu, int* pred, int* eobrun) {
+    int nx, ny;
+    if (sc.size() == 1) {
+      nx = sc[0]->bw;
+      ny = sc[0]->bh;
+    } else {
+      nx = mcux;
+      ny = mcuy;
+    }
+    const int rows_per_imcu = sc.size() == 1 ? sc[0]->v : 1;
     int64_t left = restart_interval;
-    for (int64_t m = 0; m < total; m++) {
-      if (restart_interval) {
-        if (left == 0) {
-          bits.restart();
-          pred[0] = pred[1] = pred[2] = pred[3] = 0;
-          left = restart_interval;
+    for (int my = 0; my < ny; my++)
+      for (int mx = 0; mx < nx; mx++) {
+        if (restart_interval) {
+          if (left == 0) {
+            bits.restart();
+            for (int k = 0; k < 4; k++) pred[k] = 0;
+            *eobrun = 0;
+            left = restart_interval;
+          }
+          left--;
         }
-        left--;
+        if (!bits.insufficient) last_good_row = my / rows_per_imcu;
+        mcu(mx, my);
       }
-      int mx = (int)(m % mcux), my = (int)(m / mcux);
+  }
+
+  // A sequential scan. direct: the frame's only scan, each block
+  // transformed into its plane as it is decoded; else into the buffer.
+  void sequential_scan(Bits& bits, bool direct) {
+    int pred[4] = {0, 0, 0, 0}, eobrun = 0;
+    int16_t blk[64];
+    const bool one = sc.size() == 1;
+    each_mcu(bits, [&](int mx, int my) {
+      const bool skip = bits.insufficient;   // decided once per MCU, as libjpeg does
       for (size_t ci = 0; ci < sc.size(); ci++) {
         Component& c = *sc[ci];
-        int nh = sc.size() == 1 ? 1 : c.h, nv = sc.size() == 1 ? 1 : c.v;
+        int nh = one ? 1 : c.h, nv = one ? 1 : c.v;
         for (int by = 0; by < nv; by++)
           for (int bx = 0; bx < nh; bx++) {
-            memset(blk, 0, sizeof blk);
-            int s = bits.decode(dc[c.td]);
-            int diff = s ? extend(bits.get(s), s) : 0;
-            pred[ci] += diff;
-            blk[0] = (int16_t)pred[ci];
-            const Huffman& at = ac[c.ta];
-            for (int k = 1; k < 64; k++) {
-              int rs = bits.decode(at);
-              int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                k += r;
-                blk[kNatural[k]] = (int16_t)extend(bits.get(s), s);
-              } else {
-                if (r != 15) break;
-                k += 15;
+            int x = mx * nh + bx, y = my * nv + by;
+            int16_t* b = direct ? blk : c.block(x, y);
+            if (direct) memset(blk, 0, sizeof blk);
+            if (!skip) {
+              int s = bits.decode(dc[c.td]);
+              int diff = s ? extend(bits.get(s), s) : 0;
+              pred[ci] += diff;
+              b[0] = (int16_t)pred[ci];
+              const Huffman& at = ac[c.ta];
+              for (int k = 1; k < 64; k++) {
+                int rs = bits.decode(at);
+                int r = rs >> 4;
+                s = rs & 15;
+                if (s) {
+                  k += r;
+                  b[kNatural[k]] = (int16_t)extend(bits.get(s), s);
+                } else {
+                  if (r != 15) break;
+                  k += 15;
+                }
               }
             }
-            if (!c.needed) continue;
-            size_t stride = (size_t)c.bw * 8;
-            size_t row = (size_t)(my * nv + by) * 8, col = (size_t)(mx * nh + bx) * 8;
-            idct_islow(blk, qt[c.tq], c.plane.data() + row * stride + col, (int)stride);
+            if (direct && c.needed) {
+              size_t stride = (size_t)c.pbw * 8;
+              idct_islow(blk, c.q, c.plane.data() + (size_t)y * 8 * stride + (size_t)x * 8,
+                         (int)stride);
+            }
           }
+      }
+    }, pred, &eobrun);
+  }
+
+  // jdphuff.c's four decoders
+  void progressive_scan(Bits& bits) {
+    int pred[4] = {0, 0, 0, 0}, eobrun = 0;
+    const bool one = sc.size() == 1;
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    if (Ss == 0) {   // DC first / refine: interleaved or not
+      each_mcu(bits, [&](int mx, int my) {
+        if (bits.insufficient && Ah == 0) return;
+        for (size_t ci = 0; ci < sc.size(); ci++) {
+          Component& c = *sc[ci];
+          int nh = one ? 1 : c.h, nv = one ? 1 : c.v;
+          for (int by = 0; by < nv; by++)
+            for (int bx = 0; bx < nh; bx++) {
+              int16_t* b = c.block(mx * nh + bx, my * nv + by);
+              if (Ah == 0) {
+                int s = bits.decode(dc[c.td]);
+                int diff = s ? extend(bits.get(s), s) : 0;
+                pred[ci] += diff;
+                b[0] = (int16_t)(int)((unsigned)pred[ci] << Al);
+              } else if (bits.get(1)) {
+                b[0] = (int16_t)(b[0] | p1);
+              }
+            }
+        }
+      }, pred, &eobrun);
+      return;
+    }
+    Component& c = *sc[0];
+    const Huffman& t = ac[c.ta];
+    if (Ah == 0) {   // AC first
+      each_mcu(bits, [&](int mx, int my) {
+        if (bits.insufficient) return;
+        if (eobrun > 0) {
+          eobrun--;
+          return;
+        }
+        int16_t* b = c.block(mx, my);
+        for (int k = Ss; k <= Se; k++) {
+          int rs = bits.decode(t);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            b[kNatural[k]] = (int16_t)(int)((unsigned)extend(bits.get(s), s) << Al);
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = 1 << r;
+            if (r) eobrun += bits.get(r);
+            eobrun--;
+            break;
+          }
+        }
+      }, pred, &eobrun);
+      return;
+    }
+    // AC refine
+    each_mcu(bits, [&](int mx, int my) {
+      if (bits.insufficient) return;
+      int16_t* b = c.block(mx, my);
+      auto correct = [&](int16_t& coef) {
+        if (bits.get(1) && (coef & p1) == 0) coef = (int16_t)(coef >= 0 ? coef + p1 : coef + m1);
+      };
+      int k = Ss;
+      if (eobrun == 0) {
+        for (; k <= Se; k++) {
+          int rs = bits.decode(t);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {   // a newly nonzero coefficient (s should be 1)
+            s = bits.get(1) ? p1 : m1;
+          } else if (r != 15) {
+            eobrun = 1 << r;
+            if (r) eobrun += bits.get(r);
+            break;
+          }
+          // skip the nonzero history (appending correction bits) and r zeros
+          do {
+            int16_t& coef = b[kNatural[k]];
+            if (coef != 0) {
+              correct(coef);
+            } else {
+              if (--r < 0) break;
+            }
+            k++;
+          } while (k <= Se);
+          if (s) b[kNatural[k]] = (int16_t)s;
+        }
+      }
+      if (eobrun > 0) {
+        for (; k <= Se; k++) {
+          int16_t& coef = b[kNatural[k]];
+          if (coef != 0) correct(coef);
+        }
+        eobrun--;
+      }
+    }, pred, &eobrun);
+  }
+
+  // After the entropy-coded data of a scan: the marker that ended it, then
+  // the segments up to the next SOS (true) or EOI (false).
+  bool next_scan(Bits& bits) {
+    int m;
+    if (bits.marker >= 0) {
+      m = bits.marker;
+      pos = (size_t)(bits.p - data);
+    } else {
+      pos = (size_t)(bits.p - data);
+      m = next_marker_or_eoi();
+    }
+    for (;;) {
+      if (m == 0xD9) return false;
+      if (m == 0xDA) {
+        read_scan_header();
+        return true;
+      }
+      if (!((m >= 0xD0 && m <= 0xD7) || m == 0xD8 || m == 0x01)) {
+        if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)
+          fail(CORRUPT, "a second frame header");
+        if (pos + 2 > n) return false;
+        int len = u16();
+        if (len < 2 || pos + len - 2 > n) return false;   // cut: as at EOI
+        table_segment(m, data + pos, (size_t)len - 2);
+        pos += (size_t)len - 2;
+      }
+      if (pos >= n) return false;
+      m = next_marker_or_eoi();
+    }
+  }
+  int next_marker_or_eoi() {
+    while (pos < n) {
+      if (data[pos++] != 0xFF) continue;
+      while (pos < n && data[pos] == 0xFF) pos++;
+      if (pos >= n) break;
+      int c = data[pos++];
+      if (c != 0) return c;
+    }
+    return 0xD9;   // end of file: libjpeg inserts an EOI
+  }
+};
+
+// jdcoefct.c smoothing_ok: every component latched, its first ten
+// quantisation values nonzero and its DC known, and some coefficient of
+// the first ten of some component not fully known. Fills the latches.
+bool smoothing_ok(Decoder& d, std::vector<int>& latch, std::vector<int>& prev_latch) {
+  if (!d.progressive) return false;
+  static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  latch.assign(d.comps.size() * 10, 0);
+  prev_latch.assign(d.comps.size() * 10, 0);
+  for (size_t ci = 0; ci < d.comps.size(); ci++) {
+    const Component& c = d.comps[ci];
+    if (!c.latched) return false;
+    for (int k = 0; k < 10; k++)
+      if (c.q[kPos[k]] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    latch[ci * 10] = c.coef_bits[0];
+    for (int k = 1; k < 10; k++) {
+      prev_latch[ci * 10 + k] = d.scans > 1 ? c.prev_coef_bits[k] : -1;
+      latch[ci * 10 + k] = c.coef_bits[k];
+      if (c.coef_bits[k] != 0) useful = true;
+    }
+  }
+  return useful;
+}
+
+// One estimate of decompress_smooth_data: applied where the coefficient is
+// still zero and not known to be exact; Al caps its magnitude
+inline void estimate(int16_t& w, int al, int64_t q00, int64_t q, int64_t sum) {
+  if (al == 0 || w != 0) return;
+  int64_t num = q00 * sum;
+  int pred;
+  if (num >= 0) {
+    pred = (int)(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = (int)(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  w = (int16_t)pred;
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1): the IDCT of one
+// component with the low coefficients of each block estimated from the DC
+// values of its 5 x 5 neighbourhood, as libjpeg walks the iMCU rows.
+void smooth_component(Decoder& d, Component& c, const int* cur_bits, const int* prev_bits) {
+  const int T = d.mcuy, v = c.v;
+  const size_t stride = (size_t)c.pbw * 8;
+  int16_t ws[64];
+  const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16], Q11 = c.q[9],
+                Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10], Q21 = c.q[17], Q30 = c.q[24];
+  for (int oi = 0; oi < T; oi++) {
+    const int block_rows = oi < T - 1 ? v : (c.bh % v ? c.bh % v : v);
+    const int* cb = oi > d.last_good_row ? prev_bits : cur_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++) change_dc = change_dc && cb[k] == -1;
+    const int image_block_rows = block_rows * T;
+    for (int br = 0; br < block_rows; br++) {
+      const int R = oi * v + br, ibr = oi * block_rows + br;
+      const int prev = ibr > 0 ? R - 1 : R;
+      const int pprev = ibr > 1 ? R - 2 : prev;
+      const int next = ibr < image_block_rows - 1 ? R + 1 : R;
+      const int nnext = ibr < image_block_rows - 2 ? R + 2 : next;
+      const int rows[5] = {pprev, prev, R, next, nnext};
+      for (int C = 0; C < c.bw; C++) {
+        int DC[26];   // DC[1..25]: the 5 x 5 neighbourhood, row-major, DC[13] this block
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 5; j++) {
+            int x = C + j - 2;
+            x = x < 0 ? 0 : (x > c.bw - 1 ? c.bw - 1 : x);
+            DC[1 + 5 * i + j] = c.block(x, rows[i])[0];
+          }
+        memcpy(ws, c.block(C, R), sizeof ws);
+        if (change_dc) {
+          estimate(ws[1], cb[1], Q00, Q01,
+                   -DC[1] - DC[2] + DC[4] + DC[5] - 3 * DC[6] + 13 * DC[7] - 13 * DC[9] +
+                       3 * DC[10] - 3 * DC[11] + 38 * DC[12] - 38 * DC[14] + 3 * DC[15] -
+                       3 * DC[16] + 13 * DC[17] - 13 * DC[19] + 3 * DC[20] - DC[21] - DC[22] +
+                       DC[24] + DC[25]);
+          estimate(ws[8], cb[2], Q00, Q10,
+                   -DC[1] - 3 * DC[2] - 3 * DC[3] - 3 * DC[4] - DC[5] - DC[6] + 13 * DC[7] +
+                       38 * DC[8] + 13 * DC[9] - DC[10] + DC[16] - 13 * DC[17] - 38 * DC[18] -
+                       13 * DC[19] + DC[20] + DC[21] + 3 * DC[22] + 3 * DC[23] + 3 * DC[24] +
+                       DC[25]);
+          estimate(ws[16], cb[3], Q00, Q20,
+                   DC[3] + 2 * DC[7] + 7 * DC[8] + 2 * DC[9] - 5 * DC[12] - 14 * DC[13] -
+                       5 * DC[14] + 2 * DC[17] + 7 * DC[18] + 2 * DC[19] + DC[23]);
+          estimate(ws[9], cb[4], Q00, Q11,
+                   -DC[1] + DC[5] + 9 * DC[7] - 9 * DC[9] - 9 * DC[17] + 9 * DC[19] + DC[21] -
+                       DC[25]);
+          estimate(ws[2], cb[5], Q00, Q02,
+                   2 * DC[7] - 5 * DC[8] + 2 * DC[9] + DC[11] + 7 * DC[12] - 14 * DC[13] +
+                       7 * DC[14] + DC[15] + 2 * DC[17] - 5 * DC[18] + 2 * DC[19]);
+          estimate(ws[3], cb[6], Q00, Q03,
+                   DC[7] - DC[9] + 2 * DC[12] - 2 * DC[14] + DC[17] - DC[19]);
+          estimate(ws[10], cb[7], Q00, Q12,
+                   DC[7] - 3 * DC[8] + DC[9] - DC[17] + 3 * DC[18] - DC[19]);
+          estimate(ws[17], cb[8], Q00, Q21,
+                   DC[7] - DC[9] - 3 * DC[12] + 3 * DC[14] + DC[17] - DC[19]);
+          estimate(ws[24], cb[9], Q00, Q30,
+                   DC[7] + 2 * DC[8] + DC[9] - DC[17] - 2 * DC[18] - DC[19]);
+          // the DC itself, a weighted mean of the neighbourhood
+          int64_t num = Q00 * (-2 * DC[1] - 6 * DC[2] - 8 * DC[3] - 6 * DC[4] - 2 * DC[5] -
+                               6 * DC[6] + 6 * DC[7] + 42 * DC[8] + 6 * DC[9] - 6 * DC[10] -
+                               8 * DC[11] + 42 * DC[12] + 152 * DC[13] + 42 * DC[14] -
+                               8 * DC[15] - 6 * DC[16] + 6 * DC[17] + 42 * DC[18] + 6 * DC[19] -
+                               6 * DC[20] - 2 * DC[21] - 6 * DC[22] - 8 * DC[23] - 6 * DC[24] -
+                               2 * DC[25]);
+          int pred = num >= 0 ? (int)(((Q00 << 7) + num) / (Q00 << 8))
+                              : -(int)(((Q00 << 7) - num) / (Q00 << 8));
+          ws[0] = (int16_t)pred;
+        } else {
+          estimate(ws[1], cb[1], Q00, Q01, -7 * DC[11] + 50 * DC[12] - 50 * DC[14] + 7 * DC[15]);
+          estimate(ws[8], cb[2], Q00, Q10, -7 * DC[3] + 50 * DC[8] - 50 * DC[18] + 7 * DC[23]);
+          estimate(ws[16], cb[3], Q00, Q20,
+                   -DC[3] + 13 * DC[8] - 24 * DC[13] + 13 * DC[18] - DC[23]);
+          estimate(ws[9], cb[4], Q00, Q11,
+                   DC[10] + DC[16] - 10 * DC[17] + 10 * DC[19] - DC[2] - DC[20] + DC[22] -
+                       DC[24] + DC[4] - DC[6] + 10 * DC[7] - 10 * DC[9]);
+          estimate(ws[2], cb[5], Q00, Q02,
+                   -DC[11] + 13 * DC[12] - 24 * DC[13] + 13 * DC[14] - DC[15]);
+        }
+        idct_islow(ws, c.q, c.plane.data() + (size_t)R * 8 * stride + (size_t)C * 8,
+                   (int)stride);
       }
     }
   }
-};
+}
+
+// The IDCT of every needed component from the coefficient buffer
+void transform(Decoder& d) {
+  std::vector<int> latch, prev_latch;
+  const bool smooth = smoothing_ok(d, latch, prev_latch);
+  for (size_t ci = 0; ci < d.comps.size(); ci++) {
+    Component& c = d.comps[ci];
+    if (!c.needed) continue;
+    if (smooth) {
+      smooth_component(d, c, latch.data() + ci * 10, prev_latch.data() + ci * 10);
+      continue;
+    }
+    const size_t stride = (size_t)c.pbw * 8;
+    for (int R = 0; R < c.bh; R++)
+      for (int C = 0; C < c.bw; C++)
+        idct_islow(c.block(C, R), c.q, c.plane.data() + (size_t)R * 8 * stride + (size_t)C * 8,
+                   (int)stride);
+  }
+}
 
 // Row y of one component, upsampled to the output width (jdsample.c at its
 // defaults). Returns a pointer into the plane or into `line`.
 const uint8_t* upsample_row(const Component& c, int hmax, int vmax, int width, int y,
                             uint8_t* line) {
   const int hs = hmax / c.h, vs = vmax / c.v;
-  const size_t stride = (size_t)c.bw * 8;
+  const size_t stride = (size_t)c.pbw * 8;
   const uint8_t* p = c.plane.data();
   const int dw = c.dw, dh = c.dh;
   auto row = [&](int r) { return p + (size_t)(r < 0 ? 0 : (r >= dh ? dh - 1 : r)) * stride; };
@@ -699,6 +1161,22 @@ struct YccTables {
 
 inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
+// jdcolor.c build_rgb_y_table: Y = 0.299 R + 0.587 G + 0.114 B, rounded
+struct RgbYTables {
+  int64_t r[256], g[256], b[256];
+  RgbYTables() {
+    auto fix = [](double x) { return (int64_t)(x * (1L << 16) + 0.5); };
+    for (int i = 0; i < 256; i++) {
+      r[i] = fix(0.29900) * i;
+      g[i] = fix(0.58700) * i;
+      b[i] = fix(0.11400) * i + ((int64_t)1 << 15);
+    }
+  }
+};
+
+// cv2's CMYK handling (imgcodecs utils.cpp): each of C, M, Y scaled by K
+inline int cmyk_channel(int v, int k) { return k - ((255 - v) * k >> 8); }
+
 Decoder header(const uint8_t* data, size_t n, bool color) {
   Decoder d(data, n);
   d.read_segments();
@@ -710,29 +1188,78 @@ Decoder header(const uint8_t* data, size_t n, bool color) {
 // decodes into out (h x w x ch, ch = 3 for colour, else 1)
 void decode(const uint8_t* data, size_t n, bool color, uint8_t* out) {
   Decoder d = header(data, n, color);
-  d.decode_scan();
-  const int h = d.height, w = d.width;
+  d.default_tables();
+  d.read_scan_header();
+  for (auto& c : d.comps)
+    if (c.needed) c.plane.assign((size_t)c.pbw * 8 * (size_t)c.pbh * 8, 0);
+  if (!d.progressive && d.sc.size() == d.comps.size()) {   // one scan: no buffer
+    Bits bits{d.data + d.pos, d.data + d.n};
+    d.sequential_scan(bits, true);
+  } else {
+    for (auto& c : d.comps) c.coef.assign((size_t)c.pbw * c.pbh * 64, 0);
+    for (;;) {
+      Bits bits{d.data + d.pos, d.data + d.n};
+      if (d.progressive) d.progressive_scan(bits);
+      else d.sequential_scan(bits, false);
+      if (!d.next_scan(bits)) break;
+    }
+    transform(d);
+    for (auto& c : d.comps) std::vector<int16_t>().swap(c.coef);
+  }
+  const int h = d.height, w = d.width, nc = (int)d.comps.size();
   const size_t lw = (size_t)w + 32;   // upsampled rows reach 2 * dw >= w
-  std::vector<uint8_t> lines(3 * lw);
+  std::vector<uint8_t> lines(4 * lw);
   static const YccTables t;
+  static const RgbYTables ty;
+  const uint8_t* r[4];
   for (int y = 0; y < h; y++) {
-    const uint8_t* yr = upsample_row(d.comps[0], d.hmax, d.vmax, w, y, lines.data());
-    if (!color) {   // JCS_GRAYSCALE: the Y plane
-      memcpy(out + (size_t)y * w, yr, (size_t)w);
-      continue;
-    }
-    uint8_t* o = out + (size_t)y * w * 3;
-    if (d.comps.size() == 1) {   // gray_rgb_convert
-      for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = yr[x];
-      continue;
-    }
-    const uint8_t* cbr = upsample_row(d.comps[1], d.hmax, d.vmax, w, y, lines.data() + lw);
-    const uint8_t* crr = upsample_row(d.comps[2], d.hmax, d.vmax, w, y, lines.data() + 2 * lw);
-    for (int x = 0; x < w; x++) {   // ycc_rgb_convert
-      int yy = yr[x], cb = cbr[x], cr = crr[x];
-      o[3 * x] = clamp255(yy + t.cr_r[cr]);
-      o[3 * x + 1] = clamp255(yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-      o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
+    for (int k = 0; k < nc; k++)
+      if (d.comps[k].needed)
+        r[k] = upsample_row(d.comps[k], d.hmax, d.vmax, w, y, lines.data() + k * lw);
+    uint8_t* o = out + (size_t)y * w * (color ? 3 : 1);
+    switch (d.space) {
+      case GRAY:
+      case YCC:
+        if (!color) {   // JCS_GRAYSCALE: the Y plane
+          memcpy(o, r[0], (size_t)w);
+        } else if (d.space == GRAY) {   // gray_rgb_convert
+          for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = r[0][x];
+        } else {   // ycc_rgb_convert
+          for (int x = 0; x < w; x++) {
+            int yy = r[0][x], cb = r[1][x], cr = r[2][x];
+            o[3 * x] = clamp255(yy + t.cr_r[cr]);
+            o[3 * x + 1] = clamp255(yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+            o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
+          }
+        }
+        break;
+      case RGB:
+        for (int x = 0; x < w; x++) {
+          if (color) {   // rgb_rgb_convert
+            o[3 * x] = r[0][x], o[3 * x + 1] = r[1][x], o[3 * x + 2] = r[2][x];
+          } else {       // rgb_gray_convert
+            o[x] = (uint8_t)((ty.r[r[0][x]] + ty.g[r[1][x]] + ty.b[r[2][x]]) >> 16);
+          }
+        }
+        break;
+      case CMYK:
+      case YCCK:
+        for (int x = 0; x < w; x++) {
+          int c0 = r[0][x], c1 = r[1][x], c2 = r[2][x], k = r[3][x];
+          if (d.space == YCCK) {   // ycck_cmyk_convert
+            int yy = c0, cb = c1, cr = c2;
+            c0 = clamp255(255 - (yy + t.cr_r[cr]));
+            c1 = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+            c2 = clamp255(255 - (yy + t.cb_b[cb]));
+          }
+          int cc = cmyk_channel(c0, k), mm = cmyk_channel(c1, k), yc = cmyk_channel(c2, k);
+          if (color) {   // icvCvt_CMYK2BGR_8u_C4C3R, in RGB order
+            o[3 * x] = (uint8_t)cc, o[3 * x + 1] = (uint8_t)mm, o[3 * x + 2] = (uint8_t)yc;
+          } else {       // icvCvt_CMYK2Gray_8u_C4C1R
+            o[x] = (uint8_t)((yc * 1868 + mm * 9617 + cc * 4899 + (1 << 13)) >> 14);
+          }
+        }
+        break;
     }
   }
 }

@@ -1,4 +1,4 @@
-"""The port's baseline JPEG decoder: `jpeg.cpp` through ctypes.
+"""The port's JPEG decoder: `jpeg.cpp` through ctypes.
 
 The library is compiled with g++ at first use into `build/native/` (see
 `native/__init__.py`). There is no fallback: when the build fails, reading
@@ -44,7 +44,8 @@ def _check(rc: int, err) -> None:
         return
     msg = err.value.decode(errors="replace")
     if rc == 1:
-        msg += "; the port decodes baseline and extended sequential Huffman JPEG only (ROADMAP.md)"
+        msg += ("; the port decodes sequential and progressive Huffman-coded 8-bit JPEG "
+                "(ROADMAP.md)")
     raise _ERRORS.get(rc, RuntimeError)(msg)
 
 

@@ -1,0 +1,532 @@
+"""Image files that cv2 and PIL do not write, made from numpy
+arrays with numpy and zlib only (no cv2, no PIL): chip_smoke.py imports it
+on the card's machine.
+
+PNG (`png_bytes`): every colour type and bit depth of the specification,
+Adam7 interlacing, any row filter (or all five in turn), extra chunks
+(tRNS, gAMA, sRGB, sBIT, eXIf), IDAT split over several chunks.
+
+JPEG (`jpeg_bytes`): a writer of quantised DCT coefficients, so that one
+set of coefficients can be coded as a baseline file, as sequential scans
+that each carry a subset of the components (non-interleaved), or as a
+progressive script with spectral selection and successive approximation
+(T.81 Annex G; EOB runs in the refinement scans, one EOB per block in the
+first ones), with restart intervals; Huffman tables are optimised per scan
+(Annex K.2, as libjpeg's jpeg_gen_optimal_table). `port_components`
+gives the coefficients that `io/jpeg.encode` codes, so that a re-coding of
+a baseline file from the port's encoder decodes to the same bits;
+`plane_components` quantises any set of planes (YCCK, RGB-coded).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+from panovlm_tpu_torch.io import jpeg
+
+# ----------------------------------------------------------------------------
+# PNG
+# ----------------------------------------------------------------------------
+
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}            # colour type -> samples
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _pack_rows(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) integer samples -> (h, rowbytes) uint8, MSB first."""
+    h, w, c = samples.shape
+    if depth == 16:
+        s = samples.astype(">u2").reshape(h, w * c)
+        return s.view(np.uint8).reshape(h, 2 * w * c)
+    if depth == 8:
+        return samples.reshape(h, w * c).astype(np.uint8)
+    bits = samples.reshape(h, w * c).astype(np.uint8)
+    per = 8 // depth
+    n = -(-w * c // per) * per
+    padded = np.zeros((h, n), np.uint8)
+    padded[:, :w * c] = bits
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    return (padded.reshape(h, -1, per) << shifts).sum(axis=2, dtype=np.uint16).astype(np.uint8)
+
+
+def _filter_rows(rows: np.ndarray, bpp: int, filters) -> bytes:
+    """PNG row filtering of (h, rowbytes) uint8: `filters` is a type 0-4
+    for every row, "cycle" (type y % 5 on row y) or a sequence per row."""
+    h, n = rows.shape
+    if h == 0 or n == 0:
+        return b""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp] if n > bpp else 0
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[:, bpp:] = b[:, :-bpp] if n > bpp else 0
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
+    if isinstance(filters, str):
+        kinds = np.arange(h) % 5
+    elif np.ndim(filters) == 0:
+        kinds = np.full(h, int(filters))
+    else:
+        kinds = np.asarray(filters)[:h]
+    out = np.empty((h, n + 1), np.uint8)
+    out[:, 0] = kinds
+    for f in range(5):
+        sel = kinds == f
+        out[sel, 1:] = ((x[sel] - preds[f][sel]) & 0xFF).astype(np.uint8)
+    return out.tobytes()
+
+
+def png_raw(samples, ctype: int, depth: int, interlace: bool = False, filters="cycle") -> bytes:
+    """The filtered (uncompressed) image data of a PNG."""
+    s = np.asarray(samples)
+    if s.ndim == 2:
+        s = s[..., None]
+    bpp = max(1, CHANNELS[ctype] * depth // 8)
+    if not interlace:
+        return _filter_rows(_pack_rows(s, depth), bpp, filters)
+    out = []
+    for x0, y0, dx, dy in ADAM7:
+        sub = s[y0::dy, x0::dx]
+        if sub.shape[0] and sub.shape[1]:
+            out.append(_filter_rows(_pack_rows(sub, depth), bpp, filters))
+    return b"".join(out)
+
+
+def png_bytes(samples, ctype: int, depth: int, interlace: bool = False, filters="cycle",
+              palette=None, trns: bytes | None = None, pre: tuple = (), post: tuple = (),
+              level: int = 6, idat_chunks: int = 1) -> bytes:
+    """A PNG file of integer `samples` ((h, w) or (h, w, c) at `depth`;
+    palette indices for colour type 3). `palette` (n, 3) uint8 goes in a
+    PLTE chunk, `trns` is the tRNS body; `pre` holds (kind, body) chunks
+    written before PLTE (gAMA, sRGB, sBIT, ...) and `post` chunks written
+    after IDAT (eXIf may go either side)."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    out = [PNG_MAGIC, chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                                 int(interlace)))]
+    out += [chunk(k, b) for k, b in pre]
+    if palette is not None:
+        out.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if trns is not None:
+        out.append(chunk(b"tRNS", trns))
+    data = zlib.compress(png_raw(s, ctype, depth, interlace, filters), level)
+    step = -(-len(data) // idat_chunks)
+    out += [chunk(b"IDAT", data[i:i + step]) for i in range(0, len(data), step)] or \
+        [chunk(b"IDAT", data)]
+    out += [chunk(k, b) for k, b in post]
+    out.append(chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def gama(gamma: float) -> tuple:
+    return (b"gAMA", struct.pack(">I", int(round(gamma * 100000))))
+
+
+def random_samples(h: int, w: int, ctype: int, depth: int, seed: int, n_palette: int = 0):
+    """Seeded samples that use the whole range of the depth, with smooth
+    structure and runs of equal values (so that every filter and, for RGB,
+    the r == g == b case of libpng's gray conversion occur)."""
+    rng = np.random.default_rng(seed)
+    c = CHANNELS[ctype]
+    top = (n_palette if ctype == 3 else 1 << depth) - 1
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    smooth = (0.5 + 0.5 * np.sin(yy / 3.0 + np.arange(c)[:, None, None])
+              * np.cos(xx / 5.0)).transpose(1, 2, 0)
+    s = np.round(smooth * top).astype(np.int64)
+    noise = rng.integers(0, top + 1, (h, w, c))
+    pick = rng.random((h, w, 1)) < 0.3
+    s = np.where(pick, noise, s)
+    if c >= 3:                                        # some gray pixels
+        g = rng.random((h, w)) < 0.2
+        s[g, 1] = s[g, 0]
+        s[g, 2] = s[g, 0]
+    s = np.clip(s, 0, top)
+    return s[..., 0] if c == 1 else s
+
+
+# ----------------------------------------------------------------------------
+# JPEG
+# ----------------------------------------------------------------------------
+
+def _category(v):
+    """Bit count of |v| (JPEG magnitude category), 0 for 0."""
+    a = np.abs(np.asarray(v, np.int64))
+    out = np.zeros(a.shape, np.int64)
+    nz = a > 0
+    out[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    return out
+
+
+def _extra(v, s):
+    """The s low bits that follow a category-s symbol for value v."""
+    return np.where(v >= 0, v, v + (1 << s) - 1) & ((1 << s) - 1)
+
+
+class _Tokens:
+    """A scan's output in order: (mcu, key) sort keys, Huffman table (-1:
+    raw bits), symbol, extra bits and their count."""
+
+    def __init__(self):
+        self.parts = []
+
+    def add(self, mcu, key, table, sym, extra, elen):
+        n = len(np.atleast_1d(mcu))
+        self.parts.append([np.broadcast_to(np.asarray(x, np.int64), (n,)).copy()
+                           for x in (mcu, key, table, sym, extra, elen)])
+
+    def arrays(self):
+        if not self.parts:
+            return [np.zeros(0, np.int64)] * 6
+        cols = [np.concatenate(c) for c in zip(*self.parts)]
+        order = np.lexsort((cols[1], cols[0]))
+        return [c[order] for c in cols]
+
+
+def _block_order(comp, scan_comps, mcux, one):
+    """(mcu index, slot in the MCU) of each block a scan codes of `comp`,
+    and the blocks' (row, col): the component's own blocks for a
+    one-component scan, the MCU grid otherwise."""
+    if one:
+        by, bx = np.meshgrid(np.arange(comp["bh"]), np.arange(comp["bw"]), indexing="ij")
+        by, bx = by.ravel(), bx.ravel()
+        return by * comp["bw"] + bx, np.zeros_like(by), by, bx
+    by, bx = np.meshgrid(np.arange(comp["pbh"]), np.arange(comp["pbw"]), indexing="ij")
+    by, bx = by.ravel(), bx.ravel()
+    offset = 0
+    for c in scan_comps:
+        if c is comp:
+            break
+        offset += c["h"] * c["v"]
+    mcu = (by // comp["v"]) * mcux + bx // comp["h"]
+    slot = offset + (by % comp["v"]) * comp["h"] + bx % comp["h"]
+    order = np.lexsort((slot, mcu))
+    return mcu[order], slot[order], by[order], bx[order]
+
+
+def _shift_ac(v, al):
+    """The encoder's point transform of AC values: magnitude >> Al, sign kept."""
+    return np.sign(v) * (np.abs(v) >> al)
+
+
+def _dc_tokens(tok, values, mcu, key, table, restart):
+    """DC differences along the scan order, the predictor reset at each
+    restart interval."""
+    interval = mcu // restart if restart else np.zeros_like(mcu)
+    prev = np.concatenate([[0], values[:-1]])
+    first = np.ones(len(values), bool)
+    first[1:] = interval[1:] != interval[:-1]
+    diff = values - np.where(first, 0, prev)
+    s = _category(diff)
+    tok.add(mcu, key, table, s, _extra(diff, s), s)
+
+
+def _band_tokens(tok, vals, mcu, key0, table):
+    """AC-first tokens of (blocks, band) values with no EOB runs: ZRLs, one
+    symbol per nonzero value and an EOB (symbol 0) after the last."""
+    n, L = vals.shape
+    b, p = np.nonzero(vals)
+    v = vals[b, p]
+    first = np.ones(len(b), bool)
+    first[1:] = b[1:] != b[:-1]
+    prev = np.where(first, -1, np.concatenate([[0], p[:-1]]))
+    run = p - prev - 1
+    zrl = run // 16
+    for k in range(int(zrl.max()) if len(zrl) else 0):
+        sel = zrl > k
+        tok.add(mcu[b[sel]], key0[b[sel]] + p[sel] * 4 + k, table, 0xF0, 0, 0)
+    s = _category(v)
+    tok.add(mcu[b], key0[b] + p * 4 + 3, table, (run % 16) * 16 + s, _extra(v, s), s)
+    last = np.full(n, -1)
+    np.maximum.at(last, b, p)
+    eob = np.nonzero(last < L - 1)[0]
+    tok.add(mcu[eob], key0[eob] + L * 4, table, 0, 0, 0)
+
+
+def _eob_symbol(run):
+    r = int(run).bit_length() - 1
+    return r * 16, run - (1 << r), r
+
+
+def _refine_tokens(tok, blocks, mcu, key0, table, ss, se, al, restart):
+    """AC refinement tokens of one component, with EOB runs and the
+    correction bits held as libjpeg's encoder (jcphuff.c
+    encode_mcu_AC_refine) holds them."""
+    out = []                    # (mcu, key, table, sym, extra, elen)
+    eobrun, held, anchor = 0, [], None
+
+    def flush():
+        nonlocal eobrun, held
+        if eobrun:
+            sym, ext, n = _eob_symbol(eobrun)
+            m, k = anchor
+            out.append((m, k, table, sym, ext, n))
+            out.extend((m, k + 1 + i, -1, bit, bit, 1) for i, bit in enumerate(held))
+        eobrun, held = 0, []
+
+    for i in range(len(blocks)):
+        if restart and i and mcu[i] % restart == 0 and mcu[i] != mcu[i - 1]:
+            flush()
+        blk = blocks[i]
+        absv = [abs(int(blk[k])) >> al for k in range(ss, se + 1)]
+        last_new = max([j for j, a in enumerate(absv) if a == 1], default=-1)
+        seq, r, corr = [], 0, []   # this block's (symbol or -1 for a raw bit, extra, length)
+        for j, a in enumerate(absv):
+            if a == 0:
+                r += 1
+                continue
+            while r > 15 and j <= last_new:
+                seq.append((0xF0, 0, 0))
+                seq.extend((-1, bit, 1) for bit in corr)
+                corr = []
+                r -= 16
+            if a > 1:
+                corr.append(a & 1)
+                continue
+            seq.append((r * 16 + 1, 0, 0))
+            seq.append((-1, 0 if blk[ss + j] < 0 else 1, 1))
+            seq.extend((-1, bit, 1) for bit in corr)
+            corr, r = [], 0
+        if seq:
+            flush()
+        m, base = int(mcu[i]), int(key0[i])
+        for j, (sym, ext, n) in enumerate(seq):
+            out.append((m, base + j, table, sym, ext, n) if sym >= 0 else
+                       (m, base + j, -1, ext, ext, n))
+        if r > 0 or corr:
+            if eobrun == 0:
+                anchor = (m, base + len(seq))
+            eobrun += 1
+            held.extend(corr)
+            if eobrun == 0x7FFF or len(held) > 937:
+                flush()
+    flush()
+    if out:
+        tok.add(*[np.array(c, np.int64) for c in zip(*out)])
+
+
+def _huffman_table(freq):
+    """libjpeg's jpeg_gen_optimal_table: (counts per length 1..16, values)."""
+    freq = list(freq) + [1]               # the reserved all-ones code
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        c1 = c2 = -1
+        v = None
+        for i in range(257):
+            if freq[i] and (v is None or freq[i] <= v):
+                v, c1 = freq[i], i
+        v = None
+        for i in range(257):
+            if freq[i] and i != c1 and (v is None or freq[i] <= v):
+                v, c2 = freq[i], i
+        if c2 < 0:
+            break
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        size[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            size[c1] += 1
+        others[c1] = c2
+        size[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            size[c2] += 1
+    bits = [0] * 33
+    for s in size:
+        if s:
+            bits[s] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    values = [j for length in range(1, 33) for j in range(256) if size[j] == length]
+    return bits[1:17], values
+
+
+def _scan_bytes(cols, tables, restart):
+    """Huffman-code a scan's sorted tokens; RSTn markers between restart
+    intervals."""
+    mcu, _, table, sym, extra, elen = cols
+    codes = {t: jpeg._huffman_codes(tables[t]) for t in tables}
+    bits = extra.copy()
+    nbits = elen.copy()
+    for t, (code_of, len_of) in codes.items():
+        sel = table == t
+        bits[sel] = (code_of[sym[sel]] << elen[sel]) | extra[sel]
+        nbits[sel] = len_of[sym[sel]] + elen[sel]
+    if not restart:
+        return jpeg._pack(bits, nbits)
+    interval = mcu // restart
+    out = []
+    for i, k in enumerate(np.unique(interval)):
+        sel = interval == k
+        if i:
+            out.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+        out.append(jpeg._pack(bits[sel], nbits[sel]))
+    return b"".join(out)
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(payload) + 2) + payload
+
+
+def jpeg_bytes(components, width: int, height: int, qtables, scans, restart: int = 0,
+               progressive: bool | None = None, jfif: bool = True, adobe: int | None = None,
+               app: tuple = ()) -> bytes:
+    """A JPEG file of quantised coefficients.
+
+    components: dicts with "id", "h", "v", "tq" and "coef", the (pbh, pbw,
+    64) zigzag-order coefficients of the MCU-padded block grid. qtables:
+    {slot: 64 values in natural order}. scans: ("seq", [component
+    indices]) for a sequential scan of coefficients 0-63, ("dc", [indices],
+    Ah, Al) and ("ac", index, Ss, Se, Ah, Al) for progressive ones; a
+    progressive file when any scan is not "seq" (or `progressive`).
+    `adobe` writes an APP14 with that transform; `app` holds whole extra
+    segments written after SOI."""
+    comps = [dict(c) for c in components]
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    for c in comps:
+        c["pbw"], c["pbh"] = mcux * c["h"], mcuy * c["v"]
+        c["bw"] = -(-(-(-width * c["h"] // hmax)) // 8)
+        c["bh"] = -(-(-(-height * c["v"] // vmax)) // 8)
+        assert c["coef"].shape == (c["pbh"], c["pbw"], 64), (c["coef"].shape, c["pbh"], c["pbw"])
+    if progressive is None:
+        progressive = any(s[0] != "seq" for s in scans)
+    head = [b"\xff\xd8", *app]
+    if jfif:
+        head.append(_segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if adobe is not None:
+        head.append(_segment(0xFFEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)))
+    head.append(_segment(0xFFDB, b"".join(
+        bytes([t]) + bytes(np.asarray(q)[jpeg.ZIGZAG].astype(np.uint8).tolist())
+        for t, q in sorted(qtables.items()))))
+    head.append(_segment(0xFFC2 if progressive else 0xFFC0, struct.pack(
+        ">BHHB", 8, height, width, len(comps)) + b"".join(
+        bytes([c["id"], c["h"] * 16 + c["v"], c["tq"]]) for c in comps)))
+    if restart:
+        head.append(_segment(0xFFDD, struct.pack(">H", restart)))
+    body = []
+    for scan in scans:
+        kind = scan[0]
+        idx = scan[1] if kind != "ac" else [scan[1]]
+        sc = [comps[i] for i in idx]
+        one = len(sc) == 1
+        tok = _Tokens()
+        for slot, c in enumerate(sc):
+            mcu, bslot, by, bx = _block_order(c, sc, mcux, one)
+            blocks = c["coef"][by, bx]
+            key0 = bslot * 1000
+            if kind == "seq":
+                _dc_tokens(tok, blocks[:, 0], mcu, key0, slot, restart)
+                _band_tokens(tok, blocks[:, 1:], mcu, key0 + 4, 4 + slot)
+            elif kind == "dc":
+                ah, al = scan[2], scan[3]
+                if ah == 0:
+                    _dc_tokens(tok, blocks[:, 0] >> al, mcu, key0, slot, restart)
+                else:
+                    bit = (blocks[:, 0] >> al) & 1
+                    tok.add(mcu, key0, -1, 0, bit, 1)
+            else:
+                ss, se, ah, al = scan[2:]
+                if ah == 0:
+                    vals = _shift_ac(blocks[:, ss:se + 1], al)
+                    _band_tokens(tok, vals, mcu, key0 + 4 * ss, 4 + slot)
+                else:
+                    _refine_tokens(tok, blocks, mcu, key0, 4 + slot, ss, se, al, restart)
+        cols = tok.arrays()
+        tables = {}
+        for t in np.unique(cols[2]):
+            if t < 0:
+                continue
+            freq = np.bincount(cols[3][cols[2] == t], minlength=256)
+            tables[int(t)] = _huffman_table(freq.tolist())
+        if tables:
+            body.append(_segment(0xFFC4, b"".join(
+                bytes([(16 if t >= 4 else 0) + t % 4]) + bytes(counts) + bytes(values)
+                for t, (counts, values) in sorted(tables.items()))))
+        ss, se, ahal = ((0, 63, 0) if kind == "seq" else
+                        (0, 0, scan[2] * 16 + scan[3]) if kind == "dc" else
+                        (scan[2], scan[3], scan[4] * 16 + scan[5]))
+        body.append(_segment(0xFFDA, bytes([len(sc)]) + b"".join(
+            bytes([c["id"], slot * 16 + slot]) for slot, c in enumerate(sc))
+            + bytes([ss, se, ahal])))
+        body.append(_scan_bytes(cols, tables, restart))
+    return b"".join(head + body + [b"\xff\xd9"])
+
+
+# the progressive script of libjpeg's jpeg_simple_progression for three
+# components (YCbCr) and for one
+SIMPLE_PROGRESSION_3 = (
+    ("dc", [0, 1, 2], 0, 1), ("ac", 0, 1, 5, 0, 2), ("ac", 2, 1, 63, 0, 1),
+    ("ac", 1, 1, 63, 0, 1), ("ac", 0, 6, 63, 0, 2), ("ac", 0, 1, 63, 2, 1),
+    ("dc", [0, 1, 2], 1, 0), ("ac", 2, 1, 63, 1, 0), ("ac", 1, 1, 63, 1, 0),
+    ("ac", 0, 1, 63, 1, 0))
+SIMPLE_PROGRESSION_1 = (
+    ("dc", [0], 0, 1), ("ac", 0, 1, 5, 0, 2), ("ac", 0, 6, 63, 0, 2),
+    ("ac", 0, 1, 63, 2, 1), ("dc", [0], 1, 0), ("ac", 0, 1, 63, 1, 0))
+
+
+def spectral_script(n_comps: int):
+    """A progressive script without AC refinement (each scan vectorised):
+    DC first at Al = 1 (interleaved), two AC bands per component, the DC
+    refinement last."""
+    script = [("dc", list(range(n_comps)), 0, 1)]
+    for c in range(n_comps):
+        script += [("ac", c, 1, 5, 0, 0), ("ac", c, 6, 63, 0, 0)]
+    return tuple(script + [("dc", list(range(n_comps)), 1, 0)])
+
+
+def port_components(img: np.ndarray, quality: int = 95):
+    """The components, quantisation tables and size that io/jpeg.encode
+    codes for a uint8 gray or RGB image (its coefficients, bit for bit)."""
+    comps, qtables = jpeg.quantized_components(img, quality)
+    return comps, qtables, img.shape[1], img.shape[0]
+
+
+def plane_components(planes, sampling, quality: int = 90, ids=None):
+    """Components of uint8 planes (full size, each in the colour space it is
+    coded in), quantised with the Annex K luma table (component 0) and
+    chroma table (others) at `quality`; sampling: (h, v) per plane, each
+    plane averaged over its sampling ratio, edges replicated to the MCU."""
+    h, w = planes[0].shape
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    q = {0: jpeg.quant_table(jpeg._LUMA_Q, quality), 1: jpeg.quant_table(jpeg._CHROMA_Q, quality)}
+    comps = []
+    for i, (p, (sh, sv)) in enumerate(zip(planes, sampling)):
+        fh, fv = hmax // sh, vmax // sv
+        H, W = mcuy * 8 * vmax, mcux * 8 * hmax
+        full = np.pad(np.asarray(p, np.float64), ((0, H - h), (0, W - w)), mode="edge")
+        sub = full.reshape(H // fv, fv, W // fh, fh).mean(axis=(1, 3))
+        tq = 0 if i == 0 else 1
+        coef = jpeg._quantized(sub, q[tq])
+        comps.append({"id": ids[i] if ids else i + 1, "h": sh, "v": sv, "tq": tq, "coef": coef})
+    return comps, q

@@ -14,10 +14,13 @@ tables, restart intervals, a one-component file, the port's own encoder's
 output, tables split over several segments and fill bytes before markers,
 each at 1 x 1, 7 x 13, 37 x 53 and 129 x 257; EXIF orientation 1-8 (and 0,
 9) in both byte orders, in an APP1 segment spliced into a cv2-written file.
-Progressive, arithmetic-coded and 12-bit files raise NotImplementedError
-naming ROADMAP; 2,000 corrupted files (bytes overwritten, files cut) decode
-or raise ValueError / NotImplementedError, in a subprocess that must not
-crash. chip_smoke.py's JPEG bounds: the q95 round trip of a
+A progressive file reads as cv2 reads it (the progressive, multi-scan,
+CMYK, YCCK and RGB-coded kinds in full: tests/test_torch_image_formats.py);
+arithmetic-coded and 12-bit files raise NotImplementedError naming
+ROADMAP; 2,000 corrupted files (bytes overwritten, files cut; baseline,
+progressive and multi-scan bases) decode or raise ValueError /
+NotImplementedError, in a subprocess that must not crash. chip_smoke.py's
+JPEG bounds: the q95 round trip of a
 phase-11 colour panorama at 360 x 720 stays within JPEG_Q95_MEAN / _MAX,
 and its embedded probe decodes to cv2's bits.
 """
@@ -206,13 +209,18 @@ def test_jpeg_exif_orientation_like_cv2(orientation, tmp_path):
 
 
 def test_jpeg_unsupported_kinds_raise(tmp_path):
+    """Arithmetic-coded and 12-bit files raise; a progressive file, refused
+    before the progressive decoder, now reads as cv2 reads it."""
     img = _test_image(37, 53, 6)
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    path = str(tmp_path / "progressive.jpg")
+    with open(path, "wb") as f:
+        f.write(prog.tobytes())
+    _assert_reads_like_cv2(path)
     ok, base = cv2.imencode(".jpg", img)
     base = base.tobytes()
     sof = base.index(b"\xff\xc0")
-    files = {"progressive": prog.tobytes(),
-             "arithmetic": base[:sof] + b"\xff\xc9" + base[sof + 2:],
+    files = {"arithmetic": base[:sof] + b"\xff\xc9" + base[sof + 2:],
              "12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:]}
     for name, data in files.items():
         path = str(tmp_path / f"{name}.jpg")
@@ -278,15 +286,25 @@ print(" ".join(sorted(seen)))
 
 
 def test_jpeg_corrupt_files_decode_or_raise(tmp_path):
+    """Baseline bases at four samplings, a progressive one (successive
+    approximation, restarts) and a multi-scan sequential one."""
+    import image_forge
     paths = []
-    for i, sampling in enumerate(("420", "444", "411", "440")):
+    for i, sampling in enumerate(("420", "444", "411", "440", "prog")):
         path = str(tmp_path / f"{i}.jpg")
+        flags = ([cv2.IMWRITE_JPEG_PROGRESSIVE, 1] if sampling == "prog" else
+                 [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]])
         ok, buf = cv2.imencode(".jpg", _test_image(37, 53, i),
-                               [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
-                                cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+                               flags + [cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
         with open(path, "wb") as f:
             f.write(buf.tobytes())
         paths.append(path)
+    comps, q, w, h = image_forge.port_components(_test_image(37, 53, 5), 95)
+    path = str(tmp_path / "multiscan.jpg")
+    with open(path, "wb") as f:
+        f.write(image_forge.jpeg_bytes(comps, w, h, q, [("seq", [2]), ("seq", [0, 1])],
+                                       restart=2))
+    paths.append(path)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _FUZZ, root, *paths], capture_output=True,
                          text=True, timeout=300)
