@@ -952,7 +952,8 @@ def start_mvs_dataset(root: str, n: int, pool, pano_hw=(PANO_H, PANO_W)):
 
     scans, poses = room_loop(n, sweep_alpha=0.0)
     R, t = _camera_convention(poses)   # T_cl = identity: camera at the LiDAR
-    for d in ("images", "color", "undis", "result/joint", "progressive", "png_variants"):
+    for d in ("images", "color", "undis", "result/joint", "progressive", "arithmetic",
+              "lossless", "png_variants"):
         os.makedirs(os.path.join(root, d))
     for i, scan in enumerate(scans):
         write_pcd(os.path.join(root, "undis", f"{i:06d}.pcd"), scan,
@@ -2166,9 +2167,10 @@ def run_colorize_chain(torch, sfm_cfg_path, device: str = "cuda"):
 # CMYK / YCCK, RGB-coded JPEG; every PNG), on the datasets of phases 6 and 11
 # ----------------------------------------------------------------------------
 
-# small files, one per kind (cv2- or PIL-written; YCCK and Adam7 by
-# tests/image_forge.py, as no tool writes them), each with the SHA-256 of
-# what cv2.imread gives for it in colour (RGB order) and in gray;
+# small files, one per kind (cv2- or PIL-written; YCCK, Adam7, arithmetic-
+# coded and lossless by tests/image_forge.py, as no tool writes them), each
+# with the SHA-256 of what cv2.imread gives for it in colour (RGB order) and
+# in gray, None where cv2 gives no image (the decoder must refuse the read);
 # tests/test_torch_image_formats.py recomputes them with cv2
 FORMAT_PROBES = {
     "progressive": (
@@ -2325,27 +2327,138 @@ FORMAT_PROBES = {
         "MC8idnTr4v8BVDRg7Ecn4uQAAAAASUVORK5CYII=",
         ".png", {"color": "063e658e0d48b3d6ebd48190973d32f34057e47aebfed36dd2edac5984a186b2",
                  "gray": "c9a2b6c83a19fabf8bf6819fe14ba034ebfebefc94e19a23fdf8a9f8b43c9383"}),
+    "arithmetic sequential": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wCEAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nIC"
+        "IsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDIBCQkJDAsMGA0NGDIhHCEyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMv/JABEIABgAKAMBIgACEQEDEQH/zAAIAEEQDBEC/90ABAAC/9oADA"
+        "MBAAIRAyIAPwDSjkecHiAxv3iitJQi3urpDD0a9mcnoGcNGMOQsC6iNSAVZsbM1hwnfjDgdDvhc2mj/wCV8AV1"
+        "f2MC7RWLPr+PjA1gw7CxSfoomI3+UxiueoyrS6FRfLbc6ZBIeLZWOc+qoxINPb76vX4oS5yryC208P5pbxclZ9"
+        "9oCdqNtOuWpeas6pOxVHaxpaGpCV4fyZWCtBNf1I3hsMb4VQLR5ug/6nqru/B19mf7aPAaIbb2GtnLsroge9/F"
+        "NlIoOfhTdBwfNrTd02abHDprFGUL+uQo+V4ZYgEeF04fzaMhONDGU4TqnxNiTnu6cwJYbmZVn8uoCL7phIeDrE"
+        "oRDv/Q0pb/AJzrjpIIM4UIt8YkGQte7GRSbwP73rPaTm8rBagKeI+yybk+SqwBmavoe0AbbZFgqX26SdmlE8zt"
+        "sXSwgja/mFCEXP8A6y0ejAYe7FLKABbG8GtKc3xF8ZS0MygPMzCuMuAI4IVyNsGS3hfSNpYIIAmzdURs0y3FHA"
+        "0db7pz+2ROpKSyLV48XxnZq+9OKdOyiwW8rCkLrMw6Nmye5kFLoLp+VmK9/wALN8F8q6Xoz/Lu8gUwA1n1zevr"
+        "MPIcUbKgmRFVeLXtDQCZvxuBq4j/0dKiJemNqHiGa1GNbjbm1xdGgnFASrEMUV74vCA0j/0H5kAd7RyYKBnl2D"
+        "WtNtrnydl9I0arghKrmV67v/L6Nj6C2ukrr1xu2pWk8/Hq6tLyh1HJPQu7FIlamwoYAA+jqodfPY2m7u3NKeLo"
+        "N0C9xWzN6/MzTGkGC64hEZHVxBgCqqXSm3UHd5MMoAdOxJ9Z/qeOBjPKY640zNKeBr75vit6m6nSUP/Z",
+        ".jpg", {"color": "07cbc15f866b2e4874591bbef4a01618a2cf27014ac1ac645e0421bcfc81b80a",
+                 "gray": "a7c5e503e0efe1fa95d6085ff61cc677ce73f9621eec85bc6f54039a8b08fe9a"}),
+    "arithmetic progressive": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wCEAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nIC"
+        "IsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDIBCQkJDAsMGA0NGDIhHCEyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMv/KABEIABgAKAMBIgACEQEDEQH/3QAEAAP/2gAMAwEAAhEDIgAAAd"
+        "HQkIL5d8F0HbsWPAPb3qEd1Zt+jP/Q/wAr0iE+MpkBV9fRV+aRIRL2IzEj6P/aAAgBAQABBQJEMZT9h03pYLVA"
+        "/9AVShkTxiGGBG7Q/9E22tUDqNQHtv/ShqevsAQXydic/9NLETaKkRf7Aln/2gAIAQMAAT8BDcweiLLp2RRwZq"
+        "L/0BW/hD/RB1ygruKr/9oACAECAAE/ARWoLz+EfdAi5bY5Y5M4uyb/0DnbiibY4oupbEgxPqBA/9oACAEBAAY/"
+        "An0OJzeLUIL/0JWpi755eYkg/9FikWN0qzgg9//SkW7S5Fvw/9MJVidZ8L7/2gAIAQEAAT8hUryRAl1G45TU/A"
+        "YwymCA/9A4b20BfyMTHqK5uN9ZGzE/vjfUR4X/0UyReFCJ0AAUd14qgx7N+RsY4ZP/0tkTu47AKu5RXgbz9yjO"
+        "T47BAtrVgP/TZXzrqRbmVCQkXRSDhf/aAAwDAQACEQMiAAAQ+K+A/9CyPf/aAAgBAwABPxBiL5PGwU7D48LZxQ"
+        "ZdRDaY/9AtVM/UczFTx9Ww/9oACAECAAE/EC8hCOrBQKOQq1Lb05gWOykTLAr/0ARV09VoIzzIOR11EJmzhIT/"
+        "2gAIAQEAAT8Qhr7oQqwpweYX8bbPGpgaLpOcHgsLTTg9IUR3JguTbqJaIMuA6uZKMP/QVnj/ACTz+sf0vqbHRC"
+        "lQwp6yFuhVzv3a9ZMRN1RBOIhL30D/0Wn2/fL4LIiHLiFhMS1U/Cf9VeQdZy0EShNJle2ymnmVNID/0mBvuY0n"
+        "/XiLC2Xobs2CVIr2gXQCfEbl8Tzrv3JfhI3KR2nA/9MgkNCdmbO+wfaImdS8oRG8iMe+hEG0tvgbysD8OuEYrG"
+        "djTC+ukP/Z",
+        ".jpg", {"color": "07cbc15f866b2e4874591bbef4a01618a2cf27014ac1ac645e0421bcfc81b80a",
+                 "gray": "a7c5e503e0efe1fa95d6085ff61cc677ce73f9621eec85bc6f54039a8b08fe9a"}),
+    "arithmetic progressive cut after scan 3": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wCEAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nIC"
+        "IsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDIBCQkJDAsMGA0NGDIhHCEyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMv/KABEIABgAKAMBIgACEQEDEQH/3QAEAAP/2gAMAwEAAhEDIgAAAd"
+        "HQkIL5d8F0HbsWPAPb3qEd1Zt+jP/Q/wAr0iE+MpkBV9fRV+aRIRL2IzEj6P/aAAgBAQABBQJEMZT9h03pYLVA"
+        "/9AVShkTxiGGBG7Q/9E22tUDqNQHtv/ShqevsAQXydic/9NLETaKkRf7Aln/2gAIAQMAAT8BDcweiLLp2RRwZq"
+        "L/0BW/hD/RB1ygruKr",
+        ".jpg", {"color": "0e215722efb71f87b521d594c34eeb9a70051ce3002fb5eae8a7e7c19d5bc67f",
+                 "gray": "2a3de6edbdf948b3a2ee386b9e2effb53669b26f8772170187a7e47bd23d37c8"}),
+    "lossless gray": (
+        "/9j/wwALCAAYACgBAREA/8QAGwAAAgMBAQEAAAAAAAAAAAAABAUCAwYBAAf/3QAEAFD/2gAIAQEABgABXHA+dS"
+        "msYSAsMGmWGrNBfygu52dRAVsaa3fAzBAHPrHeegPYaidqkjFXSvhYNUvRWXqouF+gWkw04IjIibH/0L2k0Nlc"
+        "a36GluoWNiFoRdUWymmbk9Bp864OJkIFGrTQ0vQ9PGst7idOQmCYKAWoKahyjdFHZpK6U7D2aBBdvxtInTf/0X"
+        "rRWRNYwXKqHAVa5V1rnj1jlWacUOxT6lXokOpRWaWNqdkyQHmRLzJbKIQK10yX8YhM86V1NIwAlA+hpE11wMKd"
+        "Gq//0n0W9N4FdVKRmMBTIRC/oQ6BF6eiEvvcrbWENYi7olDlHbSpKldSRxogVE+XEwHl7O7L1YB1RiZkwtgp1I"
+        "M/Vs//03Ujkp4HiBFtMIUwKE8FxbokZzW6lv2VjgD0DvVlhOq+cKAErofSFcDDWx6TXqAWpyrsguV3ZwgR0tJq"
+        "i9//1NVUGxULnIArMSjOR0UEfSaxG6KWnqT6EXllR9L2Q0W4OWYdzxGiVL+Up3BxKRTshWBD6hu9DrsVyeqdDV"
+        "eukCOlK//VYgtM7D1/WqtoiKrqbID4HiUOBpkriq13LeNFTWBy81A5Cf3UhRoo7E81pWULGXYwDD9WspeDlsc7"
+        "eBxaYl//1pUghOZCVaGStlyF5ATTiA1dpg6QCBrKKOVGoiCGC8TIjiahUl67WX+TvOF0mKA9TebmG/ajBra6Du"
+        "qNAsU2CFf/18xLjqKjSpynlwRA03l1wQxku9Qr7gXGfJMSxsF8BoM0KZSAAwROJ1Iy5dLrXi80FiQ1TqayH6tp"
+        "FIcOWKXWvd//0M/aofW1dGbjGdKl7SLHCfRxUH+oDWeqRXj3SykeXVVwrd5xYxXWHDcrre9rGJYALm6MfoZ/fc"
+        "V3WAao5kpOn//R+ft6hNQFFyKTA5ounqeEcsTEAjzqVOUay2zvhEJLFAybBENxW3bD4sV5DE/OD31Kyvcn0HVZ"
+        "N/1uIVxNo5D2mf/SyhVtD4Egldo+K9IstvJ6crZQHs4n9z2b0GcKCnRwDSg2iW6HLEQNc4xsUF5pZQrSPEhKxK"
+        "EeuJBbZw24g9c+0GZe/wD/2Q==",
+        ".jpg", {"color": None,
+                 "gray": "8074a04fb8e8913de4e0e3a58fea4178b5c3af1c75875cc9766c2956e08be5c8"}),
+    "lossless RGB": (
+        "/9j/wwARCAAYACgDASEAAhEAAxEA/8QAHAAAAgMBAQEBAAAAAAAAAAAABQYDBAcCAQAI/90ABAAo/9oADAMBAA"
+        "IAAwAEAAD5at5uTM37ZVQg8PGg9JBnovN+mJEh2rQ5C42y7G82kzjQ0QZdeg6062qtxXj+rO8tOZeLpl42+CVa"
+        "qHpEbdphtmuiK6pdQtz7XdIbi9Blo6Z2d29QzIwu7nE7oKUz2XmiooAQtPRnDsZtrz7SLh/JSjuimByGyzSHkM"
+        "jJBpV+5wvp90ES0quy3baVnC4GYNTJ8ikNd//Qb6y3VDnb9JcLFF83HbNDEMHC5ZnKKMBp3ofw254wTsehyWUd"
+        "Nn4YZYvE9yGsJs1fsxdqRi+jQXw2rsyznqdoOfS37XFQiZtiHAMz0kzRcOAOmy5Mt9cCSfF7QtirLDQT8HGUCs"
+        "vm7DwHDT5ID6cNFTvU9c0MfqACOXOyJxGCkG5sXW1UfgeW5se2jeVd1rKMthPrGMtdbn//0dJZ81ErBL41ygBo"
+        "hZproAu2cMsyuluwO+AVhDE0RXGDm4uJaRX+f9HaxlIEwVMwdOrnAU6y1WdSPqZKHR7DUOXM3Fu1s1eXWqrRqr"
+        "KgzadRf1AG2zrpZO9jaESy2uQJNIjF5nCPS3RTqsvJgyabzaQ35sDzZ2AGFqR+QdYjs64MyNdUd8TpWtmw4jVf"
+        "T7NGP4XjvXndL//S2q7i8NOSA2pnTudLXTK3I1A4gDy1CeqltRcurXUxmo6e8DLS1LVFNdt1WU26zMIusSmYeC"
+        "d9VlJIeXaU+fMpsK7ZynDBZmQt3ndq6CHkTa2ayxmzATvJ6y2pzSVWj9jGi5Ys3l8rRtQ40tapBUs4EDIovTlG"
+        "XFnzS/SmTE2go85fYRj1gom/oE1UAVVZTnXWZgN9ANSGhtszT//T3nNMM50ccQhRL5H1YEPiM2K6ybNCWO2vru"
+        "ogjNED9R9c/OTR477nyOsGT89wZoUjjCnrBfUVfgm9h0qZ2CyhngJnOr1OKafXLNUIvRtRXMFfQg9pX4S1LRcc"
+        "YVvveqKqyLR1WZlDivIzErXKsqLJNEMXLujM4s6RFLaD8ntupFecKf06GQ7oJrPmZB7yTR2pEPKEzMzp9U1//9"
+        "TSxGfhGNJqWmVLc52RPBpbHmjGQdU5sb4S4sTbjdCWd8khLQoTGem4Z6vkqK+bIiWwT4dCu9NVIrjeMg7JKZlg"
+        "hBPVhPeOSiyIYIL7NJmjqyBEbRMRVU7UNG0vI9FRleQwctxI0RzhxWBTWUHGsxcx6qxY2dGMduHUM/qugRzD5n"
+        "2Et6YX1rNQx9asPOWACLjAvacjSKWsDRf/1XMcnIiWR4Asywzu7B0VJUC92nmNrsqfKU6KcxxQo5Su2MquW+pk"
+        "xqcWHsT+fvqEyk10O1tr4roTKYqgiS66VirgoLnw2s6BLjDmxHYKrURSC4VtR6IlEvAWRGTZv0NWnu5tGznXqs"
+        "pidER9KRELaQjd4uVHoK5KeUpFlqbJA1qpFTnYiUQYA5r+y9AY8wd79wWi5nstHj//1h1D3HovbjwOaWniGfPA"
+        "AmyRI0jQDlvXBbXeHRSlwJRvvu801BIPoplkVNA4VrqYOEimF/R3xPaVdT1AuPf65qgaV0DRUxrjlb76d9qzS8"
+        "VszzRxU8/Y1GPWmLR1yBAfgSsx1mP2AI6RikdhWBYAee5X9pjcVNIcRHdzODp+bUaq80hHXOdBb84y91WkNYoq"
+        "ej6uj6GgDI8uZf/XRFDavz+58pX3xlYchdNjGvZ4aSKqmfas9o9265w01450v+VBNK9W0CWvVzZpIVI1QpwLcg"
+        "LemGHhcfWlSELZ+qz5YpXeDejMTHSGhER/idQ8VKxZLbHlFp4yplyUnQFRMxm0ivVOnnTn9oddYuC2B3WxZT89"
+        "yRs+jrQnsjrQpVOgm7JdPGJgjH6Tic0QOSwra/0Nm8qbjYtL1s6e/9DAZXjIyjQyUQTDUYjF1L79ZB4st39pci"
+        "+NZr+i5cHTC9eUgt16r0sEiBJHZXtg6sZ5Ll5NnoCD4n4hYJCV3yiw8aGnZ8aJtQDRhC3y4wrfANjaYJM3mprD"
+        "cmzM7NqnIzMFMPoZf4nifRbSR1csTbXSzjT2G5o6GLyBTqwuCnrRAMouxtkG5Km5swROHVxHzjYtWiZMiL4la0"
+        "n/0cYdN4/P6GYEsdwl30z+rL6woFUUTMJ3p14oHxrEGsJ3y1ce1s09X1bPhzNR+JLDLoNlRufZwrLhukcUL7F1"
+        "bbgyuRiOTLr6nN1JYZ3/AAsbd2cTf8toeYskBLVcEo6bFrnSeQOFEsMpz1SB26fYSyQXzJAMd7gRSCmdqmqYZB"
+        "WYl6zqrTfAGaegGkzP2Jn5ZlMuLSdVQH/KLLmB/9JeBOGJzsYryxZaXFfuyVWzgQRoMmdTiG1RZR46refLB8Il"
+        "UVvTGlXKobR4LLAwrgWrELy+E+FWCYzXmbN57wc0EhlE81V2eKgQqfGK7WHPEFGbG/L9kuw0KlsFMA6IatleiI"
+        "UmqLLhlJK6csHTeDqzqH1lcAxwaEs8KVmglaHpGfaVIuk0nGt3o56Yydo0pwuuFJlVRwuv/9k=",
+        ".jpg", {"color": "917f775c1cefd017730695d2a493dbc420171bddfcf832d3bcfb04f44f775a92",
+                 "gray": None}),
 }
 # the MVS frames re-coded as progressive files from the coefficients that
-# their baseline files carry (phase 16 (b)); the frame whose gray PNG and
-# the frame whose RGB array are re-written as PNG variants (phase 16 (c))
+# their baseline files carry (phase 16 (b)) and as arithmetic-coded ones
+# (phase 16 (d): even frames sequential with restarts every ARITH_RESTART
+# MCUs, odd frames libjpeg's simple progression); the frame whose gray PNG
+# and the frame whose RGB array are re-written as PNG variants (phase 16
+# (c)); the frame whose gray plane is also a lossless JPEG (phase 16 (e):
+# predictor 6, a restart interval of as many whole rows as fit 65535 MCUs)
 PROGRESSIVE_FRAMES = 4
+ARITH_RESTART = 90
 GRAY_VARIANT_FRAME, RGB_VARIANT_FRAME = 4, 5
+LOSSLESS_FRAME, LOSSLESS_PREDICTOR = GRAY_VARIANT_FRAME, 6
 PNG_VARIANTS = {"paeth": {"filters": 4}, "adam7": {"interlace": True}, "16bit": {}}
 
 
 def write_format_variants(root: str, i: int, rgb):
     """Render worker: frame i's extra files for phase 16: a progressive
     re-coding (image_forge.spectral_script: DC successive approximation,
-    spectral selection) of the coefficients of its baseline JPEG, or its
-    gray plane / RGB array as Paeth-filtered, Adam7 and 16-bit (v * 257)
-    PNGs beside an 8-bit filter-0 RGB PNG."""
+    spectral selection) and an arithmetic-coded one (sequential or simple
+    progression) of the coefficients of its baseline JPEG, or its gray
+    plane / RGB array as Paeth-filtered, Adam7 and 16-bit (v * 257) PNGs
+    beside an 8-bit filter-0 RGB PNG, and its gray plane as a lossless
+    JPEG."""
     import numpy as np
     import image_forge as forge
     if i < PROGRESSIVE_FRAMES:
         comps, q, w, h = forge.port_components(rgb, 95)
         with open(os.path.join(root, "progressive", f"{i:06d}.jpg"), "wb") as f:
             f.write(forge.jpeg_bytes(comps, w, h, q, forge.spectral_script(3)))
+        seq = i % 2 == 0
+        with open(os.path.join(root, "arithmetic", f"{i:06d}.jpg"), "wb") as f:
+            f.write(forge.jpeg_bytes(comps, w, h, q, [("seq", [0, 1, 2])] if seq else
+                                     forge.SIMPLE_PROGRESSION_3,
+                                     restart=ARITH_RESTART if seq else 0, arithmetic=True))
+    if i == LOSSLESS_FRAME:
+        plane = np.ascontiguousarray(rgb[..., 0])
+        h, w = plane.shape
+        with open(os.path.join(root, "lossless", f"{i:06d}.jpg"), "wb") as f:
+            f.write(forge.lossless_bytes([plane], w, h, predictor=LOSSLESS_PREDICTOR,
+                                         restart=(65535 // w) * w))
     for frame, kind, img in ((GRAY_VARIANT_FRAME, "gray", None), (RGB_VARIANT_FRAME, "rgb", rgb)):
         if i != frame:
             continue
@@ -2364,17 +2477,23 @@ def write_format_variants(root: str, i: int, rgb):
 
 def check_format_probes(names=None):
     """Phase 16 (a): the port's decoders on this machine give cv2's digests
-    on every embedded probe, in colour and in gray."""
+    on every embedded probe, in colour and in gray, and refuse the reads
+    cv2 gives no image for."""
     import base64
     import hashlib
     from panovlm_tpu_torch.native import jpeg as native_jpeg
     from panovlm_tpu_torch.native import png as native_png
+    def digest(decode, data, color):
+        try:
+            return hashlib.sha256(decode(data, color).tobytes()).hexdigest()
+        except native_jpeg.Cv2Refuses:   # a read cv2 gives no image for
+            return None
+
     for name in names or FORMAT_PROBES:
         b64, ext, want = FORMAT_PROBES[name]
         data = base64.b64decode(b64)
         decode = native_png.decode if ext == ".png" else native_jpeg.decode
-        got = {kind: hashlib.sha256(decode(data, kind == "color").tobytes()).hexdigest()
-               for kind in ("color", "gray")}
+        got = {kind: digest(decode, data, kind == "color") for kind in ("color", "gray")}
         log(f"format probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
         if got != want:
             fail(f"the decoder built here does not give cv2's bits on the {name} probe")
@@ -2389,66 +2508,105 @@ def _one_thread_ms(read, path, color, reps: int = 2):
     return img, best * 1000
 
 
-def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cuda"):
+def _recoded_frames(torch, root: str, kind: str, base: dict, phase11_pcd: bytes, device):
+    """The re-coded colour frames in root/kind load with the bits of their
+    baseline files (base: colour flag -> (images, names)) in both reads,
+    and the colorize stage on phase 11's frames with them in place writes
+    phase 11's colorized_map.pcd. Returns their number."""
+    import shutil
+    import numpy as np
+    from panovlm_tpu_torch.io import images
+    recoded, color_dir = os.path.join(root, kind), os.path.join(root, "color")
+    mixed_dir = os.path.join(root, f"color_{kind}")
+    os.makedirs(mixed_dir)
+    for name in sorted(os.listdir(color_dir)):
+        if not name.endswith(".jpg"):
+            continue
+        src = os.path.join(recoded, name)
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(mixed_dir, name))
+        else:
+            os.link(os.path.join(color_dir, name), os.path.join(mixed_dir, name))
+    n = len(os.listdir(recoded))
+    if n != PROGRESSIVE_FRAMES:
+        fail(f"{n} {kind} frames written, {PROGRESSIVE_FRAMES} expected")
+    for color in (True, False):
+        a, names_a = images.load_images_u8(recoded, 0, color=color)
+        b, names_b = base[color]
+        same = names_a == names_b and all(np.array_equal(x, y) for x, y in zip(a, b))
+        log(f"{kind} re-codings of {n} frames ({'colour' if color else 'gray'}, "
+            f"{a[0].shape}): {'the baseline bits' if same else 'DIFFER'}")
+        if not same:
+            fail(f"a {kind} frame does not decode to its baseline file's bits")
+        del a
+    with open(os.path.join(root, "color_config.txt")) as f:
+        text = f.read().replace(f"image_path = {root}/color", f"image_path = {mixed_dir}")
+    cfg_path = os.path.join(root, f"{kind}_config.txt")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    blob = run_colorize(torch, cfg_path, f"{n} {kind} frames", device)[0]
+    log(f"colorize stage with {n} {kind} frames: colorized_map.pcd "
+        f"{'bit-equal to phase 11' if blob == phase11_pcd else 'DIFFERS'}")
+    if blob != phase11_pcd:
+        fail(f"the colorize stage on {kind} frames differs from phase 11")
+    return n
+
+
+def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cuda",
+                      card: str = "no card"):
     """Phase 16: (a) the probes; (b) the progressive re-codings of the first
     PROGRESSIVE_FRAMES colour frames load with their baseline files' bits,
     and the colorize stage on the frames with those files in place writes
-    phase 11's colorized_map.pcd; (c) the full-size PNG variants load with
-    the 8-bit filter-0 files' bits (the 16-bit RGB file's gray read: libpng
-    converts at 16 bits, rounding, before it strips the low byte). Prints
-    one-thread decode times of the full-size files."""
-    import shutil
+    phase 11's colorized_map.pcd; (d) so do their arithmetic-coded
+    re-codings (sequential and progressive); (c) the full-size PNG variants
+    load with the 8-bit filter-0 files' bits (the 16-bit RGB file's gray
+    read: libpng converts at 16 bits, rounding, before it strips the low
+    byte); (e) the lossless JPEG of a gray frame decodes to its source plane
+    exactly. Prints one-thread decode times of the full-size files beside
+    the card line (nvidia-smi's name and power limit; the decoders run on
+    the host)."""
     import numpy as np
     from panovlm_tpu_torch.io import images
     from panovlm_tpu_torch.io.jpeg import read_jpeg
 
     root = os.path.dirname(mvs_cfg_path)
     check_format_probes()
-    # (b) progressive frames
-    prog_dir, color_dir = os.path.join(root, "progressive"), os.path.join(root, "color")
-    base_dir = os.path.join(root, "progressive_baseline")
-    mixed_dir = os.path.join(root, "color_progressive")
+    # (b) progressive and (d) arithmetic-coded frames, against the baseline
+    # files of the same frames
+    color_dir = os.path.join(root, "color")
+    base_dir = os.path.join(root, "recoded_baseline")
     os.makedirs(base_dir)
-    os.makedirs(mixed_dir)
-    for name in sorted(os.listdir(color_dir)):
-        if not name.endswith(".jpg"):
-            continue
-        src = os.path.join(color_dir, name)
-        prog = os.path.join(prog_dir, name)
-        if os.path.exists(prog):
-            os.link(src, os.path.join(base_dir, name))
-            shutil.copyfile(prog, os.path.join(mixed_dir, name))
-        else:
-            os.link(src, os.path.join(mixed_dir, name))
-    n_prog = len(os.listdir(prog_dir))
-    if n_prog != PROGRESSIVE_FRAMES:
-        fail(f"{n_prog} progressive frames written, {PROGRESSIVE_FRAMES} expected")
-    for color in (True, False):
-        a, names_a = images.load_images_u8(prog_dir, 0, color=color)
-        b, names_b = images.load_images_u8(base_dir, 0, color=color)
-        same = names_a == names_b and all(np.array_equal(x, y) for x, y in zip(a, b))
-        log(f"progressive re-codings of {n_prog} frames ({'colour' if color else 'gray'}, "
-            f"{a[0].shape}): {'the baseline bits' if same else 'DIFFER'}")
-        if not same:
-            fail("a progressive frame does not decode to its baseline file's bits")
-        del a, b
-    p0 = os.path.join(prog_dir, "000000.jpg")
-    img0, ms_prog = _one_thread_ms(read_jpeg, p0, True)
-    h0, w0 = img0.shape[:2]
-    del img0
-    _, ms_base = _one_thread_ms(read_jpeg, os.path.join(color_dir, "000000.jpg"), True)
-    log(f"one-thread decode of a 2880 x 5760 colour JPEG: progressive {ms_prog:.1f} ms "
-        f"({os.path.getsize(p0) / 2**20:.2f} MiB), baseline {ms_base:.1f} ms")
-    with open(os.path.join(root, "color_config.txt")) as f:
-        text = f.read().replace(f"image_path = {root}/color", f"image_path = {mixed_dir}")
-    cfg_path = os.path.join(root, "progressive_config.txt")
-    with open(cfg_path, "w") as f:
-        f.write(text)
-    blob = run_colorize(torch, cfg_path, f"{n_prog} progressive frames", device)[0]
-    log(f"colorize stage with {n_prog} progressive frames: colorized_map.pcd "
-        f"{'bit-equal to phase 11' if blob == phase11_pcd else 'DIFFERS'}")
-    if blob != phase11_pcd:
-        fail("the colorize stage on progressive frames differs from phase 11")
+    for name in sorted(os.listdir(os.path.join(root, "progressive"))):
+        os.link(os.path.join(color_dir, name), os.path.join(base_dir, name))
+    base = {color: images.load_images_u8(base_dir, 0, color=color) for color in (True, False)}
+    for kind in ("progressive", "arithmetic"):
+        _recoded_frames(torch, root, kind, base, phase11_pcd, device)
+    del base
+    # (e) the lossless gray frame
+    lossless = os.path.join(root, "lossless", f"{LOSSLESS_FRAME:06d}.jpg")
+    img, ms_lossless = _one_thread_ms(read_jpeg, lossless, False)
+    plane = images.read_png(os.path.join(root, "images", f"{LOSSLESS_FRAME:06d}.png"), False)
+    exact = img.shape == plane.shape and np.array_equal(img, plane)
+    log(f"lossless JPEG of frame {LOSSLESS_FRAME}'s gray plane ({img.shape}, predictor "
+        f"{LOSSLESS_PREDICTOR}): {'its source plane exactly' if exact else 'DIFFERS'}")
+    if not exact:
+        fail("the lossless frame does not decode to its source plane")
+    del img, plane
+    # decode times of one full-size colour frame in each coding
+    times = {}
+    for name, path in (("baseline", os.path.join(color_dir, "000000.jpg")),
+                       ("progressive", os.path.join(root, "progressive", "000000.jpg")),
+                       ("arithmetic sequential", os.path.join(root, "arithmetic", "000000.jpg")),
+                       ("arithmetic progressive",
+                        os.path.join(root, "arithmetic", "000001.jpg"))):
+        img, ms = _one_thread_ms(read_jpeg, path, True)
+        times[name] = (ms, os.path.getsize(path) / 2**20, img.shape)
+        del img
+    h0, w0 = times["baseline"][2][:2]
+    log(f"one-thread decode ({card}; host CPU) of a {h0} x {w0} colour JPEG: " + ", ".join(
+        f"{name} {ms:.1f} ms ({mib:.2f} MiB)" for name, (ms, mib, _) in times.items())
+        + f"; the lossless gray frame {ms_lossless:.1f} ms "
+        f"({os.path.getsize(lossless) / 2**20:.2f} MiB)")
     # (c) PNG variants
     var = os.path.join(root, "png_variants")
     refs = {"gray": os.path.join(root, "images", f"{GRAY_VARIANT_FRAME:06d}.png"),
@@ -3817,10 +3975,11 @@ def main():
             pcd11 = run_colorize_phase(torch, mvs_cfg)
             run_colorize_chain(torch, sfm_cfg)
             log(f"phase 11 (colorize): {time.time() - t0:.1f} s")
-            # 16. the image formats: probes, progressive frames through the
-            # colorize stage, full-size PNG variants
+            # 16. the image formats: probes, progressive and arithmetic-coded
+            # frames through the colorize stage, full-size PNG variants, a
+            # lossless frame
             t0 = time.time()
-            run_formats_phase(torch, mvs_cfg, pcd11)
+            run_formats_phase(torch, mvs_cfg, pcd11, card=card)
             del pcd11
             log(f"phase 16 (image formats): {time.time() - t0:.1f} s")
 

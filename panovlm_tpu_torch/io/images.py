@@ -20,10 +20,26 @@
     rounded to u8 at each level,
     BORDER_REFLECT_101 (pyrUp repeats the last row and column, as cv2's
     does);
-  * JPEG through `io/jpeg.read_jpeg` (the host C++ decoder
-    native/jpeg.cpp), with cv2.imread's bits: baseline, extended and
-    progressive Huffman files with one, three or four components; a gray read is
-    libjpeg's Y plane, not `rgb_to_gray` of the colour result.
+  * JPEG through the host C++ decoder native/jpeg.cpp, with cv2.imread's
+    bits: every JPEG cv2 reads (Huffman and arithmetic coding, baseline,
+    extended, progressive and lossless, one, three or four components);
+    a gray read is libjpeg's Y plane, not `rgb_to_gray` of the colour
+    result.
+
+The decoder is chosen by the file's first bytes, as cv2's findDecoder
+chooses it, never by its name: `image_format` names the format of every
+signature cv2 5.0 here has a decoder for. JPEG and PNG are read; the other
+formats (BMP, PxM / PAM, PFM, Sun raster, HDR, GIF, TIFF, WebP, JPEG 2000,
+AVIF) raise NotImplementedError naming ROADMAP.md; bytes that are no
+format's signature raise ValueError, as cv2.imread gives no image for them.
+The extension only decides which files `list_images` finds.
+
+`load_mask` is the JAX package's: where cv2.imread gives no image (a
+corrupt or cut file, no decoder for its first bytes, a kind of JPEG cv2
+refuses, an unreadable path) it logs "Fail to read mask" and returns None;
+a file cv2 reads and the port does not yet still raises. Its resize is
+cv2.resize's INTER_NEAREST: source index min(floor(i * (1 / (N / n))),
+n - 1) in float64.
 
 `load_images` decodes and pyramids the frames on threads (the decoders' C
 calls, zlib and numpy's loops release the GIL).
@@ -32,6 +48,7 @@ calls, zlib and numpy's loops release the GIL).
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import struct
 import zlib
@@ -41,6 +58,8 @@ import numpy as np
 import torch
 
 from .jpeg import read_jpeg
+
+log = logging.getLogger("panovlm")
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
@@ -90,19 +109,64 @@ def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
             >> 15).astype(np.uint8)
 
 
-def _is_jpeg(path: str) -> bool:
-    ext = os.path.splitext(path)[1].lower()
-    if ext not in (".jpg", ".jpeg", ".png"):
-        raise ValueError(f"{path}: unknown image format {ext}")
-    return ext != ".png"
+_SPACE = b" \t\n\v\f\r"
 
 
-def read_image(path: str, color: bool = False) -> np.ndarray:
-    """imread: uint8 gray (H,W), or RGB (H,W,3) with color=True (a gray
-    file gives three equal channels; alpha is dropped)."""
-    if _is_jpeg(path):
-        return read_jpeg(path, color)
-    return read_png(path, color)
+def image_format(head: bytes) -> str | None:
+    """The format whose signature the file's first bytes carry, as cv2
+    5.0's decoders check them (imgcodecs' checkSignature of each), or None
+    where no decoder of cv2 matches."""
+    if head[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if head[:8] == PNG_MAGIC:
+        return "PNG"
+    if head[:2] == b"BM":
+        return "BMP"
+    if head[:6] == b"#?RGBE" or head[:10] == b"#?RADIANCE":
+        return "HDR"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    if head[4:8] == b"ftyp":
+        size = int.from_bytes(head[:4], "big")
+        brands = [head[i:i + 4] for i in range(8, min(size, len(head)) - 3, 4)]
+        if b"avif" in brands or b"avis" in brands:
+            return "AVIF"
+    if head[:4] == b"\x59\xa6\x6a\x95":
+        return "Sun raster"
+    if len(head) >= 3 and head[:1] == b"P" and head[2] in _SPACE:
+        kind = head[1:2]
+        if b"1" <= kind <= b"6":
+            return "PxM"
+        if kind == b"7":
+            return "PAM"
+        if kind in (b"f", b"F"):
+            return "PFM"
+    if head[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return "TIFF"
+    if head[:4] == b"\xff\x4f\xff\x51" or head[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n":
+        return "JPEG 2000"
+    if head[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    return None
+
+
+def read_image(path: str, color: bool | None = False) -> np.ndarray:
+    """imread through the decoder the file's first bytes choose: uint8 gray
+    (H,W), or RGB (H,W,3) with color=True (a gray file gives three equal
+    channels; alpha is dropped). color=None is a colour read, except that a
+    gray PNG reads as gray (load_images pyramids its one channel before it
+    replicates it)."""
+    with open(path, "rb") as f:
+        kind = image_format(f.read(64))
+    if kind == "JPEG":
+        return read_jpeg(path, color is not False)
+    if kind == "PNG":
+        return read_png(path, color)
+    if kind is None:
+        raise ValueError(f"{path}: no image format's signature in its first bytes "
+                         "(cv2.imread has no decoder for it)")
+    raise NotImplementedError(f"{path}: a {kind} file; the port reads JPEG and PNG "
+                              "(ROADMAP.md queues the other formats cv2 reads)")
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:
@@ -182,10 +246,8 @@ def list_images(path: str):
 
 
 def _load(path: str, scale: int, color: bool) -> np.ndarray:
-    if _is_jpeg(path):
-        return apply_scale(read_jpeg(path, color), scale)
-    img = read_png(path, None if color else False)
-    if color and img.ndim == 2:   # the pyramid (per channel) once, then three channels
+    img = read_image(path, None if color else False)
+    if color and img.ndim == 2:   # a gray PNG: the pyramid (per channel) once, then three channels
         return np.repeat(apply_scale(img, scale)[..., None], 3, axis=-1)
     return apply_scale(img, scale)
 
@@ -208,14 +270,27 @@ def load_images(image_path: str, scale: int = 0, color: bool = False):
     return [img.astype(np.float32) / 255.0 for img in imgs], names
 
 
+def _nearest_index(n_out: int, n_in: int) -> np.ndarray:
+    """cv2.resize(INTER_NEAREST)'s source index of each output index:
+    min(floor(i * (1 / (n_out / n_in))), n_in - 1), in float64 as resizeNN
+    computes it."""
+    idx = np.floor(np.arange(n_out) * (1.0 / (n_out / n_in))).astype(np.int64)
+    return np.minimum(idx, n_in - 1)
+
+
 def load_mask(mask_path: str, H: int, W: int):
     """Static panorama mask (main.cpp:102-104/610-612): >0 = usable pixel,
-    nearest-resized to (H,W); None when unset or missing."""
+    nearest-resized to (H,W) as cv2.resize(INTER_NEAREST) resizes; None
+    when unset or missing, and, with the JAX package's log line, where
+    cv2.imread gives no image for the file."""
+    from ..native.jpeg import Cv2Refuses
     if not mask_path or not os.path.exists(mask_path):
         return None
-    m = read_image(mask_path)
+    try:
+        m = read_image(mask_path)
+    except (ValueError, OSError, Cv2Refuses):
+        log.error("Fail to read mask %s", mask_path)
+        return None
     if m.shape != (H, W):
-        ys = np.floor(np.arange(H) * (m.shape[0] / H)).astype(int)
-        xs = np.floor(np.arange(W) * (m.shape[1] / W)).astype(int)
-        m = m[ys][:, xs]
+        m = m[_nearest_index(H, m.shape[0])][:, _nearest_index(W, m.shape[1])]
     return m > 0

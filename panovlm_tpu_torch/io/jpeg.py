@@ -270,14 +270,18 @@ def read_jpeg(path: str, color: bool = False) -> np.ndarray:
     file (IMREAD_GRAYSCALE), or (H, W, 3) RGB with color=True (IMREAD_COLOR,
     then BGR -> RGB); turned by the EXIF orientation as imread does.
 
-    Reads baseline, extended and multi-scan sequential and progressive
-    Huffman-coded 8-bit files (a progressive file cut after any scan with
-    libjpeg's block smoothing), with one component, three (YCbCr, or RGB
-    by an Adobe transform 0 or ids 'R','G','B') or four (CMYK, YCCK; cv2's
-    CMYK -> BGR / gray arithmetic). Raises NotImplementedError naming
-    ROADMAP.md for arithmetic-coded and lossless files (which cv2 reads),
-    12-bit, hierarchical and 2-component files and a non-integral sampling
-    ratio in a component the read needs (which cv2 refuses)."""
+    Reads every JPEG cv2 reads: baseline, extended and multi-scan
+    sequential and progressive files, Huffman- or arithmetic-coded (a
+    progressive file cut after any scan with libjpeg's block smoothing),
+    with one component, three (YCbCr, or RGB by an Adobe transform 0 or
+    ids 'R','G','B') or four (CMYK, YCCK; cv2's CMYK -> BGR / gray
+    arithmetic); lossless files with 2- to 8-bit samples in the reads
+    libjpeg does without a colour conversion (gray of one component,
+    colour of RGB, either of CMYK). Raises native.jpeg.Cv2Refuses (a
+    NotImplementedError) where cv2 gives no image: 12-bit, hierarchical
+    and 2-component files, lossless arithmetic (SOF11), the other lossless
+    reads, a non-integral sampling ratio in a component the read needs;
+    ValueError for a corrupt file cv2 gives no image for."""
     from ..native import jpeg as native_jpeg
     with open(path, "rb") as f:
         data = f.read()

@@ -1,6 +1,7 @@
-// JPEG decoder (ITU-T T.81, Huffman coding, 8-bit) that gives the bits of
-// cv2.imread on libjpeg-turbo: the image stages read the Room and Floor
-// panoramas and their masks (JPEG) on a machine without cv2.
+// JPEG decoder (ITU-T T.81: Huffman and arithmetic coding, lossy and
+// lossless) that gives the bits of cv2.imread on libjpeg-turbo: the image
+// stages read the Room and Floor panoramas and their masks (JPEG) on a
+// machine without cv2.
 //
 // Read, as libjpeg-turbo 3.1 at its defaults (the decompression parameters
 // cv2 leaves alone) and cv2's own colour handling:
@@ -16,6 +17,31 @@
 //     decompress_smooth_data when a scan left coefficient bits unsent; a
 //     complete script leaves none, and its bits are those of a baseline
 //     file with the same quantised coefficients;
+//   * arithmetic coding (jdarith.c, T.81 Annex D and F.1.4 / G.1.3),
+//     sequential (SOF9) and progressive (SOF10): the QM decoder with the
+//     jaricom.c state table, the DC and AC statistics areas of each table
+//     slot (0-15) conditioned by DAC segments (defaults L = 0, U = 1,
+//     Kx = 5), reset where a scan begins and at each restart. A bad code
+//     (a spectral or magnitude overflow) leaves the rest of the restart
+//     interval's coefficients as they stand; past a marker or the end of
+//     the file the decoder reads zero bytes and goes on decoding, so a cut
+//     file's later MCUs are decoded from zeros (and no row is "short" for
+//     the block smoothing);
+//   * lossless frames (SOF3: jdlhuff.c, jddiffct.c, jdlossls.c): 2- to
+//     8-bit samples, predictors 1-7, point transform Pt, difference
+//     categories 0-16 (16 is 32768 with no extra bits), sums modulo 2^16,
+//     the first row of the scan and of each restart interval predicted from
+//     the left with 2^(P - Pt - 1) first, the first column of the others
+//     from above; an MCU is h x v samples, a restart interval a whole number
+//     of MCU rows (libjpeg refuses any other); the output sample is the low
+//     byte of the value << Pt. Upsampling replicates. libjpeg converts no
+//     colour space in lossless mode unless the conversion is lossless, so
+//     cv2 reads: a gray read of one component (its samples) or four (CMYK,
+//     through cv2's arithmetic), a colour read of three components coded
+//     RGB (a lossless file without JFIF or Adobe marker is RGB whatever its
+//     component ids; Adobe transform 0) or four (CMYK); it gives no image
+//     for the other reads, for YCbCr (JFIF, Adobe transform 1) and YCCK
+//     files, and for precisions above 8;
 //   * one component (gray), three (YCbCr; RGB when an Adobe APP14 has
 //     transform 0 or, with no JFIF or Adobe marker, the component ids are
 //     'R','G','B') and four (CMYK; YCCK when the Adobe transform is not 0),
@@ -35,7 +61,8 @@
 //   * YCbCr -> RGB: jdcolor.c's fixed-point tables (SCALEBITS 16);
 //   * FF/00 stuffing, FF fill bytes (FF FF 00 is one FF data byte), zero
 //     bits past the end of a scan and the rest of a restart interval left as
-//     it stands once the data ran out (libjpeg's insufficient_data), restart
+//     it stands once the data ran out (libjpeg's insufficient_data; a
+//     lossless scan's later MCU rows predict 2^(P-1)), restart
 //     intervals that reset the DC predictors and the EOB run, tables
 //     redefined between segments and scans, quantisation tables latched at
 //     each component's first scan, the standard Huffman tables in slots 0
@@ -43,18 +70,20 @@
 // The EXIF Orientation tag of the first APP1 segment is returned to the
 // caller, which applies it as cv2's imread does.
 //
-// Refused, each reported as "unsupported" with the codes below: arithmetic
-// coding (SOF9-SOF15, which cv2 reads: queued in ROADMAP.md), lossless and
-// hierarchical frames, 12-bit samples (cv2 reads neither), 2 components (cv2
-// gives no image), non-integral sampling ratios in a component the read
-// upsamples (libjpeg refuses them; a gray read of YCbCr needs Y only), a
-// height set by a DNL marker.
+// Refused, each with code REFUSED, as cv2.imread gives no image for any of
+// them: hierarchical frames (SOF5-7, SOF13-15) and the JPG marker (0xC8),
+// lossless arithmetic frames (SOF11: libjpeg-turbo does not decode them),
+// lossy frames of other than 8-bit samples (12-bit: cv2 reads 8 bits
+// only), lossless frames above 8 bits, 2 components, non-integral
+// sampling ratios in a component the read upsamples (libjpeg refuses them;
+// a gray read of YCbCr needs Y only), a height set by a DNL marker, and the
+// lossless reads listed above.
 //
 // C interface (ctypes): pv_jpeg_info(data, n, color, &h, &w, &ch,
 // &orientation, err, errlen), then pv_jpeg_decode(data, n, color, out, err,
 // errlen) into the caller's h * w * ch bytes; each returns 0 ok,
-// 1 unsupported, 2 corrupt, 3 no memory. No global state: frames decode on
-// threads.
+// 1 refused (cv2 gives no image for this kind of file either), 2 corrupt,
+// 3 no memory. No global state: frames decode on threads.
 
 #include <cstdint>
 #include <cstdio>
@@ -66,7 +95,7 @@
 
 namespace {
 
-enum { OK = 0, UNSUPPORTED = 1, CORRUPT = 2, NOMEM = 3 };
+enum { OK = 0, REFUSED = 1, CORRUPT = 2, NOMEM = 3 };
 
 struct Error {
   int code;
@@ -86,6 +115,7 @@ constexpr int kLookBits = 9;
 
 struct Huffman {
   bool defined = false;
+  int maxval = 0;                     // the largest symbol (a DC table's is checked per scan)
   uint8_t look_len[1 << kLookBits];   // 0: code longer than kLookBits
   uint8_t look_sym[1 << kLookBits];
   int32_t maxcode[18];
@@ -94,10 +124,9 @@ struct Huffman {
 };
 
 // jpeg_make_d_derived_tbl (jdhuff.c)
-void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int nvals, bool dc) {
-  if (dc)   // a DC symbol is a bit count of at most 15
-    for (int i = 0; i < nvals; i++)
-      if (vals[i] > 15) fail(CORRUPT, "bad DC Huffman table");
+void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int nvals) {
+  t.maxval = 0;
+  for (int i = 0; i < nvals; i++) t.maxval = vals[i] > t.maxval ? vals[i] : t.maxval;
   int size[257], code[257];
   int p = 0;
   for (int l = 1; l <= 16; l++)
@@ -175,6 +204,41 @@ const uint8_t kAcChromaVals[162] = {
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
+// jdmarker.c next_marker on entropy-coded data: on to an FF, FF fill bytes
+// swallowed, FF 00 skipped; where the file ends, the stdio source's EOI.
+int scan_marker(const uint8_t*& p, const uint8_t* end) {
+  for (;;) {
+    while (p < end && *p != 0xFF) p++;
+    while (p < end && *p == 0xFF) p++;
+    if (p >= end) return 0xD9;
+    int c = *p++;
+    if (c != 0) return c;
+  }
+}
+
+// jdmarker.c read_restart_marker and jpeg_resync_to_restart: at a restart
+// boundary, the marker the coder stopped at (-1: the next one in the data)
+// against the RSTn expected. Returns -1 where the coder goes on with the
+// data after it, else the marker left unread (the coder then reads the
+// interval as data that ran out).
+int restart_marker(const uint8_t*& p, const uint8_t* end, int marker, int& next_rst) {
+  const int want = next_rst;
+  next_rst = (next_rst + 1) & 7;
+  if (marker < 0) marker = scan_marker(p, end);
+  if (marker == 0xD0 + want) return -1;
+  for (;;) {   // resync: 1 discard the marker, 2 scan on to the next one, 3 leave it
+    int action;
+    if (marker < 0xC0) action = 2;
+    else if (marker < 0xD0 || marker > 0xD7) action = 3;
+    else if (marker == 0xD0 + ((want + 1) & 7) || marker == 0xD0 + ((want + 2) & 7)) action = 3;
+    else if (marker == 0xD0 + ((want - 1) & 7) || marker == 0xD0 + ((want - 2) & 7)) action = 2;
+    else action = 1;
+    if (action == 1) return -1;
+    if (action == 3) return marker;
+    marker = scan_marker(p, end);
+  }
+}
+
 // The entropy-coded segment as a bit stream (jdhuff.c jpeg_fill_bit_buffer):
 // at a marker it stops and supplies zero bits. Consuming one of those sets
 // `insufficient`, after which libjpeg decodes no further MCU until the next
@@ -185,6 +249,7 @@ struct Bits {
   uint64_t buf = 0;
   int n = 0;
   int fake = 0;             // zero bits supplied past the data, at the end of buf
+  int next_rst = 0;         // the RSTn expected at the next restart
   int marker = -1;          // the marker that ended the data, once seen
   bool insufficient = false;
 
@@ -193,8 +258,14 @@ struct Bits {
       int b = 0;
       bool real = false;
       if (marker < 0) {
-        if (p >= end) {
-          marker = 0xD9;   // truncated file: as at EOI
+        if (p >= end) {   // truncated file: as at EOI
+          if ((p - end) % 2) {   // a scan header read the FF of the stdio source's FF D9
+            b = 0xD9;
+            p++;
+            real = true;
+          } else {
+            marker = 0xD9;
+          }
         } else {
           b = *p++;
           real = true;
@@ -240,151 +311,206 @@ struct Bits {
     }
     int code = get(kLookBits);
     l = kLookBits;
-    while (l < 16 && code > t.maxcode[l]) {
+    while (code > t.maxcode[l]) {   // maxcode[17] stops it
       code = (code << 1) | get(1);
       l++;
     }
-    if (code > t.maxcode[l]) return 0;   // bad code: libjpeg warns, gives 0
+    if (l > 16) return 0;   // a bad code (17 bits read): libjpeg warns, gives 0
     return t.val[(code + t.valoffset[l]) & 0xFF];
   }
-  // at a restart boundary: drop the bits left in the byte and the RSTn
-  // marker (searching for it when the data did not end at a marker); the
-  // data flows again unless another marker stands there
+  // at a restart boundary: drop the bits left in the byte and take the
+  // RSTn marker; the data flows again unless a marker is left unread
   void restart() {
     buf = 0;
     n = 0;
     fake = 0;
-    if (marker < 0) {
-      while (p + 1 < end) {
-        if (p[0] == 0xFF && p[1] != 0 && p[1] != 0xFF) {
-          marker = p[1];
-          p += 2;
-          break;
-        }
-        p++;
+    marker = restart_marker(p, end, marker, next_rst);
+    if (marker < 0) insufficient = false;
+  }
+};
+
+// The entropy-coded segment as jdarith.c's QM decoder reads it (T.81
+// D.2): the C and A registers and the bit counter ct (-16 until two bytes
+// are in). FF 00 is one FF data byte; at a marker, or where the file ends
+// (libjpeg's stdio source inserts an EOI), it reads zero bytes from then on,
+// which is legal in arithmetic coding: nothing is "insufficient".
+struct Arith {
+  // jaricom.c jpeg_aritab (T.81 Table D.2): Qe << 16 | Next_Index_MPS << 8 |
+  // Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed 0.5
+  // estimate of T.851
+  static constexpr uint32_t kTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719, 0x006f081c,
+    0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024,
+    0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c,
+    0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843,
+    0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d,
+    0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b, 0x0bb64f4d, 0x0a40304d,
+    0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756,
+    0x557059d8, 0x4ca95a5f, 0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b,
+    0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+  };
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = -1;
+  int next_rst = 0;
+  bool error = false;               // jdarith's ct = -1: a bad code, until the next restart
+  static constexpr bool insufficient = false;
+
+  int byte() {
+    if (marker >= 0) return 0;
+    if (p >= end) {   // the stdio source's FF D9 (its D9 alone after a cut scan header)
+      if ((p++ - end) % 2) return 0xD9;
+      marker = 0xD9;
+      return 0;
+    }
+    int d = *p++;
+    if (d != 0xFF) return d;
+    do d = p < end ? *p++ : 0xD9; while (d == 0xFF);
+    if (d == 0) return 0xFF;
+    marker = d;
+    return 0;
+  }
+  // arith_decode: one binary decision on the statistics bin *st
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kTab[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF), nm = (int)((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < (int64_t)qe) {   // conditional LPS exchange
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {   // conditional MPS exchange
+      if (a < (int64_t)qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
       }
     }
-    if (marker >= 0xD0 && marker <= 0xD7) {
-      marker = -1;
-      insufficient = false;
-    }
+    return sv >> 7;
   }
+  // process_restart: the RSTn marker, then the registers as at the scan's
+  // start
+  void restart() {
+    c = 0;
+    a = 0;
+    ct = -16;
+    error = false;
+    marker = restart_marker(p, end, marker, next_rst);
+  }
+};
+
+// The statistics areas of an arithmetic-coded scan (jdarith.c): 64 DC and
+// 256 AC bins per table slot, the fixed 0.5 bin, and per component of the
+// scan the DC prediction and its conditioning context
+struct ArithStats {
+  uint8_t dc[16][64];
+  uint8_t ac[16][256];
+  uint8_t fixed_bin = 113;
+  int last_dc[4] = {0, 0, 0, 0};
+  int dc_context[4] = {0, 0, 0, 0};
 };
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-// jidctint.c jpeg_idct_islow
+// jidctint.c jpeg_idct_islow (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2) as
+// libjpeg-turbo's x86 SIMD version computes it (jidctint-avx2.asm, whose
+// arithmetic the SSE2 one shares), which is what cv2's build runs: the
+// dequantised coefficients and the sums in0 +- in4, in7 + in3 and
+// in5 + in1 in 16 bits (wrapping), the products and the rest in 32 bits,
+// each pass's output saturated to 16 bits, the samples to 8 bits (where
+// jidctint.c wraps far-out values through its range-limit table), and a
+// block whose rows 1-7 of coefficients are all zero done by the column
+// pass's shortcut (16-bit DC << PASS1_BITS, wrapping). On the values real
+// images give, this is jidctint.c's arithmetic exactly.
 constexpr int CONST_BITS = 13, PASS1_BITS = 2;
-constexpr int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
-                  FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
-                  FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
-                  FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+constexpr int32_t F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433, F_0_765 = 6270, F_0_899 = 7373,
+                  F_1_175 = 9633, F_1_501 = 12299, F_1_847 = 15137, F_1_961 = 16069,
+                  F_2_053 = 16819, F_2_562 = 20995, F_3_072 = 25172;
 
-inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
+inline int32_t w16(int32_t x) { return (int16_t)(uint16_t)(uint32_t)x; }
+inline int32_t add32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
+inline int32_t sub32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
+inline int32_t mad(int32_t a, int32_t ca, int32_t b, int32_t cb) {   // pmaddwd
+  return add32(a * ca, b * cb);
+}
+inline int32_t sat16(int32_t x) { return x < -32768 ? -32768 : (x > 32767 ? 32767 : x); }
 
-// The post-IDCT range limit (jdmaster.c prepare_range_limit_table): the
-// index is masked to 10 bits, so far-out values wrap as libjpeg's do.
-inline uint8_t idct_limit(int64_t x) {
-  int i = (int)(x & 1023);
-  if (i < 128) return (uint8_t)(i + 128);
-  if (i < 512) return 255;
-  if (i < 896) return 0;
-  return (uint8_t)(i - 896);
+// One 8-point pass (dodct) over in[0], in[step], ..., in[7 step] (16-bit
+// values); out[k] receives sample k before saturation, descaled by `shift`
+void idct_pass(const int32_t* in, int step, int shift, int32_t* out) {
+  const int32_t i0 = in[0], i1 = in[step], i2 = in[2 * step], i3 = in[3 * step],
+                i4 = in[4 * step], i5 = in[5 * step], i6 = in[6 * step], i7 = in[7 * step];
+  const int32_t tmp3e = mad(i2, F_0_541 + F_0_765, i6, F_0_541);
+  const int32_t tmp2e = mad(i2, F_0_541, i6, F_0_541 - F_1_847);
+  const int32_t tmp0e = w16(i0 + i4) * (1 << CONST_BITS);
+  const int32_t tmp1e = w16(i0 - i4) * (1 << CONST_BITS);
+  const int32_t tmp10 = add32(tmp0e, tmp3e), tmp13 = sub32(tmp0e, tmp3e);
+  const int32_t tmp11 = add32(tmp1e, tmp2e), tmp12 = sub32(tmp1e, tmp2e);
+  const int32_t z3 = w16(i7 + i3), z4 = w16(i5 + i1);
+  const int32_t z3s = mad(z3, F_1_175 - F_1_961, z4, F_1_175);
+  const int32_t z4s = mad(z3, F_1_175, z4, F_1_175 - F_0_390);
+  const int32_t tmp0 = add32(mad(i7, F_0_298 - F_0_899, i1, -F_0_899), z3s);
+  const int32_t tmp1 = add32(mad(i5, F_2_053 - F_2_562, i3, -F_2_562), z4s);
+  const int32_t tmp2 = add32(mad(i5, -F_2_562, i3, F_3_072 - F_2_562), z3s);
+  const int32_t tmp3 = add32(mad(i7, -F_0_899, i1, F_1_501 - F_0_899), z4s);
+  const int32_t half = 1 << (shift - 1);
+  auto d = [&](int32_t x) { return add32(x, half) >> shift; };
+  out[0] = d(add32(tmp10, tmp3));
+  out[7] = d(sub32(tmp10, tmp3));
+  out[1] = d(add32(tmp11, tmp2));
+  out[6] = d(sub32(tmp11, tmp2));
+  out[2] = d(add32(tmp12, tmp1));
+  out[5] = d(sub32(tmp12, tmp1));
+  out[3] = d(add32(tmp13, tmp0));
+  out[4] = d(sub32(tmp13, tmp0));
 }
 
 void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; c++) {
-    const int16_t* in = coef + c;
-    const uint16_t* qt = q + c;
-    int* w = ws + c;
-    // the zero-AC shortcut of the column pass gives the same values
-    int64_t z2 = (int64_t)in[16] * qt[16], z3 = (int64_t)in[48] * qt[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = (int64_t)in[0] * qt[0];
-    z3 = (int64_t)in[32] * qt[32];
-    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = (int64_t)in[56] * qt[56];
-    tmp1 = (int64_t)in[40] * qt[40];
-    tmp2 = (int64_t)in[24] * qt[24];
-    tmp3 = (int64_t)in[8] * qt[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = CONST_BITS - PASS1_BITS;
-    w[0] = (int)descale(tmp10 + tmp3, sh);
-    w[56] = (int)descale(tmp10 - tmp3, sh);
-    w[8] = (int)descale(tmp11 + tmp2, sh);
-    w[48] = (int)descale(tmp11 - tmp2, sh);
-    w[16] = (int)descale(tmp12 + tmp1, sh);
-    w[40] = (int)descale(tmp12 - tmp1, sh);
-    w[24] = (int)descale(tmp13 + tmp0, sh);
-    w[32] = (int)descale(tmp13 - tmp0, sh);
+  int32_t in[64], ws[64], o[8];
+  for (int k = 0; k < 64; k++) in[k] = w16((int32_t)coef[k] * (int16_t)q[k]);   // vpmullw
+  bool ac_zero = true;
+  for (int k = 8; k < 64 && ac_zero; k++) ac_zero = coef[k] == 0;
+  for (int c = 0; c < 8; c++) {   // columns
+    if (ac_zero) {
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = w16(in[c] * (1 << PASS1_BITS));
+      continue;
+    }
+    idct_pass(in + c, 8, CONST_BITS - PASS1_BITS, o);
+    for (int r = 0; r < 8; r++) ws[8 * r + c] = sat16(o[r]);
   }
-  for (int r = 0; r < 8; r++) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + (size_t)r * stride;
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << CONST_BITS);
-    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = CONST_BITS + PASS1_BITS + 3;
-    o[0] = idct_limit(descale(tmp10 + tmp3, sh));
-    o[7] = idct_limit(descale(tmp10 - tmp3, sh));
-    o[1] = idct_limit(descale(tmp11 + tmp2, sh));
-    o[6] = idct_limit(descale(tmp11 - tmp2, sh));
-    o[2] = idct_limit(descale(tmp12 + tmp1, sh));
-    o[5] = idct_limit(descale(tmp12 - tmp1, sh));
-    o[3] = idct_limit(descale(tmp13 + tmp0, sh));
-    o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+  for (int r = 0; r < 8; r++) {   // rows
+    idct_pass(ws + 8 * r, 1, CONST_BITS + PASS1_BITS + 3, o);
+    uint8_t* p = out + (size_t)r * stride;
+    for (int k = 0; k < 8; k++) {
+      int32_t v = o[k];
+      p[k] = (uint8_t)((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
   }
 }
 
@@ -396,12 +522,13 @@ struct Component {
   int bw = 0, bh = 0;      // width_in_blocks / height_in_blocks
   int pbw = 0, pbh = 0;    // rounded up to the sampling factors: the MCU grid
   int dw = 0, dh = 0;      // downsampled_width / _height: its real samples
+  size_t stride = 0;       // of the plane: pbw * 8 samples (lossless: pbw)
   bool needed = true;
   bool latched = false;    // quantisation table latched at its first scan
   uint16_t q[64];
   int coef_bits[64], prev_coef_bits[64];   // jdphuff.c's bookkeeping (-1: no scan yet)
   std::vector<int16_t> coef;               // pbw x pbh blocks of 64, natural order
-  std::vector<uint8_t> plane;              // pbw*8 x pbh*8 samples
+  std::vector<uint8_t> plane;              // pbw*8 x pbh*8 samples (lossless: pbw x pbh)
   int16_t* block(int bx, int by) { return coef.data() + ((size_t)by * pbw + bx) * 64; }
 };
 
@@ -414,7 +541,10 @@ struct Decoder {
   Huffman dc[4], ac[4];
   int restart_interval = 0;
   int width = 0, height = 0;
-  bool progressive = false;
+  bool progressive = false, arithmetic = false, lossless = false;
+  int precision = 8;
+  uint8_t dac_L[16], dac_U[16], dac_K[16];   // arithmetic conditioning (DAC)
+  std::vector<bool> first_row;   // lossless: the component's next row is predicted as a first row
   std::vector<Component> comps;
   int hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0;    // MCUs of an interleaved scan; mcuy = total_iMCU_rows
@@ -429,7 +559,11 @@ struct Decoder {
   int scans = 0;             // input_scan_number
   int last_good_row = 0;     // the last iMCU row whose decoding began with data left
 
-  Decoder(const uint8_t* d, size_t len) : data(d), n(len) {}
+  Decoder(const uint8_t* d, size_t len) : data(d), n(len) {
+    memset(dac_L, 0, sizeof dac_L);   // jdmarker.c get_soi's defaults
+    memset(dac_U, 1, sizeof dac_U);
+    memset(dac_K, 5, sizeof dac_K);
+  }
 
   int u8() {
     if (pos >= n) fail(CORRUPT, "unexpected end of file");
@@ -488,21 +622,24 @@ struct Decoder {
     }
   }
 
-  void read_frame(bool prog) {
+  void read_frame(bool prog, bool arith, bool lossl) {
     if (!comps.empty()) fail(CORRUPT, "two frame headers");
     progressive = prog;
-    int precision = u8();
+    arithmetic = arith;
+    lossless = lossl;
+    precision = u8();
     height = u16();
     width = u16();
     int nc = u8();
-    if (precision != 8) fail(UNSUPPORTED, std::to_string(precision) + "-bit samples");
-    if (height == 0) fail(UNSUPPORTED, "the height is set by a DNL marker");
+    if (lossless ? precision < 2 || precision > 8 : precision != 8)
+      fail(REFUSED, std::to_string(precision) + "-bit samples" + (lossless ? " (lossless)" : ""));
+    if (height == 0) fail(REFUSED, "the height is set by a DNL marker");
     if (width == 0) fail(CORRUPT, "zero width");
     // libjpeg's JPEG_MAX_DIMENSION, and cv2's limit of 2^30 pixels
     if (width > 65500 || height > 65500 || (int64_t)width * height > ((int64_t)1 << 30))
       fail(CORRUPT, "image larger than libjpeg or cv2 read");
     if (nc != 1 && nc != 3 && nc != 4)
-      fail(UNSUPPORTED, std::to_string(nc) + " components");
+      fail(REFUSED, std::to_string(nc) + " components");
     for (int i = 0; i < nc; i++) {
       Component c;
       c.id = u8();
@@ -532,7 +669,7 @@ struct Decoder {
           for (int i = 0; i < 16; i++) total += counts[i];
           if (tc > 1 || th > 3 || total > 256 || o + 17 + total > seg_len)
             fail(CORRUPT, "bad DHT segment");
-          build_huffman(tc ? ac[th] : dc[th], counts, seg + o + 17, total, tc == 0);
+          build_huffman(tc ? ac[th] : dc[th], counts, seg + o + 17, total);
           o += 17 + (size_t)total;
         }
         return true;
@@ -551,6 +688,20 @@ struct Decoder {
         }
         return true;
       }
+      case 0xCC:   // DAC (jdmarker.c get_dac): Tc << 4 | Tb, then L | U << 4 or Kx
+        if (seg_len % 2) fail(CORRUPT, "bad DAC segment");
+        for (size_t o = 0; o < seg_len; o += 2) {
+          int index = seg[o], val = seg[o + 1];
+          if (index >= 32) fail(CORRUPT, "bad DAC table index");
+          if (index >= 16) {
+            dac_K[index - 16] = (uint8_t)val;
+          } else {
+            dac_L[index] = (uint8_t)(val & 15);
+            dac_U[index] = (uint8_t)(val >> 4);
+            if (dac_L[index] > dac_U[index]) fail(CORRUPT, "bad DAC value");
+          }
+        }
+        return true;
       case 0xDD:
         if (seg_len < 2) fail(CORRUPT, "bad DRI segment");
         restart_interval = (seg[0] << 8) | seg[1];
@@ -569,8 +720,13 @@ struct Decoder {
     pos = 2;
     for (;;) {
       int m = next_marker();
-      if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;   // no payload
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;   // no payload
+      if (m == 0xD8) fail(CORRUPT, "a second SOI");
       if (m == 0xD9) fail(CORRUPT, "no scan before EOI");
+      if (m == 0xDA) {   // read_scan_header reads the segment (a cut one too)
+        if (comps.empty()) fail(CORRUPT, "scan before the frame header");
+        return;
+      }
       int len = u16();
       if (len < 2 || pos + len - 2 > n) fail(CORRUPT, "bad segment length");
       const uint8_t* seg = data + pos;
@@ -580,21 +736,22 @@ struct Decoder {
         case 0xC0:
         case 0xC1:
         case 0xC2:
-          read_frame(m == 0xC2);
-          break;
         case 0xC3:
-        case 0xC7:
-        case 0xCB:
-        case 0xCF:
-          fail(UNSUPPORTED, "lossless JPEG");
-        case 0xC5:
-        case 0xC6:
-        case 0xCD:
-        case 0xCE:
-          fail(UNSUPPORTED, "hierarchical JPEG");
         case 0xC9:
         case 0xCA:
-          fail(UNSUPPORTED, "arithmetic coding");
+          read_frame(m == 0xC2 || m == 0xCA, m >= 0xC9, m == 0xC3);
+          break;
+        case 0xCB:
+          fail(REFUSED, "lossless arithmetic-coded JPEG (SOF11)");
+        case 0xC5:
+        case 0xC6:
+        case 0xC7:
+        case 0xCD:
+        case 0xCE:
+        case 0xCF:
+          fail(REFUSED, "hierarchical JPEG");
+        case 0xC8:
+          fail(REFUSED, "JPG extension marker");
         case 0xE0:
           if (seg_len >= 14 && memcmp(seg, "JFIF\0", 5) == 0) saw_jfif = true;
           break;
@@ -610,13 +767,8 @@ struct Decoder {
             adobe_transform = seg[11];
           }
           break;
-        case 0xDA:
-          if (comps.empty()) fail(CORRUPT, "scan before the frame header");
-          pos -= 2;   // back to the length: read_scan_header reads it
-          return;
-        default:
-          if (m >= 0xC8 && m <= 0xCF) fail(UNSUPPORTED, "arithmetic coding");
-          table_segment(m, seg, seg_len);   // anything else is skipped
+        default:   // libjpeg refuses a marker it does not know (JERR_UNKNOWN_MARKER)
+          if (!table_segment(m, seg, seg_len)) fail(CORRUPT, "unknown marker");
           break;
       }
       pos = next;
@@ -631,7 +783,7 @@ struct Decoder {
       bool rgb;
       if (saw_jfif) rgb = false;
       else if (saw_adobe) rgb = adobe_transform == 0;
-      else rgb = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+      else rgb = lossless || (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
       space = rgb ? RGB : YCC;
     } else {
       space = saw_adobe && adobe_transform == 0 ? CMYK : (saw_adobe ? YCCK : CMYK);
@@ -643,41 +795,63 @@ struct Decoder {
       hmax = c.h > hmax ? c.h : hmax;
       vmax = c.v > vmax ? c.v : vmax;
     }
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int unit = lossless ? 1 : 8;   // samples per block side
+    mcux = (width + unit * hmax - 1) / (unit * hmax);
+    mcuy = (height + unit * vmax - 1) / (unit * vmax);
     for (auto& c : comps) {
       c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + unit - 1) / unit;
+      c.bh = (c.dh + unit - 1) / unit;
       c.pbw = mcux * c.h;
       c.pbh = mcuy * c.v;
+      c.stride = (size_t)c.pbw * unit;
     }
+    // jdcolor.c allows no lossy colour conversion in lossless mode: cv2's
+    // colour read asks for BGR (CMYK of four components), its gray read for
+    // gray (CMYK of four components)
+    if (lossless && !(space == CMYK || (color ? space == RGB : space == GRAY)))
+      fail(REFUSED, std::string("a ") + (color ? "colour" : "gray") + " read of a lossless " +
+                        (space == GRAY ? "gray" : space == RGB ? "RGB" : space == YCCK ? "YCCK"
+                                                                                   : "YCbCr") +
+                        " JPEG (libjpeg converts no colour space losslessly)");
     // a gray read of YCbCr (or gray) needs the luma component only
     if (!color && (space == YCC || space == GRAY))
       for (size_t i = 1; i < comps.size(); i++) comps[i].needed = false;
     // jdsample.c refuses a non-integral ratio in the components it upsamples
     for (auto& c : comps)
-      if (c.needed && (hmax % c.h || vmax % c.v)) fail(UNSUPPORTED, "non-integral sampling ratio");
+      if (c.needed && (hmax % c.h || vmax % c.v)) fail(REFUSED, "non-integral sampling ratio");
   }
 
   // jstdhuff.c: the standard tables where the file defined none by the
   // first scan
   void default_tables() {
-    if (!dc[0].defined) build_huffman(dc[0], kDcLumaCounts, kDcVals, 12, true);
-    if (!dc[1].defined) build_huffman(dc[1], kDcChromaCounts, kDcVals, 12, true);
-    if (!ac[0].defined) build_huffman(ac[0], kAcLumaCounts, kAcLumaVals, 162, false);
-    if (!ac[1].defined) build_huffman(ac[1], kAcChromaCounts, kAcChromaVals, 162, false);
+    if (!dc[0].defined) build_huffman(dc[0], kDcLumaCounts, kDcVals, 12);
+    if (!dc[1].defined) build_huffman(dc[1], kDcChromaCounts, kDcVals, 12);
+    if (!ac[0].defined) build_huffman(ac[0], kAcLumaCounts, kAcLumaVals, 162);
+    if (!ac[1].defined) build_huffman(ac[1], kAcChromaCounts, kAcChromaVals, 162);
   }
+
+  // a DC table's symbols are bit counts: at most 15 (lossless: 16)
+  void dc_table_ok(int td, int maxval) {
+    if (td > 3 || !dc[td].defined) fail(CORRUPT, "undefined Huffman table");
+    if (dc[td].maxval > maxval) fail(CORRUPT, "bad DC Huffman table");
+  }
+
+  // A byte of a scan header. Past the end of a cut file, libjpeg's stdio
+  // source supplies EOI markers (FF D9 FF D9 ...), which get_sos reads as
+  // the header's bytes.
+  int sos_u8() { return pos < n ? data[pos++] : ((pos++ - n) % 2 ? 0xD9 : 0xFF); }
 
   // jdmarker.c get_sos, then the checks of jdinput.c and jdphuff.c
   void read_scan_header() {
-    int len = u16();
-    int ns = u8();
+    int len = sos_u8() << 8;
+    len |= sos_u8();
+    int ns = sos_u8();
     if (len != ns * 2 + 6 || ns < 1 || ns > 4) fail(CORRUPT, "bad scan header");
     sc.clear();
     for (int i = 0; i < ns; i++) {
-      int id = u8(), t = u8();
+      int id = sos_u8(), t = sos_u8();
       Component* c = nullptr;
       for (auto& k : comps)
         if (k.id == id) c = &k;
@@ -688,15 +862,21 @@ struct Decoder {
       c->ta = t & 15;
       sc.push_back(c);
     }
-    Ss = u8();
-    Se = u8();
-    int a = u8();
+    Ss = sos_u8();
+    Se = sos_u8();
+    int a = sos_u8();
     Ah = a >> 4;
     Al = a & 15;
     scans++;
     int blocks = 0;
     for (auto* c : sc) blocks += ns == 1 ? 1 : c->h * c->v;
     if (blocks > 10) fail(CORRUPT, "too many blocks in an MCU");
+    if (lossless) {   // jdlossls.c start_pass_lossless; jdlhuff.c's tables (categories to 16)
+      if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= precision)
+        fail(CORRUPT, "bad lossless scan parameters");
+      for (auto* c : sc) dc_table_ok(c->td, 16);
+      return;
+    }
     for (auto* c : sc) {   // jdinput.c latch_quant_tables
       if (c->latched) continue;
       if (!qt_defined[c->tq]) fail(CORRUPT, "undefined quantisation table");
@@ -704,9 +884,11 @@ struct Decoder {
       c->latched = true;
     }
     if (!progressive) {   // Ss, Se, Ah, Al are not checked: libjpeg only warns
-      for (auto* c : sc)
-        if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-          fail(CORRUPT, "undefined Huffman table");
+      if (!arithmetic)    // (an arithmetic table slot is any of 0-15)
+        for (auto* c : sc) {
+          dc_table_ok(c->td, 15);
+          if (c->ta > 3 || !ac[c->ta].defined) fail(CORRUPT, "undefined Huffman table");
+        }
       return;
     }
     bool dc_band = Ss == 0, bad = false;
@@ -716,9 +898,13 @@ struct Decoder {
     if (Al > 13) bad = true;
     if (bad) fail(CORRUPT, "bad progression parameters");
     for (auto* c : sc) {
-      if (dc_band ? (Ah == 0 && (c->td > 3 || !dc[c->td].defined))
-                  : (c->ta > 3 || !ac[c->ta].defined))
-        fail(CORRUPT, "undefined Huffman table");
+      if (!arithmetic) {
+        if (!dc_band) {
+          if (c->ta > 3 || !ac[c->ta].defined) fail(CORRUPT, "undefined Huffman table");
+        } else if (Ah == 0) {
+          dc_table_ok(c->td, 15);
+        }
+      }
       int lo = Ss < 1 ? Ss : 1, hi = Se > 9 ? Se : 9;
       for (int k = lo; k <= hi; k++) c->prev_coef_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
       for (int k = Ss; k <= Se; k++) c->coef_bits[k] = Al;
@@ -726,10 +912,10 @@ struct Decoder {
   }
 
   // The MCUs of the current scan in order: calls mcu(mx, my) after the
-  // restart bookkeeping; `direct` decodes regardless of insufficient data
-  // (the caller then sees zero blocks).
-  template <class F>
-  void each_mcu(Bits& bits, F&& mcu, int* pred, int* eobrun) {
+  // restart bookkeeping (the coder's restart, then the caller's reset of
+  // its predictions).
+  template <class Coder, class Reset, class F>
+  void each_mcu(Coder& coder, Reset&& reset, F&& mcu) {
     int nx, ny;
     if (sc.size() == 1) {
       nx = sc[0]->bw;
@@ -744,26 +930,27 @@ struct Decoder {
       for (int mx = 0; mx < nx; mx++) {
         if (restart_interval) {
           if (left == 0) {
-            bits.restart();
-            for (int k = 0; k < 4; k++) pred[k] = 0;
-            *eobrun = 0;
+            coder.restart();
+            reset();
             left = restart_interval;
           }
           left--;
         }
-        if (!bits.insufficient) last_good_row = my / rows_per_imcu;
+        if (!coder.insufficient) last_good_row = my / rows_per_imcu;
         mcu(mx, my);
       }
   }
 
-  // A sequential scan. direct: the frame's only scan, each block
-  // transformed into its plane as it is decoded; else into the buffer.
-  void sequential_scan(Bits& bits, bool direct) {
-    int pred[4] = {0, 0, 0, 0}, eobrun = 0;
+  // The blocks of a sequential scan in order: decode(ci, component, block,
+  // first block of its MCU) fills each one. direct: the frame's only scan,
+  // each block transformed into its plane as it is decoded; else into the
+  // buffer.
+  template <class Coder, class Reset, class Decode>
+  void sequential_walk(Coder& coder, Reset&& reset, bool direct, Decode&& decode) {
     int16_t blk[64];
     const bool one = sc.size() == 1;
-    each_mcu(bits, [&](int mx, int my) {
-      const bool skip = bits.insufficient;   // decided once per MCU, as libjpeg does
+    each_mcu(coder, reset, [&](int mx, int my) {
+      bool first = true;
       for (size_t ci = 0; ci < sc.size(); ci++) {
         Component& c = *sc[ci];
         int nh = one ? 1 : c.h, nv = one ? 1 : c.v;
@@ -772,42 +959,57 @@ struct Decoder {
             int x = mx * nh + bx, y = my * nv + by;
             int16_t* b = direct ? blk : c.block(x, y);
             if (direct) memset(blk, 0, sizeof blk);
-            if (!skip) {
-              int s = bits.decode(dc[c.td]);
-              int diff = s ? extend(bits.get(s), s) : 0;
-              pred[ci] += diff;
-              b[0] = (int16_t)pred[ci];
-              const Huffman& at = ac[c.ta];
-              for (int k = 1; k < 64; k++) {
-                int rs = bits.decode(at);
-                int r = rs >> 4;
-                s = rs & 15;
-                if (s) {
-                  k += r;
-                  b[kNatural[k]] = (int16_t)extend(bits.get(s), s);
-                } else {
-                  if (r != 15) break;
-                  k += 15;
-                }
-              }
-            }
-            if (direct && c.needed) {
-              size_t stride = (size_t)c.pbw * 8;
-              idct_islow(blk, c.q, c.plane.data() + (size_t)y * 8 * stride + (size_t)x * 8,
-                         (int)stride);
-            }
+            decode((int)ci, c, b, first);
+            first = false;
+            if (direct && c.needed)
+              idct_islow(blk, c.q, c.plane.data() + (size_t)y * 8 * c.stride + (size_t)x * 8,
+                         (int)c.stride);
           }
       }
-    }, pred, &eobrun);
+    });
+  }
+
+  // jdhuff.c decode_mcu
+  void sequential_scan(Bits& bits, bool direct) {
+    int pred[4] = {0, 0, 0, 0};
+    bool skip = false;
+    auto reset = [&] {
+      for (int& k : pred) k = 0;
+    };
+    sequential_walk(bits, reset, direct, [&](int ci, Component& c, int16_t* b, bool first) {
+      if (first) skip = bits.insufficient;   // decided once per MCU, as libjpeg does
+      if (skip) return;
+      int s = bits.decode(dc[c.td]);
+      int diff = s ? extend(bits.get(s), s) : 0;
+      pred[ci] += diff;
+      b[0] = (int16_t)pred[ci];
+      const Huffman& at = ac[c.ta];
+      for (int k = 1; k < 64; k++) {
+        int rs = bits.decode(at);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          b[kNatural[k]] = (int16_t)extend(bits.get(s), s);
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    });
   }
 
   // jdphuff.c's four decoders
   void progressive_scan(Bits& bits) {
     int pred[4] = {0, 0, 0, 0}, eobrun = 0;
+    auto reset = [&] {
+      for (int& k : pred) k = 0;
+      eobrun = 0;
+    };
     const bool one = sc.size() == 1;
     const int p1 = 1 << Al, m1 = -1 * (1 << Al);
     if (Ss == 0) {   // DC first / refine: interleaved or not
-      each_mcu(bits, [&](int mx, int my) {
+      each_mcu(bits, reset, [&](int mx, int my) {
         if (bits.insufficient && Ah == 0) return;
         for (size_t ci = 0; ci < sc.size(); ci++) {
           Component& c = *sc[ci];
@@ -825,13 +1027,13 @@ struct Decoder {
               }
             }
         }
-      }, pred, &eobrun);
+      });
       return;
     }
     Component& c = *sc[0];
     const Huffman& t = ac[c.ta];
     if (Ah == 0) {   // AC first
-      each_mcu(bits, [&](int mx, int my) {
+      each_mcu(bits, reset, [&](int mx, int my) {
         if (bits.insufficient) return;
         if (eobrun > 0) {
           eobrun--;
@@ -853,11 +1055,11 @@ struct Decoder {
             break;
           }
         }
-      }, pred, &eobrun);
+      });
       return;
     }
     // AC refine
-    each_mcu(bits, [&](int mx, int my) {
+    each_mcu(bits, reset, [&](int mx, int my) {
       if (bits.insufficient) return;
       int16_t* b = c.block(mx, my);
       auto correct = [&](int16_t& coef) {
@@ -895,18 +1097,280 @@ struct Decoder {
         }
         eobrun--;
       }
-    }, pred, &eobrun);
+    });
   }
 
-  // After the entropy-coded data of a scan: the marker that ended it, then
-  // the segments up to the next SOS (true) or EOI (false).
-  bool next_scan(Bits& bits) {
+  // jdarith.c: zero the statistics areas the scan uses (where it begins and
+  // at each restart) and the DC predictions and contexts
+  void arith_reset(ArithStats& s) {
+    for (size_t ci = 0; ci < sc.size(); ci++) {
+      if (!progressive || (Ss == 0 && Ah == 0)) {
+        memset(s.dc[sc[ci]->td], 0, sizeof s.dc[0]);
+        s.last_dc[ci] = 0;
+        s.dc_context[ci] = 0;
+      }
+      if (!progressive || Ss) memset(s.ac[sc[ci]->ta], 0, sizeof s.ac[0]);
+    }
+  }
+
+  // Figures F.19-F.24: one DC difference of component ci (table slot tbl),
+  // its context updated through the DAC's L and U; false on a magnitude
+  // overflow
+  bool arith_dc(Arith& ar, ArithStats& s, int ci, int tbl, int* diff) {
+    uint8_t* st = s.dc[tbl] + s.dc_context[ci];
+    if (ar.decode(st) == 0) {
+      s.dc_context[ci] = 0;
+      *diff = 0;
+      return true;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = s.dc[tbl] + 20;   // X1
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st++;
+      }
+    }
+    if (m < ((1 << dac_L[tbl]) >> 1)) s.dc_context[ci] = 0;
+    else if (m > ((1 << dac_U[tbl]) >> 1)) s.dc_context[ci] = 12 + sign * 4;
+    else s.dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    *diff = sign ? -v : v;
+    return true;
+  }
+
+  // Figure F.20: coefficients Ss..Se of one block (a sequential block's AC
+  // is 1..63 at Al = 0), the magnitude contexts split at the DAC's Kx;
+  // false on a spectral or magnitude overflow
+  bool arith_ac(Arith& ar, ArithStats& s, int tbl, int16_t* b, int ss, int se, int al) {
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = s.ac[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;   // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      const int sign = ar.decode(&s.fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = s.ac[tbl] + (k <= dac_K[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st++;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      b[kNatural[k]] = (int16_t)(int)((unsigned)(sign ? -v : v) << al);
+    }
+    return true;
+  }
+
+  // Figure G.10 (decode_mcu_AC_refine): the next bit of the coefficients
+  // already nonzero, and the ones that become nonzero; false on a
+  // spectral overflow
+  bool arith_ac_refine(Arith& ar, ArithStats& s, int tbl, int16_t* b) {
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    int kex = Se;   // the previous stage's end of block
+    while (kex > 0 && !b[kNatural[kex]]) kex--;
+    for (int k = Ss; k <= Se; k++) {
+      uint8_t* st = s.ac[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;   // EOB
+      for (;;) {
+        int16_t& coef = b[kNatural[k]];
+        if (coef) {
+          if (ar.decode(st + 2)) coef = (int16_t)(coef < 0 ? coef + m1 : coef + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          coef = (int16_t)(ar.decode(&s.fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) return false;
+      }
+    }
+    return true;
+  }
+
+  // jdarith.c decode_mcu: a sequential arithmetic-coded scan
+  void arith_sequential_scan(Arith& ar, bool direct) {
+    ArithStats st;
+    arith_reset(st);
+    auto reset = [&] { arith_reset(st); };
+    sequential_walk(ar, reset, direct, [&](int ci, Component& c, int16_t* b, bool) {
+      if (ar.error) return;
+      int diff;
+      if (!arith_dc(ar, st, ci, c.td, &diff)) {
+        ar.error = true;
+        return;
+      }
+      st.last_dc[ci] = (st.last_dc[ci] + diff) & 0xFFFF;
+      b[0] = (int16_t)st.last_dc[ci];
+      if (!arith_ac(ar, st, c.ta, b, 1, 63, 0)) ar.error = true;
+    });
+  }
+
+  // jdarith.c's four progressive decoders, into the coefficient buffer
+  void arith_progressive_scan(Arith& ar) {
+    ArithStats st;
+    arith_reset(st);
+    auto reset = [&] { arith_reset(st); };
+    const bool one = sc.size() == 1;
+    if (Ss == 0) {   // DC first / refine: interleaved or not
+      each_mcu(ar, reset, [&](int mx, int my) {
+        if (ar.error) return;
+        for (size_t ci = 0; ci < sc.size(); ci++) {
+          Component& c = *sc[ci];
+          int nh = one ? 1 : c.h, nv = one ? 1 : c.v;
+          for (int by = 0; by < nv; by++)
+            for (int bx = 0; bx < nh; bx++) {
+              int16_t* b = c.block(mx * nh + bx, my * nv + by);
+              if (Ah) {
+                if (ar.decode(&st.fixed_bin)) b[0] = (int16_t)(b[0] | (1 << Al));
+                continue;
+              }
+              int diff;
+              if (!arith_dc(ar, st, (int)ci, c.td, &diff)) {
+                ar.error = true;
+                return;
+              }
+              st.last_dc[ci] += diff;
+              b[0] = (int16_t)(int)((unsigned)st.last_dc[ci] << Al);
+            }
+        }
+      });
+      return;
+    }
+    Component& c = *sc[0];
+    each_mcu(ar, reset, [&](int mx, int my) {
+      if (ar.error) return;
+      int16_t* b = c.block(mx, my);
+      if (!(Ah ? arith_ac_refine(ar, st, c.ta, b) : arith_ac(ar, st, c.ta, b, Ss, Se, Al)))
+        ar.error = true;
+    });
+  }
+
+  // jddiffct.c decompress_data with jdlhuff.c decode_mcus and jdlossls.c's
+  // undifferencers: a lossless scan, each iMCU row decoded (restart checks
+  // and insufficient data per MCU row), then undifferenced row by row into
+  // the sample planes as the low byte of value << Pt
+  void lossless_scan(Bits& bits) {
+    const bool one = sc.size() == 1;
+    const int per_row = one ? sc[0]->bw : mcux;   // MCUs per MCU row
+    if (restart_interval % per_row)
+      fail(CORRUPT, "restart interval not a multiple of the MCUs in a row");
+    const int restart_rows = restart_interval / per_row;
+    int rows_to_go = restart_rows;
+    const size_t ns = sc.size();
+    std::vector<int> width(ns), diff_w(ns);
+    std::vector<std::vector<int>> diff(ns), prev(ns), cur(ns);
+    for (size_t i = 0; i < ns; i++) {
+      width[i] = sc[i]->bw;
+      diff_w[i] = one ? sc[i]->bw : sc[i]->pbw;
+      diff[i].assign((size_t)sc[i]->v * diff_w[i], 0);
+      prev[i].assign(width[i], 0);
+      cur[i].assign(width[i], 0);
+    }
+    first_row.assign(comps.size(), true);   // start_pass_lossless
+    const int x0 = 1 << (precision - Al - 1);
+    for (int i = 0; i < mcuy; i++) {
+      auto rows = [&](const Component& c) {   // sample rows of c in iMCU row i
+        return i < mcuy - 1 ? c.v : c.bh - (mcuy - 1) * c.v;
+      };
+      const int mcu_rows = one ? rows(*sc[0]) : 1;
+      for (int y = 0; y < mcu_rows; y++) {
+        if (restart_interval && rows_to_go == 0) {
+          bits.restart();
+          first_row.assign(comps.size(), true);
+          rows_to_go = restart_rows;
+        }
+        if (bits.insufficient) {   // zero differences, predictors reset
+          for (size_t k = 0; k < ns; k++) {
+            int r0 = one ? y : 0, nr = one ? 1 : sc[k]->v;
+            std::fill(diff[k].begin() + (size_t)r0 * diff_w[k],
+                      diff[k].begin() + (size_t)(r0 + nr) * diff_w[k], 0);
+          }
+          first_row.assign(comps.size(), true);
+        } else {
+          for (int mx = 0; mx < per_row; mx++)
+            for (size_t k = 0; k < ns; k++) {
+              const Component& c = *sc[k];
+              int nh = one ? 1 : c.h, nv = one ? 1 : c.v;
+              for (int by = 0; by < nv; by++)
+                for (int bx = 0; bx < nh; bx++) {
+                  int s = bits.decode(dc[c.td]);
+                  if (s == 16) s = 32768;
+                  else if (s) s = extend(bits.get(s), s);
+                  diff[k][(size_t)(one ? y : by) * diff_w[k] + (size_t)mx * nh + bx] = s;
+                }
+            }
+        }
+        if (restart_interval) rows_to_go--;
+      }
+      for (size_t k = 0; k < ns; k++) {
+        Component& c = *sc[k];
+        const int ci = (int)(&c - comps.data());
+        for (int r = 0; r < rows(c); r++) {
+          undifference(diff[k].data() + (size_t)r * diff_w[k], prev[k].data(), cur[k].data(),
+                       width[k], first_row[ci] ? 0 : Ss, x0);
+          first_row[ci] = false;
+          uint8_t* out = c.plane.data() + (size_t)(i * c.v + r) * c.stride;
+          for (int x = 0; x < width[k]; x++) out[x] = (uint8_t)(cur[k][x] << Al);
+          std::swap(prev[k], cur[k]);
+        }
+      }
+    }
+  }
+
+  // jdlossls.c: one row undifferenced modulo 2^16 by predictor psv (0:
+  // the first row, predicted from the left with x0 first)
+  static void undifference(const int* d, const int* prev, int* out, int w, int psv, int x0) {
+    if (psv <= 1) {
+      int ra = (d[0] + (psv ? prev[0] : x0)) & 0xFFFF;
+      out[0] = ra;
+      for (int x = 1; x < w; x++) out[x] = ra = (d[x] + ra) & 0xFFFF;
+      return;
+    }
+    int rb = prev[0];
+    int ra = (d[0] + rb) & 0xFFFF;
+    out[0] = ra;
+    for (int x = 1; x < w; x++) {
+      const int rc = rb;
+      rb = prev[x];
+      int p;
+      switch (psv) {
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      out[x] = ra = (d[x] + p) & 0xFFFF;
+    }
+  }
+
+  // After the entropy-coded data of a scan: the marker that ended it (or
+  // -1 where the coder stopped before one, at p), then the segments up to
+  // the next SOS (true) or EOI (false).
+  bool next_scan(int marker, const uint8_t* p) {
     int m;
-    if (bits.marker >= 0) {
-      m = bits.marker;
-      pos = (size_t)(bits.p - data);
+    pos = (size_t)(p - data);
+    if (marker >= 0) {
+      m = marker;
     } else {
-      pos = (size_t)(bits.p - data);
       m = next_marker_or_eoi();
     }
     for (;;) {
@@ -915,9 +1379,13 @@ struct Decoder {
         read_scan_header();
         return true;
       }
-      if (!((m >= 0xD0 && m <= 0xD7) || m == 0xD8 || m == 0x01)) {
-        if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)
+      if (m == 0xD8) fail(CORRUPT, "a second SOI");
+      if (!((m >= 0xD0 && m <= 0xD7) || m == 0x01)) {
+        if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC)
           fail(CORRUPT, "a second frame header");
+        if (!(m == 0xC4 || m == 0xCC || (m >= 0xDB && m <= 0xDD) || (m >= 0xE0 && m <= 0xEF) ||
+              m == 0xFE))
+          fail(CORRUPT, "unknown marker");   // jdmarker.c read_markers, before any length
         if (pos + 2 > n) return false;
         int len = u16();
         if (len < 2 || pos + len - 2 > n) return false;   // cut: as at EOI
@@ -987,7 +1455,7 @@ inline void estimate(int16_t& w, int al, int64_t q00, int64_t q, int64_t sum) {
 // values of its 5 x 5 neighbourhood, as libjpeg walks the iMCU rows.
 void smooth_component(Decoder& d, Component& c, const int* cur_bits, const int* prev_bits) {
   const int T = d.mcuy, v = c.v;
-  const size_t stride = (size_t)c.pbw * 8;
+  const size_t stride = c.stride;
   int16_t ws[64];
   const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16], Q11 = c.q[9],
                 Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10], Q21 = c.q[17], Q30 = c.q[24];
@@ -1080,7 +1548,7 @@ void transform(Decoder& d) {
       smooth_component(d, c, latch.data() + ci * 10, prev_latch.data() + ci * 10);
       continue;
     }
-    const size_t stride = (size_t)c.pbw * 8;
+    const size_t stride = c.stride;
     for (int R = 0; R < c.bh; R++)
       for (int C = 0; C < c.bw; C++)
         idct_islow(c.block(C, R), c.q, c.plane.data() + (size_t)R * 8 * stride + (size_t)C * 8,
@@ -1089,17 +1557,22 @@ void transform(Decoder& d) {
 }
 
 // Row y of one component, upsampled to the output width (jdsample.c at its
-// defaults). Returns a pointer into the plane or into `line`.
-const uint8_t* upsample_row(const Component& c, int hmax, int vmax, int width, int y,
+// defaults; `fancy` is off for lossless frames, whose DCT_scaled_size is 1,
+// so that every factor replicates). Returns a pointer into the plane or
+// into `line`.
+const uint8_t* upsample_row(const Component& c, int hmax, int vmax, int width, int y, bool fancy,
                             uint8_t* line) {
   const int hs = hmax / c.h, vs = vmax / c.v;
-  const size_t stride = (size_t)c.pbw * 8;
+  const size_t stride = c.stride;
   const uint8_t* p = c.plane.data();
   const int dw = c.dw, dh = c.dh;
   auto row = [&](int r) { return p + (size_t)(r < 0 ? 0 : (r >= dh ? dh - 1 : r)) * stride; };
   if (hs == 1 && vs == 1) return row(y);
   uint8_t* o = line;
-  if (hs == 2 && vs == 1 && dw > 2) {            // h2v1_fancy_upsample
+  if (!fancy) {                                  // h2v1/h2v2/int_upsample: replicate
+    const uint8_t* in = p + (size_t)(y / vs) * stride;
+    for (int x = 0; x < width; x++) o[x] = in[x / hs];
+  } else if (hs == 2 && vs == 1 && dw > 2) {     // h2v1_fancy_upsample
     const uint8_t* in = row(y);
     o[0] = in[0];
     o[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
@@ -1190,18 +1663,40 @@ void decode(const uint8_t* data, size_t n, bool color, uint8_t* out) {
   Decoder d = header(data, n, color);
   d.default_tables();
   d.read_scan_header();
-  for (auto& c : d.comps)
-    if (c.needed) c.plane.assign((size_t)c.pbw * 8 * (size_t)c.pbh * 8, 0);
-  if (!d.progressive && d.sc.size() == d.comps.size()) {   // one scan: no buffer
-    Bits bits{d.data + d.pos, d.data + d.n};
-    d.sequential_scan(bits, true);
+  const size_t rows_per_block = d.lossless ? 1 : 8;
+  for (auto& c : d.comps)   // a lossless scan undifferences every component it carries
+    if (c.needed || d.lossless) c.plane.assign(c.stride * (size_t)c.pbh * rows_per_block, 0);
+  const uint8_t* end = d.data + d.n;
+  if (d.lossless) {
+    for (;;) {
+      Bits bits{d.data + d.pos, end};
+      d.lossless_scan(bits);
+      if (!d.next_scan(bits.marker, bits.p)) break;
+    }
+  } else if (!d.progressive && d.sc.size() == d.comps.size()) {   // one scan: no buffer
+    if (d.arithmetic) {
+      Arith ar{d.data + d.pos, end};
+      d.arith_sequential_scan(ar, true);
+    } else {
+      Bits bits{d.data + d.pos, end};
+      d.sequential_scan(bits, true);
+    }
   } else {
     for (auto& c : d.comps) c.coef.assign((size_t)c.pbw * c.pbh * 64, 0);
     for (;;) {
-      Bits bits{d.data + d.pos, d.data + d.n};
-      if (d.progressive) d.progressive_scan(bits);
-      else d.sequential_scan(bits, false);
-      if (!d.next_scan(bits)) break;
+      bool more;
+      if (d.arithmetic) {
+        Arith ar{d.data + d.pos, end};
+        if (d.progressive) d.arith_progressive_scan(ar);
+        else d.arith_sequential_scan(ar, false);
+        more = d.next_scan(ar.marker, ar.p);
+      } else {
+        Bits bits{d.data + d.pos, end};
+        if (d.progressive) d.progressive_scan(bits);
+        else d.sequential_scan(bits, false);
+        more = d.next_scan(bits.marker, bits.p);
+      }
+      if (!more) break;
     }
     transform(d);
     for (auto& c : d.comps) std::vector<int16_t>().swap(c.coef);
@@ -1215,7 +1710,8 @@ void decode(const uint8_t* data, size_t n, bool color, uint8_t* out) {
   for (int y = 0; y < h; y++) {
     for (int k = 0; k < nc; k++)
       if (d.comps[k].needed)
-        r[k] = upsample_row(d.comps[k], d.hmax, d.vmax, w, y, lines.data() + k * lw);
+        r[k] = upsample_row(d.comps[k], d.hmax, d.vmax, w, y, !d.lossless,
+                            lines.data() + k * lw);
     uint8_t* o = out + (size_t)y * w * (color ? 3 : 1);
     switch (d.space) {
       case GRAY:

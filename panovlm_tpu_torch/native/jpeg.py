@@ -19,7 +19,15 @@ from . import compile_library
 _SRC = Path(__file__).resolve().parent / "jpeg.cpp"
 _lib = None
 _lock = threading.Lock()
-_ERRORS = {1: NotImplementedError, 2: ValueError, 3: MemoryError}
+
+
+class Cv2Refuses(NotImplementedError):
+    """A JPEG of a kind that cv2.imread gives no image for either
+    (hierarchical, 12-bit, 2 components, ...): the decoder refuses it as
+    libjpeg does."""
+
+
+_ERRORS = {1: Cv2Refuses, 2: ValueError, 3: MemoryError}
 
 
 def get():
@@ -44,8 +52,7 @@ def _check(rc: int, err) -> None:
         return
     msg = err.value.decode(errors="replace")
     if rc == 1:
-        msg += ("; the port decodes sequential and progressive Huffman-coded 8-bit JPEG "
-                "(ROADMAP.md)")
+        msg += "; cv2.imread gives no image for such a file either (ROADMAP.md)"
     raise _ERRORS.get(rc, RuntimeError)(msg)
 
 

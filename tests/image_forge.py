@@ -12,16 +12,23 @@ that each carry a subset of the components (non-interleaved), or as a
 progressive script with spectral selection and successive approximation
 (T.81 Annex G; EOB runs in the refinement scans, one EOB per block in the
 first ones), with restart intervals; Huffman tables are optimised per scan
-(Annex K.2, as libjpeg's jpeg_gen_optimal_table). `port_components`
-gives the coefficients that `io/jpeg.encode` codes, so that a re-coding of
-a baseline file from the port's encoder decodes to the same bits;
-`plane_components` quantises any set of planes (YCCK, RGB-coded).
+(Annex K.2, as libjpeg's jpeg_gen_optimal_table). With arithmetic=True
+the same scans are arithmetic-coded (SOF9 / SOF10, DAC conditioning) by
+`arith_forge.cpp` beside this file, built with g++ at first use into
+build/native/. `port_components` gives the coefficients that
+`io/jpeg.encode` codes, so that a re-coding of a baseline file from the
+port's encoder decodes to the same bits; `plane_components` quantises any
+set of planes (YCCK, RGB-coded). `lossless_bytes` writes lossless (SOF3)
+files of sample planes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -395,9 +402,44 @@ def _segment(marker: int, payload: bytes) -> bytes:
     return struct.pack(">HH", marker, len(payload) + 2) + payload
 
 
+_arith_lib = None
+_arith_lock = threading.Lock()
+
+
+def _arith():
+    """arith_forge.cpp through ctypes, built on first use."""
+    global _arith_lib
+    with _arith_lock:
+        if _arith_lib is None:
+            from panovlm_tpu_torch.native import compile_library
+            lib = ctypes.CDLL(str(compile_library(Path(__file__).resolve().parent
+                                                  / "arith_forge.cpp")))
+            lib.pv_arith_scan.restype = ctypes.c_long
+            lib.pv_arith_scan.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + \
+                [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4 + [ctypes.c_long]
+            _arith_lib = lib
+    return _arith_lib
+
+
+def _arith_scan(sc, kind, ss, se, ah, al, mcux, mcuy, restart, cond) -> bytes:
+    """One arithmetic-coded scan of components sc (table slot = place in
+    the scan), as arith_forge.cpp codes it."""
+    code = {"seq": 0, "dc": 1 if ah == 0 else 2, "ac": 3 if ah == 0 else 4}[kind]
+    coefs = [np.ascontiguousarray(c["coef"], np.int16) for c in sc]
+    ptrs = (ctypes.c_void_p * len(sc))(*[c.ctypes.data for c in coefs])
+    geom = np.array([[c["h"], c["v"], c["bw"], c["bh"], c["pbw"], i, i]
+                     for i, c in enumerate(sc)], np.int32)
+    cap = 4096 + 2 * sum(c.nbytes for c in coefs)
+    out = np.empty(cap, np.uint8)
+    n = _arith().pv_arith_scan(len(sc), ptrs, geom.ctypes.data, mcux, mcuy, code, ss, se, al,
+                               restart, *(t.ctypes.data for t in cond), out.ctypes.data, cap)
+    assert n >= 0
+    return out[:n].tobytes()
+
+
 def jpeg_bytes(components, width: int, height: int, qtables, scans, restart: int = 0,
                progressive: bool | None = None, jfif: bool = True, adobe: int | None = None,
-               app: tuple = ()) -> bytes:
+               app: tuple = (), arithmetic: bool = False, dac=None) -> bytes:
     """A JPEG file of quantised coefficients.
 
     components: dicts with "id", "h", "v", "tq" and "coef", the (pbh, pbw,
@@ -407,7 +449,10 @@ def jpeg_bytes(components, width: int, height: int, qtables, scans, restart: int
     Ah, Al) and ("ac", index, Ss, Se, Ah, Al) for progressive ones; a
     progressive file when any scan is not "seq" (or `progressive`).
     `adobe` writes an APP14 with that transform; `app` holds whole extra
-    segments written after SOI."""
+    segments written after SOI. arithmetic: SOF9 / SOF10 and arithmetic-
+    coded scans, conditioned by `dac` = {"dc": {slot: (L, U)}, "ac":
+    {slot: Kx}} (written as a DAC segment; other slots keep L = 0, U = 1,
+    Kx = 5)."""
     comps = [dict(c) for c in components]
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
@@ -427,9 +472,19 @@ def jpeg_bytes(components, width: int, height: int, qtables, scans, restart: int
     head.append(_segment(0xFFDB, b"".join(
         bytes([t]) + bytes(np.asarray(q)[jpeg.ZIGZAG].astype(np.uint8).tolist())
         for t, q in sorted(qtables.items()))))
-    head.append(_segment(0xFFC2 if progressive else 0xFFC0, struct.pack(
-        ">BHHB", 8, height, width, len(comps)) + b"".join(
+    sof = (0xFFCA if progressive else 0xFFC9) if arithmetic else \
+        (0xFFC2 if progressive else 0xFFC0)
+    head.append(_segment(sof, struct.pack(">BHHB", 8, height, width, len(comps)) + b"".join(
         bytes([c["id"], c["h"] * 16 + c["v"], c["tq"]]) for c in comps)))
+    cond = (np.zeros(16, np.uint8), np.ones(16, np.uint8), np.full(16, 5, np.uint8))
+    if dac:
+        for t, (lo, up) in dac.get("dc", {}).items():
+            cond[0][t], cond[1][t] = lo, up
+        for t, k in dac.get("ac", {}).items():
+            cond[2][t] = k
+        head.append(_segment(0xFFCC, b"".join(
+            [bytes([t, up * 16 + lo]) for t, (lo, up) in dac.get("dc", {}).items()]
+            + [bytes([16 + t, k]) for t, k in dac.get("ac", {}).items()])))
     if restart:
         head.append(_segment(0xFFDD, struct.pack(">H", restart)))
     body = []
@@ -438,6 +493,14 @@ def jpeg_bytes(components, width: int, height: int, qtables, scans, restart: int
         idx = scan[1] if kind != "ac" else [scan[1]]
         sc = [comps[i] for i in idx]
         one = len(sc) == 1
+        ss, se, ah, al = ((0, 63, 0, 0) if kind == "seq" else
+                          (0, 0) + tuple(scan[2:4]) if kind == "dc" else tuple(scan[2:6]))
+        if arithmetic:
+            body.append(_segment(0xFFDA, bytes([len(sc)]) + b"".join(
+                bytes([c["id"], slot * 16 + slot]) for slot, c in enumerate(sc))
+                + bytes([ss, se, ah * 16 + al])))
+            body.append(_arith_scan(sc, kind, ss, se, ah, al, mcux, mcuy, restart, cond))
+            continue
         tok = _Tokens()
         for slot, c in enumerate(sc):
             mcu, bslot, by, bx = _block_order(c, sc, mcux, one)
@@ -530,3 +593,134 @@ def plane_components(planes, sampling, quality: int = 90, ids=None):
         coef = jpeg._quantized(sub, q[tq])
         comps.append({"id": ids[i] if ids else i + 1, "h": sh, "v": sv, "tq": tq, "coef": coef})
     return comps, q
+
+
+# ----------------------------------------------------------------------------
+# lossless JPEG (T.81 Annex H)
+# ----------------------------------------------------------------------------
+
+LOSSLESS_PREDICTORS = range(1, 8)
+
+
+def _lossless_prediction(x: np.ndarray, predictor: int, first: np.ndarray, initial: int):
+    """The prediction of each sample of (rows, cols) int64 samples: a row
+    flagged `first` (the image's first and each restart interval's) is
+    predicted from its left neighbour and `initial`; the first column of
+    the others from the sample above; the rest by `predictor` from Ra
+    (left), Rb (above) and Rc (above left)."""
+    pred = np.empty_like(x)
+    pred[:, 1:] = x[:, :-1]
+    pred[:, 0] = initial
+    if x.shape[0] > 1:
+        ra, rb, rc = x[1:, :-1], x[:-1, 1:], x[:-1, :-1]
+        rest = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+        other = np.concatenate([x[:-1, :1], rest], axis=1)
+        pred[1:] = np.where(first[1:, None], pred[1:], other)
+    return pred
+
+
+def lossless_bytes(planes, width: int, height: int, sampling=None, precision: int = 8,
+                   predictor: int = 1, pt: int = 0, restart: int = 0, scans=None, ids=None,
+                   jfif: bool = False, adobe: int | None = None, sof: int = 0xC3) -> bytes:
+    """A lossless (SOF3) file of integer sample planes, Huffman-coded.
+
+    planes: component i's samples at its own resolution, (ceil(height *
+    v / vmax), ceil(width * h / hmax)), each below 2^precision; sampling:
+    (h, v) per component (default 1 x 1). predictor 1-7 and the point
+    transform pt go in every scan header; restart is the interval in MCUs
+    (libjpeg requires a multiple of a scan's MCUs per row). scans: lists
+    of component indices (default: one interleaved scan). One Huffman table
+    (slot 0), optimised over the file's difference categories (0-16)."""
+    n = len(planes)
+    sampling = sampling or [(1, 1)] * n
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    dims = [(-(-height * v // vmax), -(-width * h // hmax)) for h, v in sampling]
+    for p, d in zip(planes, dims):
+        assert np.shape(p) == d, (np.shape(p), d)
+    scans = scans or [list(range(n))]
+    ids = ids or list(range(1, n + 1))
+    initial = 1 << (precision - pt - 1)
+    streams = []
+    for scan in scans:
+        one = len(scan) == 1
+        units = []                 # per component: its differences, (MCUs, samples per MCU)
+        for ci in scan:
+            h, v = (1, 1) if one else sampling[ci]
+            sv = sampling[ci][1]
+            dh, dw = dims[ci]
+            x = np.asarray(planes[ci], np.int64) >> pt
+            per_row = dw if one else mcux
+            mcu_rows = np.arange(dh) if one else np.arange(dh) // v
+            # restarts are taken before an MCU row; libjpeg's undifferencer
+            # treats the first row of the iMCU row they fall in as a first row
+            starts = (mcu_rows * per_row % restart == 0) if restart else mcu_rows == 0
+            if one:
+                imcu = np.arange(dh) // sv
+                hit = np.zeros(imcu.max() + 1 if dh else 0, bool)
+                np.logical_or.at(hit, imcu, starts)
+                first = (np.arange(dh) % sv == 0) & hit[imcu]
+            else:
+                first = starts & (np.arange(dh) % v == 0)
+            diff = (x - _lossless_prediction(x, predictor, first, initial)) & 0xFFFF
+            d = np.where(diff >= 0x8000, diff - 0x10000, diff)
+            if one:
+                grid = d.reshape(-1, 1)
+            else:
+                grid = np.zeros((mcuy * v, mcux * h), np.int64)
+                grid[:dh, :dw] = d
+                grid = grid.reshape(mcuy, v, mcux, h).transpose(0, 2, 1, 3).reshape(
+                    mcuy * mcux, v * h)
+            units.append(grid)
+        flat = np.concatenate(units, axis=1)
+        n_mcu = flat.shape[0]
+        flat = flat.reshape(-1)
+        cat = np.where(flat == -0x8000, 16, _category(flat))
+        extra = np.where(cat == 16, 0, _extra(flat, np.minimum(cat, 15)))
+        elen = np.where(cat == 16, 0, cat)
+        streams.append((n_mcu, flat.size // max(n_mcu, 1), cat, extra, elen))
+    table = _huffman_table(np.bincount(np.concatenate([s[2] for s in streams]),
+                                       minlength=256).tolist())
+    code_of, len_of = jpeg._huffman_codes(table)
+    head = [b"\xff\xd8"]
+    if jfif:
+        head.append(_segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if adobe is not None:
+        head.append(_segment(0xFFEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)))
+    head.append(_segment(0xFF00 | sof, struct.pack(">BHHB", precision, height, width, n)
+                         + b"".join(bytes([ids[i], h * 16 + v, 0])
+                                    for i, (h, v) in enumerate(sampling))))
+    head.append(_segment(0xFFC4, bytes([0]) + bytes(table[0]) + bytes(table[1])))
+    if restart:
+        head.append(_segment(0xFFDD, struct.pack(">H", restart)))
+    body = []
+    for scan, (n_mcu, per, cat, extra, elen) in zip(scans, streams):
+        body.append(_segment(0xFFDA, bytes([len(scan)]) + b"".join(
+            bytes([ids[ci], 0]) for ci in scan) + bytes([predictor, 0, pt])))
+        bits = (code_of[cat] << elen) | extra
+        nbits = len_of[cat] + elen
+        if not restart:
+            body.append(jpeg._pack(bits, nbits))
+            continue
+        step = restart * per
+        for i, k in enumerate(range(0, len(bits), step)):
+            if i:
+                body.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+            body.append(jpeg._pack(bits[k:k + step], nbits[k:k + step]))
+    return b"".join(head + body + [b"\xff\xd9"])
+
+
+def lossless_planes(width: int, height: int, sampling, precision: int, seed: int):
+    """Seeded sample planes for `lossless_bytes`: smooth structure, noise
+    and runs, over the whole range of the precision."""
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    top = (1 << precision) - 1
+    out = []
+    for i, (h, v) in enumerate(sampling):
+        dh, dw = -(-height * v // vmax), -(-width * h // hmax)
+        s = random_samples(dh, dw, 0, 16, seed + i).astype(np.int64) * top // 65535
+        out.append(s)
+    return out

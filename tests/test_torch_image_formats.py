@@ -11,9 +11,9 @@ port's decoders (native/jpeg.cpp, native/png.cpp), bit for bit, in colour
     transform 0), the EXIF orientation of a progressive file, files cut
     anywhere in their data, files without Huffman tables. A
     progressive or multi-scan re-coding of the port encoder's coefficients
-    decodes to the baseline file's bits. Arithmetic, lossless,
-    hierarchical, 12-bit, 2-component and non-integral-sampling files still
-    raise NotImplementedError;
+    decodes to the baseline file's bits. Hierarchical, 12-bit,
+    2-component, lossless YCbCr and non-integral-sampling files, which cv2
+    gives no image for, raise NotImplementedError (Cv2Refuses);
   * PNG: every colour type and bit depth, interlaced and not, with tRNS,
     with gAMA and sRGB (libpng's gamma tables in a gray read of a colour
     file), sBIT, eXIf orientation, cv2- and PIL-written files, libpng's
@@ -324,12 +324,11 @@ def test_progressive_exif_orientation_like_cv2(orientation, tmp_path):
 
 
 def test_jpeg_kinds_still_refused(tmp_path):
-    """Arithmetic coding (cv2 reads it; queued in ROADMAP.md), lossless,
-    hierarchical and 12-bit frames, 2 components and, in a colour read,
-    non-integral sampling raise NotImplementedError. cv2 gives no image for
-    12-bit, 2-component files and a colour read of non-integral ones; an
-    8-bit one-component lossless file it reads in a gray read only
-    (ROADMAP.md)."""
+    """The kinds cv2 gives no image for raise NotImplementedError (the
+    port's Cv2Refuses): hierarchical frames, 12-bit samples, 2 components, a
+    lossless YCbCr file and, in a colour read, non-integral sampling. A
+    baseline or progressive file's Huffman data under an arithmetic SOF
+    marker decodes as arithmetic-coded data, as cv2 decodes it."""
     img = _image(37, 53, 17)
     base = _cv2_jpeg(img)
     prog = _cv2_jpeg(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
@@ -338,21 +337,22 @@ def test_jpeg_kinds_still_refused(tmp_path):
     two = forge.jpeg_bytes(comps, 53, 37, q, [("seq", [0, 1])])
     comps, q = forge.plane_components([img[..., 0], img[..., 1], img[..., 2]],
                                       ((3, 1), (2, 1), (1, 1)))
-    files = {"arithmetic": base[:sof] + b"\xff\xc9" + base[sof + 2:],
-             "arithmetic progressive": prog[:psof] + b"\xff\xca" + prog[psof + 2:],
-             "lossless": base[:sof] + b"\xff\xc3" + base[sof + 2:],
+    for data in (base[:sof] + b"\xff\xc9" + base[sof + 2:],
+                 prog[:psof] + b"\xff\xca" + prog[psof + 2:]):
+        _assert_like_cv2(tmp_path, data, ".jpg", "arithmetic")
+    files = {"lossless": base[:sof] + b"\xff\xc3" + base[sof + 2:],
              "hierarchical": base[:sof] + b"\xff\xc5" + base[sof + 2:],
              "12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:],
              "12-bit progressive": prog[:psof + 4] + b"\x0c" + prog[psof + 5:],
              "2 components": two}
     for name, data in files.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            native_jpeg.decode(data, True)
-    for name in ("12-bit", "2 components"):
         path = str(tmp_path / "r.jpg")
         with open(path, "wb") as f:
-            f.write(files[name])
-        assert cv2.imread(path) is None, name
+            f.write(data)
+        for color in (True, False):
+            assert _cv2_read(path, color) is None, (name, color)
+            with pytest.raises(native_jpeg.Cv2Refuses, match="ROADMAP"):
+                native_jpeg.decode(data, color)
     # non-integral sampling (Y 3x1, Cb 2x1, Cr 1x1): libjpeg refuses to
     # upsample Cb, so a colour read gives no image; a gray read needs Y only
     rng = np.random.default_rng(18)
@@ -366,7 +366,7 @@ def test_jpeg_kinds_still_refused(tmp_path):
     with open(path, "wb") as f:
         f.write(data)
     assert cv2.imread(path) is None
-    with pytest.raises(NotImplementedError, match="non-integral"):
+    with pytest.raises(native_jpeg.Cv2Refuses, match="non-integral"):
         native_jpeg.decode(data, True)
     np.testing.assert_array_equal(native_jpeg.decode(data, False), _cv2_read(path, False))
 
@@ -647,7 +647,8 @@ def test_decoders_on_threads_give_one_thread_bits():
 def test_smoke_format_probes_are_cv2s(name, tmp_path):
     """chip_smoke.py phase 16 (a)'s embedded files: each under 4 KB of
     base64, its digests those of cv2.imread of the file (colour in RGB
-    order, gray), and the port's decoder gives them."""
+    order, gray; None where cv2 gives no image), and the port's decoder
+    gives them (and refuses where cv2 gives none)."""
     b64, ext, digests = cs.FORMAT_PROBES[name]
     assert len(b64) < 4096, len(b64)
     data = base64.b64decode(b64)
@@ -655,6 +656,10 @@ def test_smoke_format_probes_are_cv2s(name, tmp_path):
     with open(path, "wb") as f:
         f.write(data)
     for kind in ("color", "gray"):
-        ref = np.ascontiguousarray(_cv2_read(path, kind == "color"))
-        assert hashlib.sha256(ref.tobytes()).hexdigest() == digests[kind], kind
+        ref = _cv2_read(path, kind == "color")
+        if ref is None:
+            assert digests[kind] is None, kind
+            continue
+        assert hashlib.sha256(np.ascontiguousarray(ref).tobytes()).hexdigest() == digests[kind], \
+            kind
     cs.check_format_probes(names=(name,))

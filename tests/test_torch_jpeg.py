@@ -209,8 +209,10 @@ def test_jpeg_exif_orientation_like_cv2(orientation, tmp_path):
 
 
 def test_jpeg_unsupported_kinds_raise(tmp_path):
-    """Arithmetic-coded and 12-bit files raise; a progressive file, refused
-    before the progressive decoder, now reads as cv2 reads it."""
+    """12-bit files raise; a progressive file, refused before the
+    progressive decoder, and an arithmetic-coded one (a baseline file's
+    Huffman data read as arithmetic-coded), refused before the arithmetic
+    decoder, now read as cv2 reads them."""
     img = _test_image(37, 53, 6)
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     path = str(tmp_path / "progressive.jpg")
@@ -220,8 +222,11 @@ def test_jpeg_unsupported_kinds_raise(tmp_path):
     ok, base = cv2.imencode(".jpg", img)
     base = base.tobytes()
     sof = base.index(b"\xff\xc0")
-    files = {"arithmetic": base[:sof] + b"\xff\xc9" + base[sof + 2:],
-             "12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:]}
+    path = str(tmp_path / "arithmetic.jpg")
+    with open(path, "wb") as f:
+        f.write(base[:sof] + b"\xff\xc9" + base[sof + 2:])
+    _assert_reads_like_cv2(path)
+    files = {"12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:]}
     for name, data in files.items():
         path = str(tmp_path / f"{name}.jpg")
         with open(path, "wb") as f:
@@ -287,7 +292,9 @@ print(" ".join(sorted(seen)))
 
 def test_jpeg_corrupt_files_decode_or_raise(tmp_path):
     """Baseline bases at four samplings, a progressive one (successive
-    approximation, restarts) and a multi-scan sequential one."""
+    approximation, restarts) and a multi-scan sequential one. A refusal is
+    native.jpeg.Cv2Refuses, the NotImplementedError of kinds cv2 gives no
+    image for."""
     import image_forge
     paths = []
     for i, sampling in enumerate(("420", "444", "411", "440", "prog")):
@@ -309,4 +316,4 @@ def test_jpeg_corrupt_files_decode_or_raise(tmp_path):
     out = subprocess.run([sys.executable, "-c", _FUZZ, root, *paths], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.split() == ["NotImplementedError", "ValueError", "decoded"]
+    assert out.stdout.split() == ["Cv2Refuses", "ValueError", "decoded"]
