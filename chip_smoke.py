@@ -7,7 +7,7 @@
 
 Run from the root of a checkout. Phases, each fatal on failure:
   1. card: nvidia-smi name and power limit, torch's device name; the
-     Floor-1593 scans of phase 12 (one worker) and the MVS dataset's
+     Floor scans of phase 12 (one worker) and the MVS dataset's
      panoramas (gray PNG and colour JPEG) start in worker processes
      meanwhile;
   2. build: the CUDA kernels of panovlm_tpu_torch/csrc, compiled from this
@@ -145,9 +145,10 @@ Run from the root of a checkout. Phases, each fatal on failure:
      Room's 454 frames (render time), 48 in the chain; nothing in width.
   12. the LM solver's PCG tier (above 6144 parameters): (a) the odometry
      stage (`python -m panovlm_tpu_torch init_lidar_pose`, in-process) on
-     1593 scans (Floor's count) of the Room-454 loop
-     continued at the same yaw step (~8.8 revolutions; 9,558 pose
-     parameters), built as phase 4's: checked for the artifacts, valid
+     FLOOR_SCANS = 1100 scans of the Room-454 loop (Floor has 1593; cut:
+     the time limit) continued at the same yaw step (~6.1 revolutions;
+     6,600 pose parameters, above the dense tier's 6,144), built as
+     phase 4's: checked for the artifacts, valid
      poses, consecutive-scan distance error < 0.05 m in both pose files,
      one knn and one knn_ring launch per round, every solve on the PCG
      tier, and the first round's LM problem re-solved on its captured
@@ -155,7 +156,7 @@ Run from the root of a checkout. Phases, each fatal on failure:
      the dense tier forced per call (LMOptions(dense_max_params=P)) and
      the two are compared; prints the stage's phases, peak device memory,
      pairs, LM and CG iterations per round; then K1 and K2 on the first
-     round's inputs as in phase 5 (B ~12,000 pairs). (b) translation
+     round's inputs as in phase 5 (B ~8,400 pairs). (b) translation
      averaging (softl1) on the 454 cameras of the loop, each paired with
      its 40 nearest centres (~9,000 pairs, P = 3 x 454 + pairs), 0.5 deg of
      seeded direction noise and 5 % on the scales: the PCG tier, centres
@@ -250,7 +251,18 @@ Run from the root of a checkout. Phases, each fatal on failure:
      frame as Paeth-filtered, Adam7 and 16-bit (v * 257) PNGs: each decodes
      to the 8-bit filter-0 file's bits (the 16-bit RGB file's gray read to
      libpng's 16-bit conversion of them), load_images_u8 too. Prints the
-     one-thread decode times of the full-size files.
+     one-thread decode times of the full-size files. (f) BMP, PxM, PAM,
+     PFM and Sun raster: the decoders give cv2's digests on embedded
+     probes of each kind (RASTER_PROBES), and the same two frames written
+     as an 8-bit BMP, a P5 PGM and an 8-bit Sun raster (gray, through a
+     gray palette / map) and a 24-bit BMP (RGB) decode to their PNGs' bits
+     (the 24-bit BMP's gray read to imgcodecs' gray of them), timed on one
+     thread. (g) joint_mvs on phase 6's first MASK_FRAMES = 4 frames with
+     a tripod-style mask, once as a PNG and once as an RLE8 BMP named
+     mask.png: the same booleans from load_mask, every artifact bit-equal,
+     fewer filtered depths in the masked pixels than without the mask,
+     phase 6's depth error bound; prints K3's launches
+     (`launches_mask` in the kernel line).
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -2420,6 +2432,203 @@ FORMAT_PROBES = {
         ".jpg", {"color": "917f775c1cefd017730695d2a493dbc420171bddfcf832d3bcfb04f44f775a92",
                  "gray": None}),
 }
+# phase 16 (f): small files of the formats cv2 reads without a codec, one
+# per kind (written by tests/image_forge.py, 6 x 11 pixels), each with the
+# SHA-256 of what cv2.imread gives for it in colour (RGB order) and in gray,
+# None where cv2 gives no image (a three-channel PFM read gray, a
+# one-channel one read in colour, an RLE or RGB-ordered Sun raster); the
+# PAM RGB_ALPHA digests hold 0 where cv2's conversion writes nothing;
+# tests/test_torch_image_raster.py recomputes them with cv2
+RASTER_PROBES = {
+    "BMP 1-bit": (
+        "Qk1WAAAAAAAAAD4AAAAoAAAACwAAAAYAAAABAAEAAAAAABgAAAATCwAAEwsAAAAAAAAAAAAA7d+tAKBWVAA3"
+        "oAAAXyAAABZAAAAsoAAAWoAAABcgAAA=",
+        {"color": '6fe7a6fe69f5dab8efb812c840b623903958513f22ee0d9456f3cc27ec8fb811',
+         "gray": 'a16932057e965e4ded831de060af11dc0fba2975540af0f4604fa4777d4cbc67'}),
+    "BMP 4-bit, 9-entry palette": (
+        "Qk2KAAAAAAAAAFoAAAAoAAAACwAAAAYAAAABAAQAAAAAADAAAAATCwAAEwsAAAkAAAAAAAAAvdnJACsmHgB5"
+        "uiQABNsgALow4QCzX2UAXbMuADlaNgDgDR0AxLfPMRBQAACJoRsxADAAAMbDCTANAAAArBgT4rbQAAABTTic"
+        "/gAAAEZn59VoEAAA",
+        {"color": 'b99a74c743412e9385a3f1868c43380c6abf5a1ad5fb6e8ceb7278441f109130',
+         "gray": '16e1e1f9e8cc70c4e6b96ce15f561ae4c5bc5da311feb26ae524fdd9c512d70c'}),
+    "BMP 8-bit, 40-entry palette": (
+        "Qk0eAQAAAAAAANYAAAAoAAAACwAAAAYAAAABAAgAAAAAAEgAAAATCwAAEwsAACgAAAAAAAAAIrEFAFjANABZ"
+        "blcACFjcAPHPPQBB8BAAuKbuABimeABoC5MAMLL1AMC7iACcu4EAfF6eALy5ogC1Z8AAzyftAKx1QADcr10A"
+        "qZeXADDsQACCexIA2FXdAK5MBQAwDIMAQoQKAPYV3gAB4LsA86ZSAPvfVQDzk7UA3L2qABs5yQDNCD0Aa/+G"
+        "AFK6gADl/AAAGv8hAB/BeABgxacAilYqACwUCxcsDwMhIQAFABgJGgERKxMhEAATACwmHAMQCRMAIB0QABos"
+        "ISghIy4CGwYNAAABFC0DCBksHw4gACQGBiceFy0VBgghAA==",
+        {"color": '152f10152dbbb3ba5ec532f8729b5facc72bd0214c34bd74f6625a3dac7aeb36',
+         "gray": 'f1f40f51843eb2d53893adec5785d63ac454b42c46de4dd9a04a2ddee05c1e9d'}),
+    "BMP 24-bit": (
+        "Qk0OAQAAAAAAADYAAAAoAAAACwAAAAYAAAABABgAAAAAANgAAAATCwAAEwsAAAAAAAAAAAAA9/sKis3i4xaw"
+        "9rXvo7hFluWSt+ms2Aq2hjXWPltRt6KoAAAAWHuT7Q+bKbGCFc0hbIqB9CqNTGf+JJk1rqSVQzTQ+ChbAAAA"
+        "0IER38Wshf5dUPc+LkRo41qHqPk5J3jA89nIdJwanC9aAAAAqt/ogYDNlOpzrAvIIXVy6v6VSfkDfnXdiFFT"
+        "wwffQ1TyAAAA0CVBCoAOBxRy/fRoI6ajhyY60fwuUiIi3h0KPfwnWi3mAAAA5MWE8kv/FqiKPKaHNLpn39U8"
+        "+yYKNYYXyhHZkquWRYnKAAAA",
+        {"color": 'c0bfd918bceff19463903694ede8d3dfc49d9f582da4a6ebac758ac2bdc59cdd',
+         "gray": 'd3bcf600fa6310fce99016d8b50cbb38f64cb5f87f12b0daad458ec51ba7e4f2'}),
+    "BMP 32-bit": (
+        "Qk0+AQAAAAAAADYAAAAoAAAACwAAAAYAAAABACAAAAAAAAgBAAATCwAAEwsAAAAAAAAAAAAAv4iNA3zhs3O7"
+        "FS4w/R759QDayYh9U7zsUmKdyUAfAJW1QjkdTdqKXaLP1vNZRbfaE/oqYjLcEfoWjMCDhlwxLVFmXguNRnlV"
+        "DIPa0WTB+YvQViRUQjFgCV7cAWYojtBd4NOVnb8X2LO9cjCojkTB+B3ZacnKgL86oTRaP5eWJ4eG2aTM8b/A"
+        "ctiLuzuDICTiVsNeTjkVhAOApJScyDx9myagxvClakyi/agovyNWN/BTlmHCQm77pvtqeDg4hAN6NR7vonwa"
+        "sAjhBNbYvmiLJ4YsbWOrmTQMbNv/EhzdkaVSxAw5vVnYYjr2Y36vi+Wz+W6rcBA/fNoZoqSIyyImePIdKFnu"
+        "KsH2",
+        {"color": '2e97131f0ddbf425a79e9745731544c2c99861d2e0602f32f5108bf7bc7378a3',
+         "gray": '577dbd3b163c4498c31a0dafd8b1a1a86ec6f45bfbe762390c388bf6b5165a03'}),
+    "BMP RLE4": (
+        "Qk24AAAAAAAAAHYAAAAoAAAACwAAAAYAAAABAAQAAgAAAEIAAAATCwAAEwsAAAAAAAAAAAAAYMRlABULWQDk"
+        "wkkAj4geAFYn2QB0G6wACry8ANr3uQAqsqQAKB9IACiVGABqntAAtomvAC/E9ABMkzQAQpJ3AAJmAAIFAAAE"
+        "7lUAAAKZAAIFAAAEiGYAAAJVAAIFAAAEZqoAAAACAAECIgACBQAABLvuAAAC/wACBQAABN1mAAAAAQ==",
+        {"color": '40b8ebe9d40b3f7fc3101527ffaf231efac9abb7bcb4710981f54fc98ae0e99f',
+         "gray": '8ba6be774a6ccfde9f884341a15881944015882eeab1c3089373a13e1d8da779'}),
+    "BMP RLE8 with deltas": (
+        "Qk3uAAAAAAAAAK4AAAAoAAAACwAAAAYAAAABAAgAAQAAAEAAAAATCwAAEwsAAB4AAAAAAAAAk94nAHHimwCq"
+        "AVgADphlAI12MgBPGPsAmJ6iAFKw7QDGTY0A9B1VAJ5HvAAMAD0Ai1ayAFQXmQBXe5QADBVPADaIMwAdFYEA"
+        "98SrANhdggAEdm4A44yqAPuiwgA1KmwAUXGXAL2tBADU+n8AXDLJABKltgCWs0MAAhUAAgUAAgsCBgAAAgMA"
+        "AgUABBoAAAIEAAIFAAIaAg8AAAACAAECCQACBQACDQIOAAACHAACBQACCAIcAAAAAQ==",
+        {"color": '17acb56bbe22f25235341d92572e267b6b97585b8ed9de25faab87c6a88e6b01',
+         "gray": '3848a1b81cad8dd0c57f07b3b91b3ab8dad2549837ec50cdf3d799e6325f6286'}),
+    "BMP 565 bitfields": (
+        "Qk3SAAAAAAAAAEIAAAAoAAAACwAAAAYAAAABABAAAwAAAJAAAAATCwAAEwsAAAAAAAAAAAAAAPgAAOAHAAAf"
+        "AAAAnps8JY/9Gcn1icPFCH42kjrvdDd31gAAeDiYRF/iLK/XFgk7rLtxyeWQKxsAywAAHFwblFa+MSsiADzd"
+        "1+8Gf20bRQBMnAAA0wqjWfK4UAS/oMLaQSFqZFxYSxp6xwAAC75d5V79umjz8GHuXlFJgROZVT2XpgAAkB1T"
+        "bG86twjtwiFak25qiL791B9VbAAA",
+        {"color": 'd4aafdf84a4fda2edcaf6f8cb8cf42ba45e8ba6c9328a22e056cfe8b26c87108',
+         "gray": '377b925022f4bad8ebea014447dc5cbe54916ac28f449d88f7c4b009ac299b87'}),
+    "BMP OS/2 header": (
+        "Qk16AAAAAAAAAEoAAAAMAAAACwAGAAEABAAyLqTLrwomRvTvHSnlqp7xOXVnV+SbR6DEiklARhwtn9UOM5Zk"
+        "sWkHGAs8Y8waFETEt88xEFAAAImhGzEAMAAAxsMJMA0AAACsGBPittAAAAFNOJz+AAAARmfn1WgQAAA=",
+        {"color": '6643c39478a3ef32cddf39a77b69512c5140e8cf334be1949e26eb7cb2a73f72',
+         "gray": '56a5edde3c0d646c2562f3c7dd6b6d925bdbb0bf9a2e56d9cda85b473732f21b'}),
+    "BMP top-down": (
+        "Qk0OAQAAAAAAADYAAAAoAAAACwAAAPr///8BABgAAAAAANgAAAATCwAAEwsAAAAAAAAAAAAAGYikyz96km2P"
+        "Hgsmfs/93NFK5ibmmj+LYXLsq9P7vMG3AAAAFJMNRW5HjVv+D1iQ6LssmaOvN0jalbPFEStJu0QcryycAAAA"
+        "PPhCy3+6DpYEapaZ2JokY0YzpEjMHTycymoj6LIH5D7UAAAAB46t+IDa99UoOXG8xqqIGOtcZEdPYPLn3elr"
+        "xy0Zxy48AAAAFhat2htDqTHHNbguszphOcqVyndb6VkS3gjY1yWB4BjYAAAA8JTVnCZps0ZhntHbXjDkeloY"
+        "UTbo3dY3PBtDeEqrPlHBAAAA",
+        {"color": '6de102bb03da8eae5a35229a305eb90dc813c483908286fcd83149d7a2814c61',
+         "gray": '8326c2d0cba91d8e00742be9d6e3ec09fd3fe4beed966fae0b89dfe107ddd617'}),
+    "P1": (
+        "UDEKMTEgNgowMDAxMDExMTAwMTAxMDExMAoxMDEwMDAwMTAxMTAwMTAxMAowMDEwMTEwMDEwMDEwMTExMQox"
+        "MDAxMDAxMTAxMTExMDEK",
+        {"color": '815a64fbf2325285e200f5b7f4325fda1584490d86ff0bcba65cddd4cbae0df0',
+         "gray": '16c5fa0acfabe449614877f7ad4bb2d59efa37b77f725898fde9fe7138dda401'}),
+    "P4": (
+        "UDQKMTEgNgoXIFqALKAWQF8gN6A=",
+        {"color": '815a64fbf2325285e200f5b7f4325fda1584490d86ff0bcba65cddd4cbae0df0',
+         "gray": '16c5fa0acfabe449614877f7ad4bb2d59efa37b77f725898fde9fe7138dda401'}),
+    "P2": (
+        "UDIKIyBhIGNvbW1lbnQKMTEgNgojIGEgY29tbWVudAo5OQoyOCAyIDU0IDgzIDIyIDcxIDkzIDIxIDQ2IDQ4"
+        "IDc3IDQ0IDQ1IDY0IDg5IDQ3IDAKMjEgOTIgMzEgNiA4MCA3MCA4OCA3NyAzMiA3NyAyNyA5MCA0MiAyMyA2"
+        "IDU3IDg4CjM4IDcyIDk1IDYwIDU3IDYzIDQ0IDMyIDczIDYwIDE2IDEgMTggMSAxNyAzNSAxMQozMyA2NCA5"
+        "NiAxMSA0MCAxMiA1NSAxOSA0MCAxNSA5OSAyNSAyNSA0NCAxCg==",
+        {"color": '342d8ae56a641a1991f0c18e51424949d38e984edd2d724ddc7d3afc8b28f648',
+         "gray": '2cda2523d83df9472fa7e067192091e4bd96ba4ad966f9402bd7b0acab109138'}),
+    "P5 maxval 1000": (
+        "UDUKMTEgNgoxMDAwCgK8Av4AoANnADAA1wK+AiEBIACcAtcB2wKtAbACzAOwAT0BEQMYAWICYwGqAToAhQHD"
+        "AoUD0wBtAEoDiQBdAV0DlACEAGgADwBAAFQBowCSABMA2gLNAUYApwJUAqIAowFYAVABLgLaAPMALgIzAYID"
+        "cgKGAY0BkQOlAIkAZACuA9kBBg==",
+        {"color": 'd1c5c2fa05f29215f43a3fbe938495d4fb82cde78d56932a72b35a272dd76382',
+         "gray": '65edc15940fead0a45c1836e6f9f9b6fd28f9078511c1cf166369a1588000f7c'}),
+    "P5 16-bit": (
+        "UDUKMTEgNgo2NTUzNQodPzQdEhA5O1PJCvvmlApiSLbn8/yCilereXzreFeUP+ssuzQ4xben2N4cCKd2aBDN"
+        "2jHn7WxEDAfktvbmKuXuy1x+gyUlk1Sl6wNacib40p7GhrYRtXj7ylg8UMGj02rzOPZBXzMhztofrePaqbYp"
+        "0p6ZEmL4YIPSxJI6Rcriu0uqT1Q=",
+        {"color": '2f79fb2475d722046ff129c379968116d301e2bee701867245cefacfd119aa5f',
+         "gray": '3b65850ba1e814fd3b8834c54fab93b1c9c4ba77f385463b3ef81c3d7d6f5902'}),
+    "P6": (
+        "UDYKMTEgNgoyNTUK19wPV1kdrUXUfAx8zQpgqBOe5HT+OZCq0hl5pXk7xXthyGTstDzdxDV4fpjDp9OdNzGg"
+        "Wq2zs0MjP+jI9mnzRzNOJfuwWrRj1t+SB/DhgCienDCW9UH0UImhZGCqF4KLENmjplVLRevn7MHfjrIE5mUw"
+        "RRfUyN69xjZu90gXxucX+L8xu86TF4x5mWwolg/098NbK3v6mibyOUqH7ad1EM8f8AHQ0AJvY2cg7KICYOF+"
+        "HZf6oDjg7MHiYMaaXjE6EE1qPzu4",
+        {"color": '96d805639088a87db5a45a57c9b11b0ea726b4118e5ef750623075e3989b250a',
+         "gray": 'd08c00ea61a0c62dac31388ca92c01c260982e4ca95137cd914cbc83863aaac1'}),
+    "P3": (
+        "UDMKMTEgNgoyNTUKMTM4IDggNjQgMjUyIDEzNiAyMjMgMjUzIDE2MiAxNTcgMTczIDE0NSAyNDIgNjggNTQg"
+        "MTA1IDUwIDg0Cjg0IDEwMyAxNDYgMTQ2IDIxMyAyMSAxMTUgMTEwIDE3MiAxODQgNjIgMTEwIDE3MiAyMTgg"
+        "MTc0IDE0OSAyMTkKMTY1IDEwMiAzMSAyMCAxMjggMTQ4IDE2MiAxNjIgNDUgMjMzIDg1IDI0MSA5IDEzOCAx"
+        "MjcgMTcgNTIKMjcgMTUgMjE0IDE4IDE2OCA4OCA2NCAxNTEgMTEzIDE2MyAxNzEgMTY2IDUgODYgMzEgMTMy"
+        "IDI1MQoxOCA5NCAxMTkgODcgMjAgMjAyIDg4IDE1NSAyNTIgMTQwIDEwMSAxMCAxMzYgMTk3IDE4NyAxMTYg"
+        "NQo2MyAxNzUgMjM3IDE2OSAxNTYgMjAgMTQwIDE5IDIwNyAyNDYgMTIyIDE0OSA4NSA0NyAxMjMgNjkgMTI1"
+        "CjExOSAxNTEgMTE0IDM3IDYgMyAxNjUgMTY4IDIzNyAyMSA1OSA3NiA3MyAxOTQgMTQ5IDE0OCAxNgoxMjIg"
+        "NzYgMTMwIDIwMiAxNzggMjQ2IDg0IDk4IDUzIDM5IDE2OSA5MiA1NSA0MiAyNiAyMDkgMjUxCjcxIDExNiAx"
+        "NTkgMTgwIDExIDIxMyAyMjYgNTAgMjAzIDE3OSA4MiAyMTUgMjUxIDEzIDI1NSA5MyAxNzMKMjM0IDIwNCAx"
+        "NzAgNjYgMTI4IDI3IDEyNyA2IDIxMyAxMjcgMjMxIDE3OCAxNjAgMjQ2IDIzNCAzMiAyMjgKMjEyIDE1NyAx"
+        "NTMgNDUgMjA5IDIyNyA5OSAyNTAgMiAxODkgNTMgODQgMTQ1IDE0OCAxOSAxNTggMTc1CjM0IDE1MyAyMzIg"
+        "NjIgMTU2IDEyNiAyMTkgMjEwIDIxOCAxOCAxNDQK",
+        {"color": '22df373f5a5c60b689019695d0f43b609fb00a1dee6c329c795ac1d4272ba598',
+         "gray": 'f87590cc5ab78f9a828e4f68d5df95239530fcf158e8051c27a96de13999f052'}),
+    "PAM RGB_ALPHA": (
+        "UDcKV0lEVEggMTEKSEVJR0hUIDYKREVQVEggNApNQVhWQUwgMjU1ClRVUExUWVBFIFJHQl9BTFBIQQpFTkRI"
+        "RFIK2LGZpRgxLL1Sj0lYWfGZG48I5LXW5iiFTpPqGyExlF3QE2hv78ebaTwHO2FDwNlo/KwJDJkyNUFX1jMR"
+        "1w+T1CtkRwJWLHMeAHxlbo/GXA+CN+5GW7BTWHYoHN57Hdg/FKoRVZlyh2T1yvecDVPAuQJ0hTFAHvyRFwvp"
+        "//hUgX1fghFRtXarqX+Tdagd+A+3OpjoChWVNQRAjcnQcbGulSNsi/Dcv/gRTz4X1TmAC3nYEw2/DfDMxvN8"
+        "PRv4FAC7e2bZd0bxU30hcde2SGF0GoxhFpfP6n4GSLy86I5NDNAAUjaqiKtSix/7u8h/mjg+TioHWfyp64eX"
+        "EMl4tad3naseIQ5KyMdl",
+        {"color": '2ba7247f9465745c882b74c5f299b6c921cec6f9d37a59e953656f3e9cf47534',
+         "gray": '41eb91aa19ea711adfb4a048e1773259d40ce4ba9f859838c1520dc1064712b9'}),
+    "PAM GRAYSCALE": (
+        "UDcKV0lEVEggMTEKSEVJR0hUIDYKREVQVEggMQpNQVhWQUwgMjU1ClRVUExUWVBFIEdSQVlTQ0FMRQpFTkRI"
+        "RFIK5GY2t95HXRX2+LGQkaS9k8h5XB/OUKq8seix477yewadvCasw6A5o5AgraDYydoBEevTIUBg04zUm3eM"
+        "D2Ph4ZBl",
+        {"color": '7242b8e876f2201e3c4c69089afca7cb62db98fdc92fb2a84ce8d74b539fc0a1',
+         "gray": 'befa9c53f9146f126d7b14f62d324659c42b98ebe85be970bd3adb63afb9ce8c'}),
+    "PFM colour": (
+        "UEYKMTEgNgotMS4wCgQ0O0MYUAFDfgS6wdy1R0KyqSJCegwFQ6LDZEM4cQFDG0InQ5oRiUIzFqxCFfGNQrMM"
+        "OUM0zaTCWjf/QolLFEPZUipDbRgzQ0YRrkKu3IxCv/T7v5J1kkPmVE9DEUqOQrHaYEI9PD9DRrbEQvaYDEOC"
+        "PqvAZdyXwBUhbUMbhbXBbXoLQ2GHKkMYWKtC0JHgQiWgxEK9fQ5Dc6v3QgprFkItCiZDAq0zQwU/6kE+tBtC"
+        "yJ1hQ5M18kLijsNC6uTEQewbeUL/a/VC7QiZwutNBkOCjSJDfTqWQoAEG0JEkQdBuxaJQz6vIkNvYuNBVFo4"
+        "Q+jeAENHzlBCkuE+Q6/BjUJkwmVDsKwaQ0U3W0Prea1Co6DvQlM0akMhhTFDfY2DQ6cDlkJ54+ZBs2WIQ2/0"
+        "g0NSmz1D1pTzQqdgqEJqmFtDgwfiQuq/ZEKY7wRDwWJwQ/VTNEOfEt1AKABFQ21WREPJizVDo5F+QebVW0Ki"
+        "5k1C7DsPQ269CUNFHAhDhH4FQT5ECkMsFzRDKStcQ4vOG0NBy5ZDHYqBQy2YG0MRr0FBF94rQ7XzC0EPKk5D"
+        "aCXIQpA4h0PgCSRDeY4RQ233ZEOGetxCZdCGQ5xubUMqijpDxKrCQnJ320JaXzlDvd1wQ2LjF0MvnidDLI0R"
+        "Qr8jBULp0ypCpeoAQyzGYEMUL39DUzNqQ6BfTkP09pVCFDo7QwHSr0J8yxNCvpb1Qh9Xn0I90zhDW6IiQ/At"
+        "DENRnRBDV+owQw/UOUOvwm5Dob0UQ1iAA0NfB2VDZBW7Qk01BkMdaChDqWdiQ24oWEPyrMhCEmj2QhndU8Lq"
+        "PkpDrrW1QpTZC0P0VGpC228yQvTOrEKILN5CUrNjQz/UMEPgLs9CcRNlQyhTCENvMiJD2qrEQqoQ40IcgjVD"
+        "An8sP9FzlUKX+lxDknCSQgFOMkKN8y/Cl+F9QnvAy0L4Mf9C/VgdQ5I+E0M0aztCriXYQm0nIUNxGBFD6LtE"
+        "Q1Hdc0PnCTJDkN9eQ43qCkNMlEtD/5huQrS7ikP8tzZDuYDjQt0mY8Lm1AFDGevdQg==",
+        {"color": '0903aa733989ea19eb7a180b70bea41b9b82e20199510263f8a635139ca08b90',
+         "gray": None}),
+    "PFM gray": (
+        "UGYKMTEgNgoyLjAKQv6/pkNKIT9C5syYQo3BgUKDf31BYtmcQsD/n0JVOWxDBXGtQyC4nkNZhaRDfw9HQwjt"
+        "dkLYVPxDf5A9QuXJK0LsFq9DSea3QtAsiMFW4YFC+qDDQsfIKEKcytJDKo1TQppAm0Me57RCqazOQztyFEKI"
+        "J9NDErJkQ2Uq6kKOtRlBvJyMQzXSsMIVLzFC+0MRQqbMc0MY0gRDDCg1QwkZeENXDIpC8C7GQwAmOkKUmb9C"
+        "m5NuQ22cA0IKOJ9DHOVcwTAMXcCULLFCsNRXQsiz+0LQTytBAsshQwCYxkMhJn9DGvqvQvPXIcIzlmNCvOCU"
+        "Qpv3DUIOuyXBrK70QqfzHENJIQtCfJ8d",
+        {"color": None,
+         "gray": '8a54e1faaca65c37b5f5042e038e95942aa1e5a603d55e4f64df408a18e8d0de'}),
+    "Sun raster 8-bit with a map": (
+        "WaZqlQAAAAsAAAAGAAAACAAAAEgAAAABAAAAAQAAADxv+4e+AOIFqquYus2bCtz0Z1qNmkLBU/tkArTR7Tsa"
+        "oMp2DYoYEwFmvmbE8tKtfdLQn2zp8El/ZvthVYAMBgYPBhcVFQYICQAAARQVAwgBFAcOCAACFAkQCQsWAgMG"
+        "DQAUDgQDEAkTAAgFEAAACQIBERMTCRAAEwAUFAsXFA8DCQkABQA=",
+        {"color": 'fe769901568ab4e464d0872cdb6700ad13007e16a6c8dd960118d727394a352e',
+         "gray": 'c1125cb7158fc19a73d6938d408c6762e40d66e974f47382a25ff9a340430f95'}),
+    "Sun raster RLE 24-bit": (
+        "WaZqlQAAAAsAAAAGAAAAGAAAAMwAAAACAAAAAAAAAADQjKbQjKbQjKbuwO7uwO7uwO7aFHnaFHnaFHnhhyrh"
+        "hyoAxcZYxcZYxcZYObF2ObF2ObF2fu5Efu5Efu5EhZ9ghZ9gAJO62pO62pO62gcuKQcuKQcuKYzlKYzlKYzl"
+        "Kbpz/7pz/wDpYGjpYGjpYGjdDY/dDY/dDY8J77YJ77YJ77b7sED7sEAAK05UK05UK05UGkjAGkjAGkjA7HQ+"
+        "7HQ+7HQ+qlxlqlxlAD/BYD/BYD/BYEnXzknXzknXzq0HSq0HSq0HSijW3ijW3gA=",
+        {"color": None,
+         "gray": None}),
+    "Sun raster RGB-format 32-bit": (
+        "WaZqlQAAAAsAAAAGAAAAIAAAAQgAAAADAAAAAAAAAABoHTOSLYneBK/XFirw06QhWn/rfHqiEkosgJKvA2n9"
+        "VjJwIcLSCt1bG6vCkWlB0mm1uLqksjjnSfa9K8ezkNBFo4ncmPl02XWBA264jwUU0F52s9QiBCP/Y40mrg8Q"
+        "pnGyjNE2xs+6aFEykjTjPBGhbwOq5T8qM1+zdLE9khxGS0XuPVyCJrN/3uN6BTyyS4XMlyL6HMNi2w2CtE3w"
+        "j4HlDV7a1EdDw3gMN1iyHkiBRVhhLohCWqkI/qL01ZwCVl4XIRFrk4V9k1z4b1VmpLa0w7DKugQM8gaeACyz"
+        "qiJsefechdsCVKQw5r9uVtrKmcx8W2xdOvry/F6sYlkgiBZnv4Oul2DxmkE=",
+        {"color": None,
+         "gray": None}),
+}
+# phase 16 (f): the full-size files of frames GRAY_VARIANT_FRAME (8-bit
+# BMP with a gray palette, P5, 8-bit Sun raster with an equal map) and
+# RGB_VARIANT_FRAME (24-bit BMP) that the render workers write, timed on one
+# thread; phase 16 (g): a joint_mvs run on the first MASK_FRAMES frames of
+# phase 6's dataset with a tripod-style mask as a PNG and as an RLE8 BMP
+# named mask.png, and without one
+RASTER_VARIANTS = {"gray": ("bmp8.bmp", "p5.pgm", "sun8.ras"), "rgb": ("bmp24.bmp",)}
+MASK_FRAMES = 4
+
 # the MVS frames re-coded as progressive files from the coefficients that
 # their baseline files carry (phase 16 (b)) and as arithmetic-coded ones
 # (phase 16 (d): even frames sequential with restarts every ARITH_RESTART
@@ -2463,6 +2672,14 @@ def write_format_variants(root: str, i: int, rgb):
         if i != frame:
             continue
         img = np.ascontiguousarray(rgb[..., 0]) if img is None else img
+        ramp = np.repeat(np.arange(256)[:, None], 3, axis=1)   # a gray palette / map
+        raster = {"bmp8.bmp": lambda: forge.bmp_bytes(img, 8, ramp),
+                  "p5.pgm": lambda: forge.pnm_bytes(img, 5),
+                  "sun8.ras": lambda: forge.sun_bytes(img, 8, 1, ramp),
+                  "bmp24.bmp": lambda: forge.bmp_bytes(img, 24)}
+        for name in RASTER_VARIANTS[kind]:
+            with open(os.path.join(root, "png_variants", f"{kind}_{name}"), "wb") as f:
+                f.write(raster[name]())
         ctype = 0 if img.ndim == 2 else 2
         out = os.path.join(root, "png_variants", kind)
         if ctype == 2:
@@ -2495,6 +2712,31 @@ def check_format_probes(names=None):
         decode = native_png.decode if ext == ".png" else native_jpeg.decode
         got = {kind: digest(decode, data, kind == "color") for kind in ("color", "gray")}
         log(f"format probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
+        if got != want:
+            fail(f"the decoder built here does not give cv2's bits on the {name} probe")
+
+
+def check_raster_probes(names=None):
+    """Phase 16 (f): the port's BMP, PxM / PAM / PFM and Sun raster
+    decoders on this machine give cv2's digests on every embedded probe,
+    in colour and in gray, and refuse the reads cv2 gives no image for."""
+    import base64
+    import hashlib
+    from panovlm_tpu_torch.io import images
+    from panovlm_tpu_torch.native import Cv2Refuses, bmp, pxm, sunras
+
+    for name in names or RASTER_PROBES:
+        b64, want = RASTER_PROBES[name]
+        data = base64.b64decode(b64)
+        decoder = {"BMP": bmp, "Sun raster": sunras}.get(images.image_format(data[:64]), pxm)
+        got = {}
+        for kind in ("color", "gray"):
+            try:
+                got[kind] = hashlib.sha256(decoder.decode(data, kind == "color")
+                                           .tobytes()).hexdigest()
+            except (Cv2Refuses, ValueError):   # a read cv2 gives no image for
+                got[kind] = None
+        log(f"raster probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
         if got != want:
             fail(f"the decoder built here does not give cv2's bits on the {name} probe")
 
@@ -2571,6 +2813,7 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
 
     root = os.path.dirname(mvs_cfg_path)
     check_format_probes()
+    check_raster_probes()
     # (b) progressive and (d) arithmetic-coded frames, against the baseline
     # files of the same frames
     color_dir = os.path.join(root, "color")
@@ -2637,6 +2880,134 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
         ref = images.read_png(ref_path, kind == "rgb")
         if not all(np.array_equal(x, ref) for x in loaded):
             fail(f"load_images_u8 of the {kind} PNG variants differs from the filter-0 file")
+    # (f) the same frames as BMP, PGM and Sun raster files: the gray ones
+    # through a gray palette / map, so both reads give the PNG's samples
+    for kind, ref_path in refs.items():
+        for color in (True, False):
+            ref = images.read_png(ref_path, color)
+            for name in RASTER_VARIANTS[kind]:
+                path = os.path.join(var, f"{kind}_{name}")
+                img, ms = _one_thread_ms(images.read_image, path, color)
+                want = ref
+                if kind == "rgb" and not color:   # imgcodecs' gray of the BGR pixels
+                    c = images.read_png(ref_path, True).astype(np.int32)
+                    want = ((1868 * c[..., 2] + 9617 * c[..., 1] + 4899 * c[..., 0] + 8192)
+                            >> 14).astype(np.uint8)
+                same = np.array_equal(img, want)
+                log(f"one-thread decode ({card}; host CPU) of the {img.shape} {name} "
+                    f"({os.path.getsize(path) / 2**20:.2f} MiB), "
+                    f"{'colour' if color else 'gray'} read: {ms:.1f} ms, "
+                    f"{'the PNG bits' if same else 'DIFFERS'}")
+                if not same:
+                    fail(f"the full-size {name} does not decode to its PNG's bits")
+
+
+def tripod_mask(h: int, w: int):
+    """A tripod-style mask, 255 where a pixel is usable: the bottom eighth
+    of the rows (the tripod) and a pole, a band of w / 32 columns from the
+    horizon down, cleared."""
+    import numpy as np
+    m = np.full((h, w), 255, np.uint8)
+    m[h - h // 8:] = 0
+    m[h // 2:, w // 2 - w // 64:w // 2 + w // 64] = 0
+    return m
+
+
+def _tree_bytes(root: str) -> dict:
+    """Every file under root/result and root/mvs: relative path -> bytes."""
+    out = {}
+    for sub in ("result", "mvs"):
+        for dirpath, _, files in os.walk(os.path.join(root, sub)):
+            for name in files:
+                path = os.path.join(dirpath, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
+    """Phase 16 (g): joint_mvs on the first MASK_FRAMES frames of phase 6's
+    dataset with tripod_mask at half the working size (load_mask resizes
+    it), once as a PNG and once as an RLE8 BMP named mask.png. Checked:
+    load_mask gives the same booleans for both, the resized mask's; every
+    artifact of the two runs bit-equal; fewer filtered depths in the masked
+    pixels than the same frames without a mask have (a run resumed from
+    the PNG run's pass artifacts; the mask clears the depths before the
+    post-processing, whose gap interpolation may give some back); the
+    depth error bound of phase 6.
+    Prints each run's wall and K3 launches. Returns the launches of the
+    PNG run."""
+    import shutil
+    import numpy as np
+    from panovlm_tpu_torch.__main__ import main as port_main
+    from panovlm_tpu_torch.config import load_config
+    from panovlm_tpu_torch.io import images
+    import image_forge as forge
+
+    root = os.path.join(os.path.dirname(mvs_cfg_path), "masked")
+    H, W = d_gt[0].shape
+    m = tripod_mask(H // 2, W // 2)
+    os.makedirs(os.path.join(root, "masks", "bmp"))
+    paths = {"png": os.path.join(root, "masks", "mask.png"),
+             "bmp": os.path.join(root, "masks", "bmp", "mask.png")}
+    images.write_png(paths["png"], m)
+    with open(paths["bmp"], "wb") as f:
+        f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
+                                rle=True))
+    want = np.repeat(np.repeat(m > 0, 2, axis=0), 2, axis=1)
+    loaded = {kind: images.load_mask(path, H, W) for kind, path in paths.items()}
+    same = all(x is not None and np.array_equal(x, want) for x in loaded.values())
+    log(f"tripod mask {m.shape} as PNG ({os.path.getsize(paths['png'])} bytes) and RLE8 BMP "
+        f"named mask.png ({os.path.getsize(paths['bmp'])} bytes): load_mask at {H} x {W} "
+        f"{'the same booleans, the resized mask' if same else 'DIFFERS'}; "
+        f"{(~want).mean():.3f} of the pixels masked")
+    if not same:
+        fail("load_mask of the PNG and the BMP mask differ")
+    launches = {}
+    for kind in ("png", "bmp"):
+        cfg_path = _subset_config(os.path.join(root, kind), mvs_cfg_path, MASK_FRAMES,
+                                  f"mask_path = {paths[kind]}\n")
+        vs_mod.volscore.launches = 0
+        t0 = time.time()
+        rc = port_main(["joint_mvs", cfg_path, "--device", device])
+        launches[kind] = vs_mod.volscore.launches
+        log(f"joint_mvs, {MASK_FRAMES} frames at {H} x {W}, the {kind.upper()} mask: wall "
+            f"{time.time() - t0:.1f} s, volscore launches {launches[kind]}")
+        if rc != 0:
+            fail(f"joint_mvs with the {kind} mask exited {rc}")
+        if launches[kind] <= 0 and device == "cuda":
+            fail(f"the volscore kernel was not launched in the run with the {kind} mask")
+    trees = {kind: _tree_bytes(os.path.join(root, kind)) for kind in ("png", "bmp")}
+    equal = trees["png"] == trees["bmp"]
+    log(f"the PNG-mask and BMP-mask runs: {len(trees['png'])} artifacts "
+        f"{'bit-equal' if equal else 'DIFFER'}")
+    if not equal or launches["png"] != launches["bmp"]:
+        fail("the runs with the PNG and the BMP mask differ")
+    # the same frames without a mask: the PNG run's pass artifacts, resumed
+    none = os.path.join(root, "none")
+    cfg_none = _subset_config(none, mvs_cfg_path, MASK_FRAMES)
+    shutil.copytree(os.path.join(root, "png", "mvs"), os.path.join(none, "mvs"))
+    for sub in ("depth", "conf"):
+        for name in os.listdir(os.path.join(none, "mvs", sub)):
+            if name.endswith("_filter.npy"):
+                os.unlink(os.path.join(none, "mvs", sub, name))
+    t0 = time.time()
+    if port_main(["joint_mvs", cfg_none, "--device", device]) != 0:
+        fail("joint_mvs without the mask exited non-zero")
+    masked = ~want
+    counts = {}
+    for kind, cfg_path in (("png", os.path.join(root, "png", "config.txt")), ("none", cfg_none)):
+        cfg = load_config(cfg_path)
+        counts[kind] = sum(int((np.load(os.path.join(cfg.mvs_depth_path, f"{i:06d}_filter.npy"))
+                                [masked] > 0).sum()) for i in range(MASK_FRAMES))
+    log(f"filtered depths in masked pixels: {counts['png']} with the mask, {counts['none']} "
+        f"without it (resumed run, {time.time() - t0:.1f} s)")
+    if not counts["png"] < counts["none"]:   # gap interpolation may give some back
+        fail("the mask did not take effect in the filtered depth maps")
+    check_mvs_outputs(torch, load_config(os.path.join(root, "png", "config.txt")),
+                      d_gt[:MASK_FRAMES], "phase 16 (g), PNG mask",
+                      floors={key: 0.0 for key in MVS_MIN_COVERAGE})
+    return launches["png"]
 
 
 # ----------------------------------------------------------------------------
@@ -2884,11 +3255,13 @@ def run_joint_tracks(torch, knn_mod, sfm_cfg_path, gt, device: str = "cuda"):
 
 
 # ----------------------------------------------------------------------------
-# phase 12: the LM solver's PCG tier at Floor-1593 and at Room-454's pair
-# graph
+# phase 12: the LM solver's PCG tier at Floor depth (cut) and at Room-454's
+# pair graph
 # ----------------------------------------------------------------------------
 
-FLOOR_SCANS = 1593          # the reference's Floor dataset (_floor_scale.sh)
+# the reference's Floor dataset has 1593 scans (_floor_scale.sh); cut to
+# 1100 (the time limit), still above the dense tier's 6,144 parameters
+FLOOR_SCANS = 1100
 TA_FRAMES = 454
 TA_NEIGHBOURS = 40          # nearest camera centres per frame: ~9,000 pairs
 TA_DIR_NOISE_DEG = 0.5
@@ -2918,8 +3291,8 @@ def _pose_diff(a, b):
 
 
 def run_floor_odometry(torch, knn_mod, cfg_path, gt, device: str = "cuda"):
-    """Phase 12 (a): the odometry stage through the CLI on the Floor-1593
-    dataset (make_room: the Room-454 loop's yaw step, ~8.8 revolutions),
+    """Phase 12 (a): the odometry stage through the CLI on the Floor
+    dataset cut to FLOOR_SCANS (make_room: the Room-454 loop's yaw step),
     on the PCG tier. Checks the artifacts, the ground-truth bound, one K1
     and one K2 launch per round, the tier, and a bit-equal re-solve of the
     first round's LM problem; compares that problem's PCG solve with the
@@ -3279,9 +3652,10 @@ def run_mvs_sfm_neighbours(torch, vs_mod, sfm_cfg_path, d_gt):
     return launches
 
 
-def _exact_config(root, mvs_cfg_path, k: int):
-    """Config of the exact-sampling run on the first k frames of phase 6's
-    dataset, with its own images, joint poses, results and depth maps."""
+def _subset_config(root, mvs_cfg_path, k: int, keys: str = ""):
+    """Config of a joint_mvs run on the first k frames of phase 6's dataset,
+    with its own images, joint poses, results and depth maps, and `keys`
+    after the Room MVS keys."""
     from panovlm_tpu_torch.io import artifacts
 
     src = os.path.dirname(mvs_cfg_path)
@@ -3297,7 +3671,7 @@ def _exact_config(root, mvs_cfg_path, k: int):
     with open(cfg_path, "w") as f:
         f.write(f"image_path = {root}/images\nlidar_path = {src}/undis\n"
                 f"lidar_path_undistort = {src}/undis\nresult_path = {root}/result\n"
-                f"mvs_data_path = {root}/mvs\n{ROOM_MVS_KEYS}mvs_sweep_slices = 0\n")
+                f"mvs_data_path = {root}/mvs\n{ROOM_MVS_KEYS}{keys}")
     return cfg_path
 
 
@@ -3342,8 +3716,8 @@ def run_mvs_exact(torch, vs_mod, mvs_cfg_path, d_gt, k: int, tr6):
     from panovlm_tpu_torch.utils.timing import TimeReport
 
     n6 = len(d_gt)
-    cfg_path = _exact_config(os.path.join(os.path.dirname(mvs_cfg_path), "exact"),
-                             mvs_cfg_path, k)
+    cfg_path = _subset_config(os.path.join(os.path.dirname(mvs_cfg_path), "exact"),
+                              mvs_cfg_path, k, "mvs_sweep_slices = 0\n")
     cfg = load_config(cfg_path)
     tr = TimeReport()
     vs_mod.volscore.launches = 0
@@ -3981,7 +4355,10 @@ def main():
             t0 = time.time()
             run_formats_phase(torch, mvs_cfg, pcd11, card=card)
             del pcd11
-            log(f"phase 16 (image formats): {time.time() - t0:.1f} s")
+            t1 = time.time()
+            vs_extra_mask = run_mask_phase(torch, vs_mod, mvs_cfg, d_gt)
+            log(f"phase 16 (g) (joint_mvs with a mask): {time.time() - t1:.1f} s; "
+                f"phase 16 (image formats): {time.time() - t0:.1f} s")
 
         if chain:
             # 13. the line-track modes and the CALIBRATION mode on phase 10's
@@ -3996,7 +4373,7 @@ def main():
                 f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
         if not (args.only_sfm or args.only_joint):
-            # 12. the PCG tier: the odometry stage at Floor-1593, K1 and K2 on
+            # 12. the PCG tier: the odometry stage at Floor depth, K1 and K2 on
             # its first round's inputs, translation averaging at Room-454's
             # pair graph
             t0 = time.time()
@@ -4029,7 +4406,8 @@ def main():
             log(f"phase 14 (c) (odometry options): {time.time() - t0:.1f} s")
             t1 = time.time()
             run_mvs_exact(torch, vs_mod, mvs_cfg, d_gt, args.mvs_exact_frames, mvs_tr)
-            vs_extra = {"launches_exact": vs_mod.volscore.launches}
+            vs_extra = {"launches_exact": vs_mod.volscore.launches,
+                        "launches_mask": vs_extra_mask}
             torch.cuda.empty_cache()
             log(f"phase 14 (b) (exact sampling): {time.time() - t1:.1f} s")
             t1 = time.time()
@@ -4087,7 +4465,8 @@ def main():
          "library_ms": r["library_ms"],
          **{k: r[k] for k in ("launches_joint", "launches_joint_tracks", "launches_floor",
                               "launches_options", "launches_sfm_neighbours",
-                              "launches_exact", "launches_surgery", "launches_gps",
+                              "launches_exact", "launches_mask", "launches_surgery",
+                              "launches_gps",
                               "launches_ranks", "shapes") if k in r}}
         for name, r in rows.items()]}))
     log(json.dumps({"ok": True, "device": {

@@ -26,18 +26,26 @@
     a gray read is libjpeg's Y plane, not `rgb_to_gray` of the colour
     result.
 
+  * BMP (native/bmp.cpp), PBM / PGM / PPM, PAM and PFM (native/pxm.cpp)
+    and Sun raster (native/sunras.cpp), host C++ decoders with cv2's bits
+    (OpenCV's own readers replayed, its quirks too: RLE escapes, PAM's
+    channel conversions, PFM's channel count; see each file's comment).
+
 The decoder is chosen by the file's first bytes, as cv2's findDecoder
 chooses it, never by its name: `image_format` names the format of every
-signature cv2 5.0 here has a decoder for. JPEG and PNG are read; the other
-formats (BMP, PxM / PAM, PFM, Sun raster, HDR, GIF, TIFF, WebP, JPEG 2000,
-AVIF) raise NotImplementedError naming ROADMAP.md; bytes that are no
+signature cv2 5.0 here has a decoder for. JPEG, PNG, BMP, PxM / PAM, PFM
+and Sun raster are read; the other formats (TIFF, WebP, HDR, GIF, JPEG
+2000, AVIF) raise NotImplementedError naming ROADMAP.md; bytes that are no
 format's signature raise ValueError, as cv2.imread gives no image for them.
-The extension only decides which files `list_images` finds.
+A file whose size cv2.imread raises for (a side over 2^20 pixels, ...)
+raises native.Cv2Raises. The extension only decides which files
+`list_images` finds: a frame.png that holds BMP bytes is a BMP frame.
 
 `load_mask` is the JAX package's: where cv2.imread gives no image (a
-corrupt or cut file, no decoder for its first bytes, a kind of JPEG cv2
-refuses, an unreadable path) it logs "Fail to read mask" and returns None;
-a file cv2 reads and the port does not yet still raises. Its resize is
+corrupt or cut file, no decoder for its first bytes, a kind of file cv2
+refuses, a gray read of a three-channel PFM, an unreadable path) it logs
+"Fail to read mask" and returns None; where cv2.imread raises, or for a
+format the port does not read yet, it raises. Its resize is
 cv2.resize's INTER_NEAREST: source index min(floor(i * (1 / (N / n))),
 n - 1) in float64.
 
@@ -162,11 +170,21 @@ def read_image(path: str, color: bool | None = False) -> np.ndarray:
         return read_jpeg(path, color is not False)
     if kind == "PNG":
         return read_png(path, color)
+    if kind in ("BMP", "PxM", "PAM", "PFM", "Sun raster"):
+        from ..native import Cv2Raises, Cv2Refuses, bmp, pxm, sunras
+        decoder = {"BMP": bmp, "Sun raster": sunras}.get(kind, pxm)
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            return decoder.decode(data, color is not False)
+        except (Cv2Refuses, Cv2Raises, ValueError) as e:
+            raise type(e)(f"{path}: {e}") from None
     if kind is None:
         raise ValueError(f"{path}: no image format's signature in its first bytes "
                          "(cv2.imread has no decoder for it)")
-    raise NotImplementedError(f"{path}: a {kind} file; the port reads JPEG and PNG "
-                              "(ROADMAP.md queues the other formats cv2 reads)")
+    raise NotImplementedError(f"{path}: a {kind} file; the port reads JPEG, PNG, BMP, "
+                              "PxM / PAM, PFM and Sun raster (ROADMAP.md queues the "
+                              "other formats cv2 reads)")
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:
@@ -283,7 +301,7 @@ def load_mask(mask_path: str, H: int, W: int):
     nearest-resized to (H,W) as cv2.resize(INTER_NEAREST) resizes; None
     when unset or missing, and, with the JAX package's log line, where
     cv2.imread gives no image for the file."""
-    from ..native.jpeg import Cv2Refuses
+    from ..native import Cv2Refuses
     if not mask_path or not os.path.exists(mask_path):
         return None
     try:

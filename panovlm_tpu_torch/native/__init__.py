@@ -5,8 +5,10 @@
 hash of the source, and loaded with ctypes. Every entry point has a numpy
 fallback (io/pointcloud.py), so the port still reads scans where no
 compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`),
-the JPEG decoder, the LK flow and the SIFT detector (`sift.cpp`,
-`native/sift.py`) are built the same way and have no fallback.
+the JPEG and PNG decoders, the LK flow, the SIFT detector (`sift.cpp`,
+`native/sift.py`) and the decoders of BMP, PxM / PAM / PFM and Sun raster
+(`HostDecoder`: `bmp.cpp`, `pxm.cpp`, `sunras.cpp`) are built the same way
+and have no fallback.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ import ctypes
 import hashlib
 import logging
 import os
+import re
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,8 +36,11 @@ _tried = False
 
 def library_path(src: Path = _SRC, flags: tuple = ()) -> Path:
     """Where `src` built with the extra g++ `flags` lives: named by a hash of
-    the source and the flags."""
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    the source, the local headers it includes and the flags."""
+    text = src.read_bytes()
+    for name in re.findall(rb'#include "([^"]+)"', text):
+        text += (src.parent / name.decode()).read_bytes()
+    h = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
@@ -57,6 +64,77 @@ def compile_library(src: Path, flags: tuple = ()) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+class Cv2Refuses(NotImplementedError):
+    """A file of a kind that cv2.imread gives no image for either (a
+    hierarchical, 12-bit or 2-component JPEG, an RLE Sun raster, a PFM
+    read with another channel count than its own, ...): the decoder
+    refuses it as OpenCV does."""
+
+
+class Cv2Raises(RuntimeError):
+    """A file for which cv2.imread raises cv2.error instead of giving no
+    image: imgcodecs' validateInputImageSize refuses its size (a side of 0
+    or less or over 2^20 pixels, or over 2^30 pixels). load_mask lets it
+    through, as the JAX package's load_mask does cv2's error."""
+
+
+MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
+
+
+class HostDecoder:
+    """One of the host decoders with cv2.imread's bits that share
+    imgcodecs.h: `<name>.cpp` beside this file, built at first use, its
+    entry points pv_<name>_info and pv_<name>_decode called through
+    ctypes (which releases the GIL). Return codes 1 and 2 (cv2 gives no
+    image) raise Cv2Refuses and ValueError, 3 MemoryError."""
+
+    ERRORS = {1: Cv2Refuses, 2: ValueError, 3: MemoryError}
+
+    def __init__(self, name: str):
+        self.name = name
+        self.src = Path(__file__).resolve().parent / f"{name}.cpp"
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def get(self):
+        """The loaded library, built on first use. Raises when g++ fails."""
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(compile_library(self.src)))
+                pint = ctypes.POINTER(ctypes.c_int)
+                info = getattr(lib, f"pv_{self.name}_info")
+                info.restype = ctypes.c_int
+                info.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, pint, pint,
+                                 ctypes.c_char_p, ctypes.c_int]
+                dec = getattr(lib, f"pv_{self.name}_decode")
+                dec.restype = ctypes.c_int
+                dec.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
+                                ctypes.c_char_p, ctypes.c_int]
+                self._lib = (info, dec)
+        return self._lib
+
+    def _check(self, rc: int, err) -> None:
+        if rc:
+            raise self.ERRORS.get(rc, RuntimeError)(err.value.decode(errors="replace"))
+
+    def decode(self, data: bytes, color: bool) -> np.ndarray:
+        """cv2.imread of the file's bytes: uint8 (H, W) for a gray read,
+        (H, W, 3) RGB for a colour read."""
+        info, dec = self.get()
+        src = np.frombuffer(data, np.uint8)
+        err = ctypes.create_string_buffer(256)
+        h, w = ctypes.c_int(), ctypes.c_int()
+        self._check(info(src.ctypes.data, src.size, int(color), ctypes.byref(h),
+                         ctypes.byref(w), err, len(err)), err)
+        h, w = h.value, w.value
+        if not (0 < w <= MAX_SIDE and 0 < h <= MAX_SIDE and w * h <= MAX_PIXELS):
+            raise Cv2Raises(f"{w} x {h} pixels: cv2.imread raises for this size")
+        out = np.empty((h, w, 3) if color else (h, w), np.uint8)
+        self._check(dec(src.ctypes.data, src.size, int(color), out.ctypes.data, err,
+                        len(err)), err)
+        return out
 
 
 def build() -> Path | None:

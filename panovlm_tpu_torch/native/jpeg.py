@@ -14,18 +14,11 @@ from pathlib import Path
 
 import numpy as np
 
-from . import compile_library
+from . import Cv2Refuses, compile_library
 
 _SRC = Path(__file__).resolve().parent / "jpeg.cpp"
 _lib = None
 _lock = threading.Lock()
-
-
-class Cv2Refuses(NotImplementedError):
-    """A JPEG of a kind that cv2.imread gives no image for either
-    (hierarchical, 12-bit, 2 components, ...): the decoder refuses it as
-    libjpeg does."""
-
 
 _ERRORS = {1: Cv2Refuses, 2: ValueError, 3: MemoryError}
 

@@ -20,6 +20,13 @@ build/native/. `port_components` gives the coefficients that
 port's encoder decodes to the same bits; `plane_components` quantises any
 set of planes (YCCK, RGB-coded). `lossless_bytes` writes lossless (SOF3)
 files of sample planes.
+
+BMP (`bmp_bytes`): OS/2, INFO, V4 and V5 headers, 1 to 32 bits, short
+palettes, BI_BITFIELDS masks, RLE8 / RLE4 (`rle_codes`: runs, absolute
+runs, deltas over index-0 pixels, end of line and of bitmap), top-down
+rows. PxM (`pnm_bytes`: P1-P6, ASCII or binary, any maxval, comments),
+PAM (`pam_bytes`), PFM (`pfm_bytes`) and Sun raster (`sun_bytes`: any
+type, map type and depth, RT_BYTE_ENCODED's 0x80 escapes).
 """
 
 from __future__ import annotations
@@ -724,3 +731,221 @@ def lossless_planes(width: int, height: int, sampling, precision: int, seed: int
         s = random_samples(dh, dw, 0, 16, seed + i).astype(np.int64) * top // 65535
         out.append(s)
     return out
+
+
+# ----------------------------------------------------------------------------
+# BMP
+# ----------------------------------------------------------------------------
+
+MASKS_555 = (0x7C00, 0x3E0, 0x1F)
+MASKS_565 = (0xF800, 0x7E0, 0x1F)
+
+
+def _rle_row(idx, rle4: bool, delta: bool):
+    """The codes of one row of palette indices: encoded runs (two
+    alternating nibbles for RLE4), absolute runs of 3 or more, and with
+    delta=True stretches of 4 or more index-0 pixels skipped by a delta
+    (cv2 fills what a delta skips with palette entry 0)."""
+    out, x, w = [], 0, len(idx)
+    while x < w:
+        if delta and idx[x] == 0:
+            z = x
+            while z < w and idx[z] == 0 and z - x < 255:
+                z += 1
+            if z - x >= 4 and z < w:
+                out += [0, 2, z - x, 0]
+                x = z
+                continue
+        r = x + 1
+        while r < w and idx[r] == idx[x] and r - x < 255:
+            r += 1
+        if r - x >= 3 or (r - x == 2 and not rle4):
+            out += [r - x, idx[x] * 17 if rle4 else idx[x]]
+            x = r
+            continue
+        e = x   # a literal stretch up to the next run of 3
+        while e < w and e - x < 255 and not (e + 2 < w and idx[e] == idx[e + 1] == idx[e + 2]):
+            e += 1
+        n = e - x
+        if n >= 3:
+            lit = list(idx[x:e])
+            if rle4:
+                lit += [0] * (n % 2)
+                body = [lit[k] << 4 | lit[k + 1] for k in range(0, len(lit), 2)]
+            else:
+                body = lit
+            out += [0, n] + body + [0] * (len(body) % 2)
+        elif rle4:
+            pair = list(idx[x:e]) + [0]
+            out += [n, pair[0] << 4 | (pair[1] if n == 2 else 0)]
+        else:
+            for v in idx[x:e]:
+                out += [1, v]
+        x = e
+    return out
+
+
+def rle_codes(indices, rle4: bool = False, delta: bool = True) -> bytes:
+    """BI_RLE8 / BI_RLE4 data of an (h, w) array of palette indices, rows
+    bottom-up: each row's runs, then end of line; rows of index 0 are
+    skipped by a delta (0, dy) with delta=True, and the rows after the
+    last one with a nonzero index by end of bitmap."""
+    idx = np.asarray(indices)[::-1]
+    h = idx.shape[0]
+    nonzero = [y for y in range(h) if idx[y].any()]
+    last = nonzero[-1] if nonzero else -1
+    out, y = [], 0
+    while y <= last:
+        if delta and not idx[y].any():
+            k = y
+            while k <= last and not idx[k].any() and k - y < 255:
+                k += 1
+            out += [0, 2, 0, k - y]
+            y = k
+            continue
+        out += _rle_row([int(v) for v in idx[y]], rle4, delta) + [0, 0]
+        y += 1
+    return bytes(out + [0, 1])
+
+
+def bmp_bytes(pixels, bpp: int, palette=None, header: int = 40, rle: bool = False,
+              codes: bytes | None = None, masks=None, top_down: bool = False,
+              clrused: int | None = None, delta: bool = True) -> bytes:
+    """A BMP file. pixels: (h, w) palette indices at 1, 4 and 8 bits (palette
+    (n, 3) RGB, written B, G, R(, 0); clrused defaults to n below 2^bpp, else
+    0), (h, w) raw 16-bit values, (h, w, 3) RGB at 24 bits or (h, w, 4) RGBA
+    at 32 (written B, G, R, A). header 12 (OS/2), 40, 108 or 124; rle codes
+    the indices as BI_RLE8 / BI_RLE4 (or writes `codes` as they are); masks
+    (three values, MASKS_555 or MASKS_565) makes it BI_BITFIELDS with the
+    masks after the header, as cv2 reads them (a V4 / V5 header also holds
+    them)."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    if bpp <= 8:
+        pal = np.asarray(palette, np.uint8).reshape(-1, 3)[:, ::-1]
+        if header != 12:
+            pal = np.concatenate([pal, np.zeros((len(pal), 1), np.uint8)], axis=1)
+        pal_bytes = pal.tobytes()
+        if clrused is None:
+            clrused = len(pal) if len(pal) < 1 << bpp else 0
+    else:
+        pal_bytes, clrused = b"", clrused or 0
+    comp = 0
+    if rle or codes is not None:
+        comp = 1 if bpp == 8 else 2
+        data = codes if codes is not None else rle_codes(px, bpp == 4, delta)
+    else:
+        if bpp <= 8:
+            rows = _pack_rows(px[..., None].astype(np.uint8), bpp)
+        elif bpp == 16:
+            rows = px.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+        else:
+            rows = px[..., [2, 1, 0, 3][:bpp // 8]].astype(np.uint8).reshape(h, -1)
+        pad = (-rows.shape[1]) % 4
+        rows = np.concatenate([rows, np.zeros((h, pad), np.uint8)], axis=1)
+        data = (rows if top_down else rows[::-1]).tobytes()
+    extra = b""
+    if masks is not None:
+        comp = 3
+        extra = struct.pack("<III", *masks)
+    if header == 12:
+        hdr = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        hdr = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bpp, comp,
+                          len(data), 2835, 2835, clrused, 0)
+        if header > 40:
+            hdr += extra + b"\0" * (header - 40 - len(extra))
+    off = 14 + len(hdr) + len(extra) + len(pal_bytes)
+    return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + hdr + extra
+            + pal_bytes + data)
+
+
+# ----------------------------------------------------------------------------
+# PxM, PAM, PFM
+# ----------------------------------------------------------------------------
+
+def pnm_bytes(samples, kind: int, maxval: int = 255, comment: bool = False,
+              line: int = 17) -> bytes:
+    """A P1-P6 file of (h, w) or (h, w, 3) samples (0 / 1 at P1 / P4,
+    1 = black). ASCII kinds put `line` samples on a line; comment=True puts
+    a comment after each header number."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    c = b"# a comment\n" if comment else b""
+    head = b"P%d\n" % kind + c + b"%d %d\n" % (w, h) + c
+    if kind not in (1, 4):
+        head += b"%d\n" % maxval
+    if kind in (1, 2, 3):
+        flat = [str(int(v)) for v in s.reshape(-1)]
+        sep = "" if kind == 1 else " "
+        return head + "\n".join(sep.join(flat[i:i + line])
+                                for i in range(0, len(flat), line)).encode() + b"\n"
+    if kind == 4:
+        return head + _pack_rows(s[..., None].astype(np.uint8), 1).tobytes()
+    return head + s.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def pam_bytes(samples, maxval: int = 255, tupltype: str | None = None,
+              depth: int | None = None) -> bytes:
+    """A P7 file of (h, w, depth) samples, big-endian above maxval 255."""
+    s = np.asarray(samples)
+    s = s[..., None] if s.ndim == 2 else s
+    h, w, d = s.shape
+    head = (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth or d}\nMAXVAL {maxval}\n"
+            + (f"TUPLTYPE {tupltype}\n" if tupltype else "") + "ENDHDR\n")
+    return head.encode() + s.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def pfm_bytes(values, scale: float = -1.0) -> bytes:
+    """A Pf / PF file of (h, w) or (h, w, 3) float32 values (RGB), rows
+    bottom-up, little endian for a negative scale."""
+    v = np.asarray(values, np.float32)
+    h, w = v.shape[:2]
+    head = b"%s\n%d %d\n%s\n" % (b"PF" if v.ndim == 3 else b"Pf", w, h, repr(scale).encode())
+    return head + v[::-1].astype("<f4" if scale < 0 else ">f4").tobytes()
+
+
+# ----------------------------------------------------------------------------
+# Sun raster
+# ----------------------------------------------------------------------------
+
+def sun_rle(data: bytes) -> bytes:
+    """RT_BYTE_ENCODED: runs of 3 or more (or any run of 0x80) as
+    0x80, count - 1, value; a single 0x80 as 0x80, 0."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        if j - i >= 3 or data[i] == 0x80:
+            if j - i == 1:
+                out += b"\x80\x00"
+            else:
+                out += bytes([0x80, j - i - 1, data[i]])
+        else:
+            out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+def sun_bytes(pixels, depth: int, typ: int = 1, cmap=None, maptype: int | None = None) -> bytes:
+    """A Sun raster file: (h, w) indices at 1 and 8 bits (cmap (n, 3) RGB
+    written as three planes; map type 1, or 0 without one), (h, w, 3) at
+    24 bits and (h, w, 4) at 32, stored byte by byte as given (type 3,
+    RT_FORMAT_RGB, says they are R, G, B); rows padded to 16 bits; type 2
+    RLE-codes the padded rows."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    if depth <= 8:
+        rows = _pack_rows(px[..., None].astype(np.uint8), depth)
+    else:
+        rows = px.astype(np.uint8).reshape(h, -1)
+    rows = np.concatenate([rows, np.zeros((h, rows.shape[1] % 2), np.uint8)], axis=1)
+    body = rows.tobytes()
+    if typ == 2:
+        body = sun_rle(body)
+    mapbytes = b"" if cmap is None else np.asarray(cmap, np.uint8).reshape(-1, 3).T.tobytes()
+    if maptype is None:
+        maptype = 0 if cmap is None else 1
+    return (struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), typ, maptype, len(mapbytes))
+            + mapbytes + body)

@@ -12,10 +12,12 @@ cv2.imread-based `load_images` / `load_mask` (panovlm_tpu/pipeline.py):
   * the decoder follows the file's first bytes, as cv2's findDecoder does:
     a PNG named .jpg and a JPEG named .png load as in the JAX package, as
     frames (gray and colour, scale 0 and -1) and as masks;
-  * a file of another format cv2 reads (BMP, PxM, PAM, PFM, Sun raster,
-    HDR, TIFF, WebP, AVIF, GIF, JPEG 2000) raises NotImplementedError
-    naming the format and ROADMAP.md, as a mask too: only "cv2 gives no
-    image" reads as no mask.
+  * a BMP, PxM, PAM, PFM or Sun raster file that cv2 writes, named
+    mask.png, reads with cv2's bits as a frame and as a mask (a PFM mask is
+    None: cv2 gives no gray image for a three-channel PFM);
+  * a file of another format cv2 reads (HDR, TIFF, WebP, AVIF, GIF, JPEG
+    2000) raises NotImplementedError naming the format and ROADMAP.md, as
+    a mask too: only "cv2 gives no image" reads as no mask.
 """
 
 import io
@@ -206,19 +208,43 @@ def _cv2_enc(ext):
     return enc
 
 
-OTHER_FORMATS = {
+RASTER_FORMATS = {
     "BMP": _cv2_enc(".bmp"), "PxM": _cv2_enc(".ppm"), "PAM": _cv2_enc(".pam"),
-    "PFM": _cv2_enc(".pfm"), "Sun raster": _cv2_enc(".sr"), "HDR": _cv2_enc(".hdr"),
-    "TIFF": _cv2_enc(".tiff"), "WebP": _cv2_enc(".webp"), "AVIF": _cv2_enc(".avif"),
-    "GIF": _cv2_enc(".gif"), "JPEG 2000": _pil("JPEG2000"),
+    "PFM": _cv2_enc(".pfm"), "Sun raster": _cv2_enc(".sr"),
 }
+OTHER_FORMATS = {
+    "HDR": _cv2_enc(".hdr"), "TIFF": _cv2_enc(".tiff"), "WebP": _cv2_enc(".webp"),
+    "AVIF": _cv2_enc(".avif"), "GIF": _cv2_enc(".gif"), "JPEG 2000": _pil("JPEG2000"),
+}
+
+
+@pytest.mark.parametrize("fmt", list(RASTER_FORMATS))
+def test_raster_formats_read_like_cv2(tmp_path, fmt):
+    """Each file is one cv2 writes; named mask.png, the port reads it by its
+    signature with cv2's bits in colour and gray, and its mask is the JAX
+    package's (None for the PFM, whose gray read cv2 gives no image for)."""
+    path = _write(tmp_path / "mask.png", RASTER_FORMATS[fmt](_frame(24, 32, 6)))
+    with open(path, "rb") as f:
+        assert images.image_format(f.read(64)) == fmt
+    for color in (True, False):
+        ref = cv2.imread(path, cv2.IMREAD_COLOR if color else cv2.IMREAD_GRAYSCALE)
+        if ref is None:
+            assert fmt == "PFM" and not color
+            with pytest.raises(NotImplementedError):
+                images.read_image(path, color)
+            continue
+        np.testing.assert_array_equal(images.read_image(path, color),
+                                      cv2.cvtColor(ref, cv2.COLOR_BGR2RGB) if color else ref)
+    _same_mask(path, 24, 32)
+    _same_mask(path, 48, 64)
+    assert (images.load_mask(path, 24, 32) is None) == (fmt == "PFM")
 
 
 @pytest.mark.parametrize("fmt", list(OTHER_FORMATS))
 def test_other_formats_raise_naming_roadmap(tmp_path, fmt):
-    """Each file is one cv2 reads (in colour; PFM gives no gray image in cv2);
-    the port names its format and ROADMAP.md, as a frame and as a mask (the
-    mask does not fall back to None), whatever the file is called."""
+    """Each file is one cv2 reads; the port names its format and ROADMAP.md,
+    as a frame and as a mask (the mask does not fall back to None),
+    whatever the file is called."""
     path = _write(tmp_path / "mask.png", OTHER_FORMATS[fmt](_frame(24, 32, 6)))
     assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
     with open(path, "rb") as f:

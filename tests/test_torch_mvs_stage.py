@@ -19,6 +19,12 @@ within 0.03 of each other, and the port's share of those rows with a depth
 The panoramas are 128 x 256: at 64 x 128 both packages miss the bound,
 since the LiDAR depth init's splat and dilation cover several degrees per
 pixel there.
+
+With a mask (the `masked` fixture): both stages again on copies of their
+trees, resumed from their pass artifacts (the mask enters after the
+passes, main.cpp:610), with a tripod-style mask at half the panorama size
+as an RLE8 BMP named mask.png, which the JAX stage reads with cv2 and the
+port with native/bmp.cpp; the port also with the same mask as a PNG.
 """
 
 import glob
@@ -34,7 +40,9 @@ from panovlm_tpu.config import load_config
 from panovlm_tpu.io import artifacts
 from panovlm_tpu_torch import pipeline as tpipeline
 from panovlm_tpu_torch.__main__ import main as torch_main
+from panovlm_tpu_torch.io import images
 
+import image_forge as forge
 from synthetic import make_dataset, render_panorama
 
 torch.set_num_threads(2)
@@ -167,3 +175,95 @@ def test_unported_refinement_and_neighbour_selection_raise(runs):
     cfg.min_depth = 0.0
     with pytest.raises(ValueError, match="F7"):
         tpipeline.joint_mvs(cfg, device="cpu")
+
+
+# ----------------------------------------------------------------------------
+# the stages with a mask
+# ----------------------------------------------------------------------------
+
+def _tripod(h, w):
+    """255 where usable; the bottom eighth of the rows and a pole (w / 16
+    columns from the horizon down) cleared."""
+    m = np.full((h, w), 255, np.uint8)
+    m[h - h // 8:] = 0
+    m[h // 2:, w // 2 - w // 32:w // 2 + w // 32] = 0
+    return m
+
+
+def _with_mask(src_cfg, name, mask_path):
+    """A copy of a finished stage tree whose config reads mask_path."""
+    cfg = _copy(os.path.dirname(src_cfg.result_path), name)
+    path = os.path.join(os.path.dirname(cfg.result_path), "config.txt")
+    with open(path, "a") as f:
+        f.write(f"mask_path = {mask_path}\n")
+    return path
+
+
+def _tree(cfg):
+    out = {}
+    for top in (cfg.mvs_data_path, cfg.mvs_result_path):
+        for f in sorted(glob.glob(os.path.join(top, "**", "*"), recursive=True)):
+            if os.path.isfile(f):
+                with open(f, "rb") as fh:
+                    out[os.path.relpath(f, top)] = fh.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def masked(runs, tmp_path_factory):
+    d = tmp_path_factory.mktemp("masks")
+    m = _tripod(64, 128)
+    os.makedirs(d / "bmp")
+    paths = {"bmp": str(d / "bmp" / "mask.png"), "png": str(d / "mask.png")}
+    with open(paths["bmp"], "wb") as f:
+        f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
+                                rle=True))
+    images.write_png(paths["png"], m)
+    cfg_j = load_config(_with_mask(runs["jax"][0], "jax_bmp_mask", paths["bmp"]))
+    depths_j, _ = pipeline.joint_mvs(cfg_j)
+    out = {"jax": (cfg_j, depths_j)}
+    for kind in ("bmp", "png"):
+        path = _with_mask(runs["port"][0], f"port_{kind}_mask", paths[kind])
+        assert torch_main(["joint_mvs", path, "--device", "cpu"]) == 0
+        cfg_t = load_config(path)
+        out[kind] = (cfg_t, tpipeline.joint_mvs(cfg_t, device="cpu")[0])
+    out["mask"] = np.repeat(np.repeat(m > 0, 2, axis=0), 2, axis=1)
+    return out
+
+
+def _filtered(cfg, i):
+    return artifacts.read_depth_u16(os.path.join(cfg.mvs_depth_path, f"{i:06d}_filter.npy"))
+
+
+def test_port_with_a_bmp_mask_writes_the_jax_stage_artifacts(runs, masked):
+    """The JAX stage and the port with the same BMP mask: the same artifact
+    set; in each, fewer filtered depths in the masked pixels than without
+    the mask (the mask clears them before the post-processing, whose gap
+    interpolation and filter may give some back); the depth bounds and
+    agreement of the unmasked runs."""
+    cfg_j, depths_j = masked["jax"]
+    cfg_t, depths_t = masked["bmp"]
+    assert _artifacts(cfg_t) == _artifacts(cfg_j)
+    off = ~masked["mask"]
+    for with_mask, without in ((cfg_j, runs["jax"][0]), (cfg_t, runs["port"][0])):
+        have = [sum(int((_filtered(cfg, i)[off] > 0).sum()) for i in range(4))
+                for cfg in (with_mask, without)]
+        assert have[0] < have[1], have
+    med_j, cov_j = _median_rel_error(depths_j, runs["gt"])
+    med_t, cov_t = _median_rel_error(depths_t, runs["gt"])
+    assert med_j < 0.08 and med_t < 0.08, (med_j, med_t)
+    assert abs(med_t - med_j) < 0.03, (med_t, med_j)
+    assert cov_t >= COVERAGE_SHARE * cov_j, (cov_t, cov_j)
+
+
+def test_png_and_bmp_masks_give_the_same_bits(masked):
+    """load_mask reads the two files to the same booleans, and the port's
+    runs with them write the same bytes in every artifact."""
+    a = images.load_mask(masked["png"][0].mask_path, 128, 256)
+    b = images.load_mask(masked["bmp"][0].mask_path, 128, 256)
+    np.testing.assert_array_equal(a, masked["mask"])
+    np.testing.assert_array_equal(b, masked["mask"])
+    tree_png, tree_bmp = _tree(masked["png"][0]), _tree(masked["bmp"][0])
+    assert len(tree_png) == 4 * 7 + 2 and "mvs_fused.pcd" in tree_png
+    assert tree_png == tree_bmp
+    np.testing.assert_array_equal(masked["png"][1], masked["bmp"][1])
