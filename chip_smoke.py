@@ -258,11 +258,18 @@ Run from the root of a checkout. Phases, each fatal on failure:
      gray palette / map) and a 24-bit BMP (RGB) decode to their PNGs' bits
      (the 24-bit BMP's gray read to imgcodecs' gray of them), timed on one
      thread. (g) joint_mvs on phase 6's first MASK_FRAMES = 4 frames with
-     a tripod-style mask, once as a PNG and once as an RLE8 BMP named
-     mask.png: the same booleans from load_mask, every artifact bit-equal,
-     fewer filtered depths in the masked pixels than without the mask,
-     phase 6's depth error bound; prints K3's launches
-     (`launches_mask` in the kernel line).
+     a tripod-style mask, as a PNG, as an RLE8 BMP named mask.png and (h)
+     as an LZW TIFF in tiles named mask.tif: the same booleans from
+     load_mask, every artifact bit-equal, fewer filtered depths in the
+     masked pixels than without the mask, phase 6's depth error bound;
+     prints K3's launches in each run (`launches_mask` in the kernel
+     line: the PNG run's). (h) TIFF: the decoder gives cv2's digests on
+     embedded probes (TIFF_PROBES: LZW with the predictor, compat LZW,
+     Deflate tiles, planar PackBits, 16-bit RGB, palette, CMYK,
+     premultiplied RGBA, YCbCr 4:2:0, orientation 6, a codec cv2 has no
+     decoder for, a queued codec), and the two frames of (f) as LZW strips
+     with the predictor, Deflate tiles and 16-bit files (TIFF_VARIANTS)
+     decode to their PNGs' bits, timed on one thread.
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -2620,6 +2627,122 @@ RASTER_PROBES = {
         {"color": None,
          "gray": None}),
 }
+# phase 16 (h): small TIFF files (written by tests/image_forge.py, 6 x 11
+# pixels, the orientation-6 one 11 x 11; the CCITT one by PIL), one per
+# kind, each with the SHA-256 of what cv2.imread gives for it in colour (RGB
+# order) and in gray, None where cv2 gives no image (the decoder must
+# refuse the read), "queued" where cv2 reads a codec the port does not yet
+# (the decoder must raise NotImplementedError naming ROADMAP.md);
+# tests/test_torch_image_tiff.py recomputes them with cv2
+TIFF_PROBES = {
+    "LZW with predictor 2": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwADAAAAkgAAAAMBAwABAAAABQAAAAYBAwABAAAA"
+        "AgAAABEBBAACAAAAmAAAABUBAwABAAAAAwAAABYBBAABAAAABAAAABcBBAACAAAAoAAAABwBAwABAAAAAQAAAD0B"
+        "AwABAAAAAgAAAAAAAAAIAAgACACoAAAAPwEAAJcAAABNAAAAgCWNZbK72dbzVwrN74IyvYCbRYRfrjCTjQLDHrcX"
+        "bsaaELYPWQgNy9OIsdDtKCZVzUbB/AgVdTRTYLe7Hex9M5fK5paCGFyhHD2ciYaLJdpScioKKGViaU5pMCQb5XNS"
+        "mXQYY4YSz4ORZfoXHppeCuaaSEikEzkfLCPBXBDBMYNZ7gChyCBqRxffw3EIRVaaNwDZ5JT8BIATz0LTCVniZ24V"
+        "2u5WE9DEU1wyycNjuiUmfD8hBG/1etW+BAQgzkkCcN3eOG2UXqZhk+Ag+EUil4wVWfBCEgcmWQy1uPF890ygWhAQ",
+        {"color": '6f9031bf2007701cbc4da897a93ffef52432d37199ec812e058c5bcfc30bfddc',
+         "gray": '262d5963841b4df7380ca5ecfcec5fb1f415e036da7beed2b0a124aa48494688'}),
+    "compat LZW": (
+        "SUkqAAgAAAAKAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwABAAAACAAAAAMBAwABAAAABQAAAAYBAwABAAAA"
+        "AQAAABEBBAABAAAAhgAAABUBAwABAAAAAQAAABYBBAABAAAABgAAABcBBAABAAAATQAAABwBAwABAAAAAQAAAAAA"
+        "AAAApTW740RJo2+zJjmIVUGErUJXYl3wBUjRhR+silRAkg+HNDA0wpwAUosOD0remAE71uxUGHfPBK178+1LEhgx"
+        "YGX4ggPVpmlPnuQJCA==",
+        {"color": 'c09e82fea26dc831008297dce427d5c7be576b73741364140f8544cffd891fd4',
+         "gray": '3d900eb41d3473ce69b199cbd3057876ee04950f9d97ba2f0cceb4e02f3f2b9a'}),
+    "Deflate tiles": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwADAAAAkgAAAAMBAwABAAAACAAAAAYBAwABAAAA"
+        "AgAAABUBAwABAAAAAwAAABwBAwABAAAAAQAAAEIBBAABAAAAEAAAAEMBBAABAAAAEAAAAEQBBAABAAAAmAAAAEUB"
+        "BAABAAAA6AAAAAAAAAAIAAgACAB4nCt7Wjj1bW6qxNklZ3ITVO/O7p/9530z62YllZBCTXfRCyI2DKhg0qyGbunj"
+        "Ru8NNtaxNvmu+79W8FlyipeK7kq5v/ZO0QuqvNHUM0aYZ3hoWbsnzvU+MH/dn5eTm9o3PbL7ytkxr5n1p6KKvBCa"
+        "+tQ1Gj2f/028O+Pby8Yju34+ro6+P+lHznznr9+OqyubX7r3Dk391l3evjZxkxqPevS5eL7Q3bCL6UsMb+2MnSct"
+        "Z5yQkWdacQNNvXlYrZXZie16GunGvrzST79NkTA+s+dp8AXfOTdMNjqxe6gzjIKRBABBmWE2",
+        {"color": 'a762d4b5cae938d5d392e4764e58ea754381eb11a907ad4adb6c5e2edfe48622',
+         "gray": 'e94e6c1e8405b153c2a412da4c1dde73737ec7b12836a4ae373b17eb9e1ab129'}),
+    "planar PackBits": (
+        "SUkqAAgAAAAKAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwADAAAAhgAAAAMBAwABAAAABYAAAAYBAwABAAAA"
+        "AgAAABEBBAADAAAAjAAAABUBAwABAAAAAwAAABYBBAABAAAABgAAABcBBAADAAAAmAAAABwBAwABAAAAAgAAAAAA"
+        "AAAIAAgACACkAAAA7QAAADUBAABJAAAASAAAAEUAAAAE8KDwUKD+AAGg8P6gBPBQAFDw/1D/oP7wA1CgUPD/AP/w"
+        "BFAAoPCg/wAC8FAA/1AAAP/wBQBQoFAAUP8A/6AAAP9Q//ACUKDwAvBQAP9QD/Cg8FCg8ACg8KDwoPBQAFD+oAEA"
+        "8P+gBfAAUKBQoP8A/vABUPD/UAgAoFDwUABQoPD/oAMAoACg/wABoFD+8ACg/vAAAP/wAwDwoAD/8AFQAP9Q//D/"
+        "AADw/qABUPD/UATwoFCgAP2g/vAHUACg8ACgUAD/oP8AAaDw/gAD8KDwoP7wAQBQ",
+        {"color": '3ea9d6e90211a8af97974cb6ad99de697b3ea27f9a16cc76ca8403a2554f2ea4',
+         "gray": '1196633f4acc798dcb2f65a5eb06ca51a821ee53925fa0393350915d2b55cf6c'}),
+    "16-bit RGB": (
+        "TU0AKgAAAAgACgEAAAQAAAABAAAACwEBAAQAAAABAAAABgECAAMAAAADAAAAhgEDAAMAAAABAAEAAAEGAAMAAAAB"
+        "AAIAAAERAAQAAAABAAAAjAEVAAMAAAABAAMAAAEWAAQAAAABAAAABgEXAAQAAAABAAABjAEcAAMAAAABAAEAAAAA"
+        "AAAAEAAQABAuuFsOjqodfENYwRPIoyKVELnABm9kP2zD13D58h164WgeWop3qhg4vg3U+8GDNzj1EiR/G25vo7vt"
+        "jpjqNkTOrC6Xu7hNZ9rgi6f/366pPBZ0Tw3dHSFkh4iNWc8cRHRvXEJX7XKjJ4ATlc3DGQucqQwPdhGBswLLgdlU"
+        "lMH9ZddLHRlM65xnJ3Z1nku7xrESAZqdRxIbhYkMxQrQ1Ep+7qJJpKCtayN8Hjuh+1fUGqLIQ1rXyS4lcN+CTvgW"
+        "gah7gDLJqHrTN7YEDeloZrqEdu8VUY0/wFDbq9K4ebE2uirDcq+c13fxlC549lPFgqqhC6sxv7DuIuzQuzQwo+JM"
+        "M5SDEXlNIKMe/k/P6219P0QHg/w1Oa89s1mkloa8ml23+GgojsNQoc6qEjsfoDMr8uC7Gy2L2N6XymhT7ngznGbE"
+        "vKzMWU08uUKE+cBsmoRMAnD+U6Sxm1Bh5WTPZAVswhRPyr2Gb/ZhwW7rHgkUQtiEzjBDEI04hpr3lV4wMEurz/rW"
+        "1LiZTgX7QiY=",
+        {"color": '041ec4f181a293473f504b55d996394543dea5e4fd99ffba4cbb7cf5eda5b5d9',
+         "gray": '9469c509b7a5b85de8391438be295762b49e5716f79f5364b3b822adfa94661f'}),
+    "palette": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwABAAAABAAAAAMBAwABAAAAAQAAAAYBAwABAAAA"
+        "AwAAABEBBAABAAAA8gAAABUBAwABAAAAAQAAABYBBAABAAAABgAAABcBBAABAAAAJAAAABwBAwABAAAAAQAAAEAB"
+        "AwAwAAAAkgAAAAAAAAASUSboq8QEGnFJAIf+UJERz8saki/BIEjFQWhwnfAxcDCgB6Oqps8HbE2UouhZuAtdjxGi"
+        "WpyreRJt/k4PsA7Gs2nbAtR4j1rPLPU5d/46+ll9usphYYC0vNZwIClQEzfy/dzOjWDpxv9J8wDY8r4INYCc8JHz"
+        "GbDmS3BDrWDmGDXi+sA=",
+        {"color": '7f3249ef75cfc7bbcae7822a31c4103c2de4243c4ce0240e0cc0f374abf83c54',
+         "gray": '8a395be676af7dcb88314952968a10adaf2dc6d726d4f0702325cd1cf13e0bc8'}),
+    "CMYK": (
+        "SUkqAAgAAAAKAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwAEAAAAhgAAAAMBAwABAAAAAQAAAAYBAwABAAAA"
+        "BQAAABEBBAABAAAAjgAAABUBAwABAAAABAAAABYBBAABAAAABgAAABcBBAABAAAACAEAABwBAwABAAAAAQAAAAAA"
+        "AAAIAAgACAAIAArGNjGWJMu0fPNw70Dx7UMHVkqXDGjD+FWS7RNmXpDnOMkjOuQdGKRjv6ZrWh2NvM0LzKXcJtN7"
+        "VsnO59yk5QUz5MueLzSR1mW1eFOaIJb4Tj3xk52H8GV+IbdsM74kH/n8RkYrLmVWl35SrGC7G+kcWObXReAosJP/"
+        "j1CFXezd998avw2aVSgOUfxR1/DWtmwmGx/8VluaWuSQ4MNfvwPupgY8Z44Glac0Ygl+5Wv1a6V28RxyxTTauZ/Y"
+        "EVrV2vMqe5qb2SAPiSaZwlksYYfHJMRrRGHX6wT8xV3RuvKtvcqzagj2JOVvX67j6zWHKWpmoncAxcdwvHoAvjxo"
+        "1zOtb/VqTaqpcA==",
+        {"color": '3d48689febb228a45e8d8f11d6ef9ae262567e665dd3c6dfa6df4eec92879073',
+         "gray": '3761646fc8363cc1e048218b138c49d3cb229b6d4004cb6e382aab1d3654e3d7'}),
+    "premultiplied RGBA": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwAEAAAAkgAAAAMBAwABAAAAAQAAAAYBAwABAAAA"
+        "AgAAABEBBAABAAAAmgAAABUBAwABAAAABAAAABYBBAABAAAABgAAABcBBAABAAAACAEAABwBAwABAAAAAQAAAFIB"
+        "AwABAAAAAgAAAAAAAAAIAAgACAAIAGWYUgK/rt253nP2hM9qzmDupQPcAHs8uYhMLuatwpcfAXyH2kMXxYrKzaDF"
+        "qWWVXMVHGhL8voQ4ZWcQzvuuerzKxg/H2jmBScLzjtgG2LdXW5msmKSG6r3hf0L5mWRaLLYbZ0ELFBO9/i1OY8hQ"
+        "H/1uXkNMzDiUq6go7jn8GbY4gNHBoGVi5iT5shGC2yQd3VpBSxszc+Zs7wUkdSHLrhmHlEEpKcPnmoS4jknVN04V"
+        "ISFy06HtnTnJfUArNkZfUssNQU86gMBq+OjnsYEV6fq/lhFk5GyvncSmxKR1729Eu9p3UmD7I5/WMN53lv3w5jfL"
+        "Pj2yaTAtBiqdj6M9X8MRcDFkrIYO/A==",
+        {"color": 'cef39f214b0bc9fdf174cd1e319629aed5a8f666beea14b851ed568de1939fe0',
+         "gray": 'b0acc548044f7f1223057c63414b4df69f1c8eaf8fef48f59e55065943bd285b'}),
+    "YCbCr 4:2:0": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwADAAAAkgAAAAMBAwABAAAAAQAAAAYBAwABAAAA"
+        "BgAAABEBBAABAAAAmAAAABUBAwABAAAAAwAAABYBBAABAAAABgAAABcBBAABAAAAbAAAABwBAwABAAAAAQAAABIC"
+        "AwACAAAAAgACAAAAAAAIAAgACADN2ltJEFDcIWOfY0Wx6kR6iU410+QLIfzpJpF9RpU6OrCw0NFa9UZ7xvNlQfAg"
+        "yVpk4kJX251bE+vWEXThS2eBfnoJCby8oEfFbZVuINudBDNmYXuiitCcE+9dr8hnrSomOZLwurHy8sPDcsw=",
+        {"color": 'd45a222b77f017ceec6b704006a528a2650b495a240da7cd159d1b082e4ab955',
+         "gray": 'e3db807e169a629076ce9d213e5ce856ef37f909f1edac61c221607188fc7d4c'}),
+    "orientation 6": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAACwAAAAIBAwADAAAAkgAAAAMBAwABAAAABQAAAAYBAwABAAAA"
+        "AgAAABEBBAABAAAAmAAAABIBAwABAAAABgAAABUBAwABAAAAAwAAABYBBAABAAAACwAAABcBBAABAAAAqQEAABwB"
+        "AwABAAAAAQAAAAAAAAAIAAgACACAPEUKt4uBkI8NppQncpMB+K5FtQNnNxjUpMRwqI/hY4vIOlh/CZiDcGOMEL8o"
+        "qZAj15iBzDZJKgEngonttGktmdrllfmsDIkcnRRhlVF8Cg9gvstuUsv13K9OEkJCh9IByFR+EJ7vl0tQEOBiJNct"
+        "4DMthuhBOVID0FuJDjBgudEoYPhIuq0/uQYNJ1tNHjB9uwyts3ssZltvu83uxAixNiAYoR5l8Hp9hnpcA5TAhamI"
+        "VvNyntFlp/gxOJFiMQQK1GrYqrNBBpDOB7HokFMhqJMmhyrtNBNoiZ8oZqnhnIJ0oBgAwWL8km9Cl53oR/FxdkQv"
+        "L0LAA2s9zFwBuYjnVIAMIpNyjIJCclrEEmNoFwcNYAgk2lhzLogiZNHIrm+JQ4FkGQKkYcpRlsN5vloGoIAuOZkj"
+        "+XoijUMYSG+GBXGUA5+jOE5MD0PBahSbppm8dwRFIEwXFSahFA+MhrFIP5zAUO4uiKHJQCiCwgDUDIdHiGZSl4HI"
+        "7mwBBpmUQ5uCQAI0mMYpVjAVQ5iuUxIDiHw3kyegBCEHZVigbh7BCOpkFGJAwFWgIA==",
+        {"color": '3f145e7fb8406bf9319279bbfd0cf4c0ebbf1d31ee861b984f8e0bf499d35da0',
+         "gray": '382658e95b5d892aae197530f00db6f7d9028eb4edf2a99d1c86564615941f2c'}),
+    "no-image codec (ZSTD)": (
+        "SUkqAAgAAAAKAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwABAAAACAAAAAMBAwABAAAAUMMAAAYBAwABAAAA"
+        "AQAAABEBBAABAAAAhgAAABUBAwABAAAAAQAAABYBBAABAAAABgAAABcBBAABAAAAQgAAABwBAwABAAAAAQAAAAAA"
+        "AAAGf2djHp3RfPogluHD3QG0RyJjEYQ7aYpLw2kAIJy4T7UE0BA8I840DqRvp6flT+p6XGuWr7V/p1wtbwefuOnq"
+        "sSo=",
+        {"color": None,
+         "gray": None}),
+    "queued codec (CCITT Group 4)": (
+        "SUkqACAAAAAmqI+R8Eo0kggsIKwuNr1cY2CCUAEAEAAJAAABAwABAAAACwAAAAEBAwABAAAABgAAAAIBAwABAAAA"
+        "AQAAAAMBAwABAAAABAAAAAYBAwABAAAAAQAAABEBBAABAAAACAAAABYBAwABAAAABgAAABcBBAABAAAAFwAAABwB"
+        "AwABAAAAAQAAAAAAAAA=",
+        {"color": 'queued',
+         "gray": 'queued'}),
+}
+
 # phase 16 (f): the full-size files of frames GRAY_VARIANT_FRAME (8-bit
 # BMP with a gray palette, P5, 8-bit Sun raster with an equal map) and
 # RGB_VARIANT_FRAME (24-bit BMP) that the render workers write, timed on one
@@ -2628,6 +2751,17 @@ RASTER_PROBES = {
 # named mask.png, and without one
 RASTER_VARIANTS = {"gray": ("bmp8.bmp", "p5.pgm", "sun8.ras"), "rgb": ("bmp24.bmp",)}
 MASK_FRAMES = 4
+# phase 16 (h): the same two frames as TIFF files (LZW with the predictor in
+# strips of 16 rows, Deflate in 256 x 256 tiles, 16-bit v * 257 samples
+# big-endian with Deflate and the predictor in strips of 32 rows), and the
+# tripod mask of (g) as an LZW file in 128 x 128 tiles named mask.tif
+TIFF_VARIANTS = {
+    "lzw_predictor.tif": {"compression": 5, "predictor": 2, "rows_per_strip": 16},
+    "deflate_tiles.tif": {"compression": 8, "tile": (256, 256), "level": 1},
+    "16bit_deflate.tif": {"compression": 8, "predictor": 2, "rows_per_strip": 32,
+                          "big_endian": True, "level": 1},
+}
+MASK_TIFF = {"compression": 5, "tile": (128, 128)}
 
 # the MVS frames re-coded as progressive files from the coefficients that
 # their baseline files carry (phase 16 (b)) and as arithmetic-coded ones
@@ -2649,8 +2783,8 @@ def write_format_variants(root: str, i: int, rgb):
     spectral selection) and an arithmetic-coded one (sequential or simple
     progression) of the coefficients of its baseline JPEG, or its gray
     plane / RGB array as Paeth-filtered, Adam7 and 16-bit (v * 257) PNGs
-    beside an 8-bit filter-0 RGB PNG, and its gray plane as a lossless
-    JPEG."""
+    beside an 8-bit filter-0 RGB PNG, as BMP, PGM and Sun raster files and
+    as TIFF files (TIFF_VARIANTS), and its gray plane as a lossless JPEG."""
     import numpy as np
     import image_forge as forge
     if i < PROGRESSIVE_FRAMES:
@@ -2680,6 +2814,11 @@ def write_format_variants(root: str, i: int, rgb):
         for name in RASTER_VARIANTS[kind]:
             with open(os.path.join(root, "png_variants", f"{kind}_{name}"), "wb") as f:
                 f.write(raster[name]())
+        for name, kw in TIFF_VARIANTS.items():
+            deep = name.startswith("16bit")
+            with open(os.path.join(root, "png_variants", f"{kind}_{name}"), "wb") as f:
+                f.write(forge.tiff_bytes(img.astype(np.uint16) * 257 if deep else img,
+                                         1 if img.ndim == 2 else 2, 16 if deep else 8, **kw))
         ctype = 0 if img.ndim == 2 else 2
         out = os.path.join(root, "png_variants", kind)
         if ctype == 2:
@@ -2739,6 +2878,32 @@ def check_raster_probes(names=None):
         log(f"raster probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
         if got != want:
             fail(f"the decoder built here does not give cv2's bits on the {name} probe")
+
+
+def check_tiff_probes(names=None):
+    """Phase 16 (h): the port's TIFF decoder on this machine gives cv2's
+    digests on every embedded probe, in colour and in gray, refuses the
+    reads cv2 gives no image for, and names ROADMAP.md for the queued
+    codec."""
+    import base64
+    import hashlib
+    from panovlm_tpu_torch.native import Cv2Refuses, tiff
+
+    for name in names or TIFF_PROBES:
+        b64, want = TIFF_PROBES[name]
+        data = base64.b64decode(b64)
+        got = {}
+        for kind in ("color", "gray"):
+            try:
+                got[kind] = hashlib.sha256(tiff.decode(data, kind == "color")
+                                           .tobytes()).hexdigest()
+            except Cv2Refuses:   # a read cv2 gives no image for
+                got[kind] = None
+            except NotImplementedError as e:
+                got[kind] = "queued" if "ROADMAP" in str(e) else str(e)
+        log(f"TIFF probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
+        if got != want:
+            fail(f"the TIFF decoder built here does not give cv2's bits on the {name} probe")
 
 
 def _one_thread_ms(read, path, color, reps: int = 2):
@@ -2804,9 +2969,11 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
     load with the 8-bit filter-0 files' bits (the 16-bit RGB file's gray
     read: libpng converts at 16 bits, rounding, before it strips the low
     byte); (e) the lossless JPEG of a gray frame decodes to its source plane
-    exactly. Prints one-thread decode times of the full-size files beside
-    the card line (nvidia-smi's name and power limit; the decoders run on
-    the host)."""
+    exactly; (f) the raster probes, and the full-size BMP, PGM and Sun
+    raster files decode to their PNGs' bits; (h) so do the TIFF probes and
+    the full-size TIFF files (TIFF_VARIANTS). Prints one-thread decode times
+    of the full-size files beside the card line (nvidia-smi's name and power
+    limit; the decoders run on the host)."""
     import numpy as np
     from panovlm_tpu_torch.io import images
     from panovlm_tpu_torch.io.jpeg import read_jpeg
@@ -2814,6 +2981,7 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
     root = os.path.dirname(mvs_cfg_path)
     check_format_probes()
     check_raster_probes()
+    check_tiff_probes()
     # (b) progressive and (d) arithmetic-coded frames, against the baseline
     # files of the same frames
     color_dir = os.path.join(root, "color")
@@ -2900,6 +3068,26 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
                     f"{'the PNG bits' if same else 'DIFFERS'}")
                 if not same:
                     fail(f"the full-size {name} does not decode to its PNG's bits")
+    # (h) the same frames as TIFF files: the 16-bit ones through libtiff's
+    # 16-to-8 rules (the high byte of a gray sample, (v + 128) / 257 of a
+    # colour one), which give the 8-bit samples back
+    for kind, ref_path in refs.items():
+        for color in (True, False):
+            want = images.read_png(ref_path, color)
+            if kind == "rgb" and not color:   # imgcodecs' gray of the RGB pixels
+                c = images.read_png(ref_path, True).astype(np.int32)
+                want = ((1868 * c[..., 2] + 9617 * c[..., 1] + 4899 * c[..., 0] + 8192)
+                        >> 14).astype(np.uint8)
+            for name in TIFF_VARIANTS:
+                path = os.path.join(var, f"{kind}_{name}")
+                img, ms = _one_thread_ms(images.read_image, path, color)
+                same = np.array_equal(img, want)
+                log(f"one-thread decode ({card}; host CPU) of the {img.shape} {kind} {name} "
+                    f"({os.path.getsize(path) / 2**20:.2f} MiB), "
+                    f"{'colour' if color else 'gray'} read: {ms:.1f} ms, "
+                    f"{'the PNG bits' if same else 'DIFFERS'}")
+                if not same:
+                    fail(f"the full-size {kind} {name} does not decode to its PNG's bits")
 
 
 def tripod_mask(h: int, w: int):
@@ -2928,9 +3116,10 @@ def _tree_bytes(root: str) -> dict:
 def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
     """Phase 16 (g): joint_mvs on the first MASK_FRAMES frames of phase 6's
     dataset with tripod_mask at half the working size (load_mask resizes
-    it), once as a PNG and once as an RLE8 BMP named mask.png. Checked:
-    load_mask gives the same booleans for both, the resized mask's; every
-    artifact of the two runs bit-equal; fewer filtered depths in the masked
+    it), once as a PNG, once as an RLE8 BMP named mask.png and (phase 16
+    (h)) once as an LZW TIFF in tiles named mask.tif (MASK_TIFF). Checked:
+    load_mask gives the same booleans for all three, the resized mask's;
+    every artifact of the runs bit-equal; fewer filtered depths in the masked
     pixels than the same frames without a mask have (a run resumed from
     the PNG run's pass artifacts; the mask clears the depths before the
     post-processing, whose gap interpolation may give some back); the
@@ -2949,22 +3138,26 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
     m = tripod_mask(H // 2, W // 2)
     os.makedirs(os.path.join(root, "masks", "bmp"))
     paths = {"png": os.path.join(root, "masks", "mask.png"),
-             "bmp": os.path.join(root, "masks", "bmp", "mask.png")}
+             "bmp": os.path.join(root, "masks", "bmp", "mask.png"),
+             "tif": os.path.join(root, "masks", "mask.tif")}
     images.write_png(paths["png"], m)
     with open(paths["bmp"], "wb") as f:
         f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
                                 rle=True))
+    with open(paths["tif"], "wb") as f:
+        f.write(forge.tiff_bytes(m, 1, **MASK_TIFF))
     want = np.repeat(np.repeat(m > 0, 2, axis=0), 2, axis=1)
     loaded = {kind: images.load_mask(path, H, W) for kind, path in paths.items()}
     same = all(x is not None and np.array_equal(x, want) for x in loaded.values())
-    log(f"tripod mask {m.shape} as PNG ({os.path.getsize(paths['png'])} bytes) and RLE8 BMP "
-        f"named mask.png ({os.path.getsize(paths['bmp'])} bytes): load_mask at {H} x {W} "
+    log(f"tripod mask {m.shape} as PNG ({os.path.getsize(paths['png'])} bytes), RLE8 BMP "
+        f"named mask.png ({os.path.getsize(paths['bmp'])} bytes) and LZW TIFF in tiles "
+        f"({os.path.getsize(paths['tif'])} bytes): load_mask at {H} x {W} "
         f"{'the same booleans, the resized mask' if same else 'DIFFERS'}; "
         f"{(~want).mean():.3f} of the pixels masked")
     if not same:
-        fail("load_mask of the PNG and the BMP mask differ")
+        fail("load_mask of the PNG, the BMP and the TIFF mask differ")
     launches = {}
-    for kind in ("png", "bmp"):
+    for kind in ("png", "bmp", "tif"):
         cfg_path = _subset_config(os.path.join(root, kind), mvs_cfg_path, MASK_FRAMES,
                                   f"mask_path = {paths[kind]}\n")
         vs_mod.volscore.launches = 0
@@ -2977,12 +3170,14 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
             fail(f"joint_mvs with the {kind} mask exited {rc}")
         if launches[kind] <= 0 and device == "cuda":
             fail(f"the volscore kernel was not launched in the run with the {kind} mask")
-    trees = {kind: _tree_bytes(os.path.join(root, kind)) for kind in ("png", "bmp")}
-    equal = trees["png"] == trees["bmp"]
-    log(f"the PNG-mask and BMP-mask runs: {len(trees['png'])} artifacts "
-        f"{'bit-equal' if equal else 'DIFFER'}")
-    if not equal or launches["png"] != launches["bmp"]:
-        fail("the runs with the PNG and the BMP mask differ")
+    trees = {kind: _tree_bytes(os.path.join(root, kind)) for kind in ("png", "bmp", "tif")}
+    for kind in ("bmp", "tif"):
+        equal = trees["png"] == trees[kind]
+        log(f"the PNG-mask and {kind.upper()}-mask runs: {len(trees['png'])} artifacts "
+            f"{'bit-equal' if equal else 'DIFFER'}, volscore launches {launches['png']} and "
+            f"{launches[kind]}")
+        if not equal or launches["png"] != launches[kind]:
+            fail(f"the runs with the PNG and the {kind.upper()} mask differ")
     # the same frames without a mask: the PNG run's pass artifacts, resumed
     none = os.path.join(root, "none")
     cfg_none = _subset_config(none, mvs_cfg_path, MASK_FRAMES)

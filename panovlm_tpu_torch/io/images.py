@@ -29,12 +29,18 @@
   * BMP (native/bmp.cpp), PBM / PGM / PPM, PAM and PFM (native/pxm.cpp)
     and Sun raster (native/sunras.cpp), host C++ decoders with cv2's bits
     (OpenCV's own readers replayed, its quirks too: RLE escapes, PAM's
-    channel conversions, PFM's channel count; see each file's comment).
+    channel conversions, PFM's channel count; see each file's comment);
+  * TIFF (native/tiff.cpp): classic and BigTIFF, strips and tiles, the
+    codecs none, PackBits, LZW and Deflate with horizontal differencing,
+    through libtiff's RGBA conversions as cv2 5.0 reads them (palettes,
+    16-bit samples, CMYK, YCbCr, CIE L*a*b*, alpha, orientation). The TIFF
+    codecs cv2 reads and the port does not yet (CCITT, JPEG, ThunderScan,
+    SGILog) raise NotImplementedError naming ROADMAP.md.
 
 The decoder is chosen by the file's first bytes, as cv2's findDecoder
 chooses it, never by its name: `image_format` names the format of every
-signature cv2 5.0 here has a decoder for. JPEG, PNG, BMP, PxM / PAM, PFM
-and Sun raster are read; the other formats (TIFF, WebP, HDR, GIF, JPEG
+signature cv2 5.0 here has a decoder for. JPEG, PNG, BMP, PxM / PAM, PFM,
+Sun raster and TIFF are read; the other formats (WebP, HDR, GIF, JPEG
 2000, AVIF) raise NotImplementedError naming ROADMAP.md; bytes that are no
 format's signature raise ValueError, as cv2.imread gives no image for them.
 A file whose size cv2.imread raises for (a side over 2^20 pixels, ...)
@@ -163,28 +169,29 @@ def read_image(path: str, color: bool | None = False) -> np.ndarray:
     (H,W), or RGB (H,W,3) with color=True (a gray file gives three equal
     channels; alpha is dropped). color=None is a colour read, except that a
     gray PNG reads as gray (load_images pyramids its one channel before it
-    replicates it)."""
+    replicates it); a TIFF's is a colour read."""
     with open(path, "rb") as f:
         kind = image_format(f.read(64))
     if kind == "JPEG":
         return read_jpeg(path, color is not False)
     if kind == "PNG":
         return read_png(path, color)
-    if kind in ("BMP", "PxM", "PAM", "PFM", "Sun raster"):
-        from ..native import Cv2Raises, Cv2Refuses, bmp, pxm, sunras
-        decoder = {"BMP": bmp, "Sun raster": sunras}.get(kind, pxm)
+    if kind in ("BMP", "PxM", "PAM", "PFM", "Sun raster", "TIFF"):
+        from ..native import Cv2Raises, bmp, pxm, sunras, tiff
+        decoder = {"BMP": bmp, "Sun raster": sunras, "TIFF": tiff}.get(kind, pxm)
         with open(path, "rb") as f:
             data = f.read()
         try:
             return decoder.decode(data, color is not False)
-        except (Cv2Refuses, Cv2Raises, ValueError) as e:
+        except (NotImplementedError, Cv2Raises, ValueError) as e:   # Cv2Refuses too
             raise type(e)(f"{path}: {e}") from None
     if kind is None:
         raise ValueError(f"{path}: no image format's signature in its first bytes "
                          "(cv2.imread has no decoder for it)")
     raise NotImplementedError(f"{path}: a {kind} file; the port reads JPEG, PNG, BMP, "
-                              "PxM / PAM, PFM and Sun raster (ROADMAP.md queues the "
-                              "other formats cv2 reads)")
+                              "PxM / PAM, PFM, Sun raster and TIFF (none, PackBits, LZW, "
+                              "Deflate); ROADMAP.md queues WebP, GIF, HDR, JPEG 2000 and "
+                              "AVIF")
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:

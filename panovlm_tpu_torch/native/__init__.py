@@ -6,9 +6,9 @@ hash of the source, and loaded with ctypes. Every entry point has a numpy
 fallback (io/pointcloud.py), so the port still reads scans where no
 compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`),
 the JPEG and PNG decoders, the LK flow, the SIFT detector (`sift.cpp`,
-`native/sift.py`) and the decoders of BMP, PxM / PAM / PFM and Sun raster
-(`HostDecoder`: `bmp.cpp`, `pxm.cpp`, `sunras.cpp`) are built the same way
-and have no fallback.
+`native/sift.py`) and the decoders of BMP, PxM / PAM / PFM, Sun raster and
+TIFF (`HostDecoder`: `bmp.cpp`, `pxm.cpp`, `sunras.cpp`, `tiff.cpp`, the
+last linked with zlib) are built the same way and have no fallback.
 """
 
 from __future__ import annotations
@@ -34,20 +34,22 @@ _lib = None
 _tried = False
 
 
-def library_path(src: Path = _SRC, flags: tuple = ()) -> Path:
-    """Where `src` built with the extra g++ `flags` lives: named by a hash of
-    the source, the local headers it includes and the flags."""
+def library_path(src: Path = _SRC, flags: tuple = (), libs: tuple = ()) -> Path:
+    """Where `src` built with the extra g++ `flags` and linked with `libs`
+    lives: named by a hash of the source, the local headers it includes,
+    the flags and the libraries."""
     text = src.read_bytes()
     for name in re.findall(rb'#include "([^"]+)"', text):
         text += (src.parent / name.decode()).read_bytes()
-    h = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(text + " ".join(flags + libs).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
-def compile_library(src: Path, flags: tuple = ()) -> Path:
-    """Compile `src` (with the extra g++ `flags`) into build/native/ unless
-    its hash is built already. Raises when the compiler fails."""
-    out = library_path(src, flags)
+def compile_library(src: Path, flags: tuple = (), libs: tuple = ()) -> Path:
+    """Compile `src` (with the extra g++ `flags`, linked with `libs` such as
+    "-lz") into build/native/ unless its hash is built already. Raises
+    when the compiler fails."""
+    out = library_path(src, flags, libs)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -57,7 +59,7 @@ def compile_library(src: Path, flags: tuple = ()) -> Path:
         # no FMA contraction: the LSD, the LK flow and the SIFT reproduce
         # OpenCV's float arithmetic, each fused step written out
         subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                        "-ffp-contract=off", "-pthread", *flags, str(src), "-o", tmp],
+                        "-ffp-contract=off", "-pthread", *flags, str(src), *libs, "-o", tmp],
                        check=True, capture_output=True, timeout=240)
         os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial file
         return out
@@ -85,15 +87,18 @@ MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
 
 class HostDecoder:
     """One of the host decoders with cv2.imread's bits that share
-    imgcodecs.h: `<name>.cpp` beside this file, built at first use, its
-    entry points pv_<name>_info and pv_<name>_decode called through
-    ctypes (which releases the GIL). Return codes 1 and 2 (cv2 gives no
-    image) raise Cv2Refuses and ValueError, 3 MemoryError."""
+    imgcodecs.h: `<name>.cpp` beside this file, built at first use (linked
+    with `libs`), its entry points pv_<name>_info and pv_<name>_decode
+    called through ctypes (which releases the GIL). Return codes 1 and 2
+    (cv2 gives no image) raise Cv2Refuses and ValueError, 3 MemoryError,
+    4 (a kind of file cv2 reads and the port does not yet) a plain
+    NotImplementedError."""
 
-    ERRORS = {1: Cv2Refuses, 2: ValueError, 3: MemoryError}
+    ERRORS = {1: Cv2Refuses, 2: ValueError, 3: MemoryError, 4: NotImplementedError}
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, libs: tuple = ()):
         self.name = name
+        self.libs = libs
         self.src = Path(__file__).resolve().parent / f"{name}.cpp"
         self._lib = None
         self._lock = threading.Lock()
@@ -102,7 +107,7 @@ class HostDecoder:
         """The loaded library, built on first use. Raises when g++ fails."""
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(compile_library(self.src)))
+                lib = ctypes.CDLL(str(compile_library(self.src, libs=self.libs)))
                 pint = ctypes.POINTER(ctypes.c_int)
                 info = getattr(lib, f"pv_{self.name}_info")
                 info.restype = ctypes.c_int

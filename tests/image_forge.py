@@ -949,3 +949,297 @@ def sun_bytes(pixels, depth: int, typ: int = 1, cmap=None, maptype: int | None =
         maptype = 0 if cmap is None else 1
     return (struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), typ, maptype, len(mapbytes))
             + mapbytes + body)
+
+
+# ----------------------------------------------------------------------------
+# TIFF
+# ----------------------------------------------------------------------------
+
+# field type -> (struct letter, size); RATIONAL is two LONGs
+TIFF_TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
+              7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8), 11: ("f", 4),
+              12: ("d", 8), 13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+BYTE, ASCII, SHORT, LONG, RATIONAL, UNDEFINED, FLOAT, DOUBLE, LONG8 = 1, 2, 3, 4, 5, 7, 11, 12, 16
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2 to 128 equal bytes as (1 - n, byte), the rest in
+    literal runs of up to 128 bytes (n - 1, bytes)."""
+    out, lit, i = bytearray(), bytearray(), 0
+
+    def flush():
+        if lit:
+            out.append(len(lit) - 1)
+            out.extend(lit)
+            lit.clear()
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            flush()
+            out += bytes([(1 - (j - i)) & 255, data[i]])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+            if len(lit) == 128:
+                flush()
+    flush()
+    return bytes(out)
+
+
+_tiff_lib = None
+_tiff_lock = threading.Lock()
+
+
+def tiff_lzw(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW (see tiff_lzw_py); inputs over 64 KiB through tiff_forge.cpp
+    beside this file (built with g++ at first use into build/native/),
+    which writes the same codes."""
+    if len(data) <= 1 << 16:
+        return tiff_lzw_py(data, compat)
+    global _tiff_lib
+    with _tiff_lock:
+        if _tiff_lib is None:
+            from panovlm_tpu_torch.native import compile_library
+            lib = ctypes.CDLL(str(compile_library(Path(__file__).resolve().parent
+                                                  / "tiff_forge.cpp")))
+            lib.pv_lzw_code.restype = ctypes.c_long
+            lib.pv_lzw_code.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_long]
+            _tiff_lib = lib
+    cap = 2 * len(data) + 64
+    out = np.empty(cap, np.uint8)
+    n = _tiff_lib.pv_lzw_code(data, len(data), int(compat), out.ctypes.data, cap)
+    assert n >= 0
+    return out[:n].tobytes()
+
+
+def tiff_lzw_py(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW: a clear code, codes of 9 to 12 bits, a clear code when the
+    table is full, the end-of-information code. The code width follows the
+    decoder's table: libtiff's new-style codes (MSB first, the width grows
+    one entry early) or, with compat=True, the old bit-reversed codes that
+    libtiff still reads (LSB first, the width grows when the table passes
+    2^n - 1)."""
+    acc = nacc = 0
+    out = bytearray()
+    nbits, codes = 9, 0            # the decoder's width; codes read since the clear
+
+    def put(code):
+        nonlocal acc, nacc
+        if compat:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = acc << nbits | code
+            nacc += nbits
+            while nacc >= 8:
+                nacc -= 8
+                out.append(acc >> nacc & 255)
+            acc &= (1 << nacc) - 1
+
+    def emit(code):
+        nonlocal nbits, codes
+        put(code)
+        codes += 1
+        free = 258 + codes - 1     # entries the decoder holds after this code
+        while nbits < 12 and free > (1 << nbits) - (1 if compat else 2):
+            nbits += 1
+
+    put(256)
+    table, nxt, w = {bytes([i]): i for i in range(256)}, 258, b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = nxt
+        nxt += 1
+        w = bytes([c])
+        if nxt == 4094:
+            put(256)
+            nbits, codes = 9, 0
+            table, nxt = {bytes([i]): i for i in range(256)}, 258
+    if w:
+        emit(table[w])
+    put(257)
+    if nacc:
+        out.append((acc if compat else acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def _tiff_rows(s: np.ndarray, bits: int, big_endian: bool) -> bytes:
+    """(n, m, c) samples -> rows of m * c samples, each row padded to a
+    byte: 8 to 64-bit samples in the file's byte order, others MSB first."""
+    n, m, c = s.shape
+    if bits in (8, 16, 32, 64):
+        dt = {8: "u1", 16: "u2", 32: "u4", 64: "u8"}[bits]
+        return s.astype((">" if big_endian else "<") + dt).tobytes()
+    flat = s.reshape(n, m * c).astype(np.uint64)
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint64)
+    bitrows = ((flat[..., None] >> shifts) & 1).astype(np.uint8).reshape(n, -1)
+    pad = (-bitrows.shape[1]) % 8
+    bitrows = np.concatenate([bitrows, np.zeros((n, pad), np.uint8)], axis=1)
+    return np.packbits(bitrows, axis=1).tobytes()
+
+
+def _ycbcr_units(s: np.ndarray, sh: int, sv: int) -> bytes:
+    """(n, m, 3) Y, Cb, Cr -> data units of sh * sv Y samples (row by row)
+    and the block's Cb and Cr (of its top-left pixel); edge blocks repeat
+    the last row and column."""
+    n, m, _ = s.shape
+    hb, wb = -(-n // sv), -(-m // sh)
+    p = np.pad(s, ((0, hb * sv - n), (0, wb * sh - m), (0, 0)), mode="edge")
+    y = p[..., 0].reshape(hb, sv, wb, sh).transpose(0, 2, 1, 3).reshape(hb, wb, sv * sh)
+    cb = p[::sv, ::sh, 1][..., None]
+    cr = p[::sv, ::sh, 2][..., None]
+    return np.concatenate([y, cb, cr], axis=2).astype(np.uint8).tobytes()
+
+
+def tiff_bytes(samples, photometric: int | None = None, bits: int = 8, compression: int = 1,
+               predictor: int = 1, planar: int = 1, rows_per_strip: int | None = None,
+               tile=None, big_endian: bool = False, bigtiff: bool = False, extra=(),
+               colormap=None, orientation: int | None = None, fill_order: int = 1,
+               sample_format: int | None = None, subsampling=None, ref_bw=None,
+               lzw_compat: bool = False, tags=None, drop=(), level: int = 6,
+               ifd_first: bool = True, chunks=None) -> bytes:
+    """A one-page TIFF (classic or BigTIFF, either byte order) of (h, w) or
+    (h, w, spp) integer samples as stored: strips of rows_per_strip rows
+    (one strip by default) or tiles (tile = (width, height), edge tiles
+    padded with 0); PlanarConfiguration 1 or 2; compression 1 (none), 32773
+    (PackBits), 5 (LZW; lzw_compat for the old bit-reversed codes), 8 or
+    32946 (Deflate, zlib `level`), any other number writing the data
+    uncompressed under it; predictor 2 (horizontal differencing of 8 to
+    64-bit samples) or any number written as given; fill_order 2 reverses
+    the bits of every byte of the coded data. photometric defaults to
+    MinIsBlack (1 or 2 samples) or RGB; colormap (2^bits, 3) 16-bit
+    values; extra the ExtraSamples values; subsampling (h, v) codes
+    (h, w, 3) YCbCr samples as data units. `tags` {tag: (type, values)}
+    adds or replaces entries, `drop` leaves tags out; `chunks` replaces
+    the coded strips or tiles. ifd_first puts the IFD before the data."""
+    s = np.asarray(samples)
+    s = s[..., None] if s.ndim == 2 else s
+    h, w, spp = s.shape
+    if photometric is None:
+        photometric = 1 if spp - len(extra) == 1 else 2
+    order = ">" if big_endian else "<"
+    planes = [s[..., k:k + 1] for k in range(spp)] if planar == 2 else [s]
+    if tile is not None:
+        tw, th = tile
+        boxes = [(y, x, th, tw) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        rps = h if rows_per_strip is None else rows_per_strip
+        boxes = [(y, 0, rps, w) for y in range(0, h, max(rps, 1))]
+    coded = []
+    for plane in planes:
+        for y, x, bh, bw in boxes:
+            part = plane[y:y + bh, x:x + bw]
+            if tile is not None:
+                part = np.pad(part, ((0, bh - part.shape[0]), (0, bw - part.shape[1]), (0, 0)))
+            if subsampling is not None and planar == 1:
+                raw = _ycbcr_units(part, *subsampling)
+            else:
+                if predictor == 2 and bits in (8, 16, 32, 64):
+                    v = part.astype(np.int64)
+                    v[:, 1:] = v[:, 1:] - v[:, :-1]
+                    part = (v % (1 << bits)).astype(np.uint64)
+                raw = _tiff_rows(part, bits, big_endian)
+            if compression == 32773:
+                raw = packbits(raw)
+            elif compression == 5:
+                raw = tiff_lzw(raw, lzw_compat)
+            elif compression in (8, 32946):
+                raw = zlib.compress(raw, level)
+            if fill_order == 2:
+                raw = np.unpackbits(np.frombuffer(raw, np.uint8)).reshape(-1, 8)[:, ::-1]
+                raw = np.packbits(raw).tobytes()
+            coded.append(raw)
+    if chunks is not None:
+        coded = list(chunks)
+    off_type = LONG8 if bigtiff else LONG
+    entries = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [bits] * spp),
+               259: (SHORT, [compression]), 262: (SHORT, [photometric]),
+               277: (SHORT, [spp]), 284: (SHORT, [planar])}
+    if tile is not None:
+        entries.update({322: (LONG, [tile[0]]), 323: (LONG, [tile[1]]),
+                        324: (off_type, [0] * len(coded)),
+                        325: (off_type, [len(c) for c in coded])})
+    else:
+        entries.update({273: (off_type, [0] * len(coded)), 278: (LONG, [rps]),
+                        279: (off_type, [len(c) for c in coded])})
+    if predictor != 1:
+        entries[317] = (SHORT, [predictor])
+    if fill_order != 1:
+        entries[266] = (SHORT, [fill_order])
+    if orientation is not None:
+        entries[274] = (SHORT, [orientation])
+    if extra:
+        entries[338] = (SHORT, list(extra))
+    if sample_format is not None:
+        entries[339] = (SHORT, [sample_format] * spp)
+    if colormap is not None:
+        entries[320] = (SHORT, np.asarray(colormap).T.reshape(-1).tolist())
+    if subsampling is not None:
+        entries[530] = (SHORT, list(subsampling))
+    if ref_bw is not None:
+        entries[532] = (RATIONAL, [v for r in ref_bw for v in (int(round(r * 1000)), 1000)])
+    entries.update(tags or {})
+    for t in drop:
+        entries.pop(t, None)
+    data_tag = 324 if 324 in entries else 273
+
+    def pack(typ, vals):
+        if isinstance(vals, (bytes, bytearray)):
+            return bytes(vals)
+        letter = TIFF_TYPES[typ][0][0]
+        return struct.pack(order + letter * len(vals), *vals)
+
+    def count(typ, vals):
+        if isinstance(vals, (bytes, bytearray)):
+            return len(vals)
+        return len(vals) // (2 if typ in (5, 10) else 1)
+
+    head = 16 if bigtiff else 8
+    slot = 8 if bigtiff else 4
+    ifd_size = (8 + 20 * len(entries) + 8) if bigtiff else (2 + 12 * len(entries) + 4)
+    sizes = {t: len(pack(typ, v)) for t, (typ, v) in entries.items()}
+    ool_size = sum(-(-n // 2) * 2 for n in sizes.values() if n > slot)
+    data_size = sum(len(c) for c in coded)
+    ifd_at = head if ifd_first else head + data_size + data_size % 2
+    ool_at = ifd_at + ifd_size
+    data_at = ool_at + ool_size if ifd_first else head
+    offs, at = [], data_at
+    for c in coded:
+        offs.append(at)
+        at += len(c)
+    if data_tag in entries:
+        typ, vals = entries[data_tag]
+        if all(v == 0 for v in vals) and len(vals) == len(coded):
+            entries[data_tag] = (typ, offs)
+    ifd, ool = bytearray(), bytearray()
+    ifd += struct.pack(order + ("Q" if bigtiff else "H"), len(entries))
+    for t in sorted(entries):
+        typ, vals = entries[t]
+        body = pack(typ, vals)
+        if len(body) > slot:
+            ref = struct.pack(order + ("Q" if bigtiff else "I"), ool_at + len(ool))
+            ool += body + b"\0" * (len(body) % 2)
+        else:
+            ref = body + b"\0" * (slot - len(body))
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHI"), t, typ, count(typ, vals)) + ref
+    ifd += b"\0" * slot
+    if bigtiff:
+        hdr = (b"MM" if big_endian else b"II") + struct.pack(order + "HHHQ", 43, 8, 0, ifd_at)
+    else:
+        hdr = (b"MM" if big_endian else b"II") + struct.pack(order + "HI", 42, ifd_at)
+    data = b"".join(coded)
+    if ifd_first:
+        return hdr + bytes(ifd) + bytes(ool) + data
+    return hdr + data + b"\0" * (data_size % 2) + bytes(ifd) + bytes(ool)

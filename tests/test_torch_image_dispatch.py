@@ -12,12 +12,12 @@ cv2.imread-based `load_images` / `load_mask` (panovlm_tpu/pipeline.py):
   * the decoder follows the file's first bytes, as cv2's findDecoder does:
     a PNG named .jpg and a JPEG named .png load as in the JAX package, as
     frames (gray and colour, scale 0 and -1) and as masks;
-  * a BMP, PxM, PAM, PFM or Sun raster file that cv2 writes, named
+  * a BMP, PxM, PAM, PFM, Sun raster or TIFF file that cv2 writes, named
     mask.png, reads with cv2's bits as a frame and as a mask (a PFM mask is
     None: cv2 gives no gray image for a three-channel PFM);
-  * a file of another format cv2 reads (HDR, TIFF, WebP, AVIF, GIF, JPEG
-    2000) raises NotImplementedError naming the format and ROADMAP.md, as
-    a mask too: only "cv2 gives no image" reads as no mask.
+  * a file of another format cv2 reads (HDR, WebP, AVIF, GIF, JPEG 2000)
+    raises NotImplementedError naming the format and ROADMAP.md, as a mask
+    too: only "cv2 gives no image" reads as no mask.
 """
 
 import io
@@ -210,11 +210,11 @@ def _cv2_enc(ext):
 
 RASTER_FORMATS = {
     "BMP": _cv2_enc(".bmp"), "PxM": _cv2_enc(".ppm"), "PAM": _cv2_enc(".pam"),
-    "PFM": _cv2_enc(".pfm"), "Sun raster": _cv2_enc(".sr"),
+    "PFM": _cv2_enc(".pfm"), "Sun raster": _cv2_enc(".sr"), "TIFF": _cv2_enc(".tiff"),
 }
 OTHER_FORMATS = {
-    "HDR": _cv2_enc(".hdr"), "TIFF": _cv2_enc(".tiff"), "WebP": _cv2_enc(".webp"),
-    "AVIF": _cv2_enc(".avif"), "GIF": _cv2_enc(".gif"), "JPEG 2000": _pil("JPEG2000"),
+    "HDR": _cv2_enc(".hdr"), "WebP": _cv2_enc(".webp"), "AVIF": _cv2_enc(".avif"),
+    "GIF": _cv2_enc(".gif"), "JPEG 2000": _pil("JPEG2000"),
 }
 
 

@@ -45,7 +45,7 @@ assert len(mods) > 30, mods
 for m in ("native.lsd", "utils.panorama_line", "models.camera_lidar", "io.jpeg",
           "native.jpeg", "models.texture", "ops.lbd", "native.lk", "models.line_tracks",
           "pair_surgery", "utils.gps", "parallel.sharding", "parallel.halo",
-          "parallel.multihost", "native.bmp", "native.pxm", "native.sunras"):
+          "parallel.multihost", "native.bmp", "native.pxm", "native.sunras", "native.tiff"):
     assert "panovlm_tpu_torch." + m in mods, m
 print("ok")
 """
@@ -77,9 +77,10 @@ def test_cli_runs_every_reference_verb(stage, tmp_path, monkeypatch):
 
 def test_native_libraries_build_from_the_checkout():
     """The scan reader, the LSD, the JPEG decoder, the LK flow, the SIFT
-    detector and the BMP, PxM / PAM / PFM and Sun raster decoders compile
-    with g++ into build/native/ at first use (the scan reader has a numpy
-    fallback, the others none)."""
+    detector and the BMP, PxM / PAM / PFM, Sun raster and TIFF decoders
+    compile with g++ into build/native/ at first use (the TIFF decoder
+    linked with zlib; the scan reader has a numpy fallback, the others
+    none)."""
     import shutil
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this machine")
@@ -90,10 +91,11 @@ def test_native_libraries_build_from_the_checkout():
         assert mod.get() is not None and mod._SRC.name == name
         flags = mod.build_flags() if hasattr(mod, "build_flags") else ()
         assert native.library_path(mod._SRC, flags).exists()
-    from panovlm_tpu_torch.native import bmp, pxm, sunras
-    for mod, name in ((bmp, "bmp.cpp"), (pxm, "pxm.cpp"), (sunras, "sunras.cpp")):
+    from panovlm_tpu_torch.native import bmp, pxm, sunras, tiff
+    for mod, name in ((bmp, "bmp.cpp"), (pxm, "pxm.cpp"), (sunras, "sunras.cpp"),
+                      (tiff, "tiff.cpp")):
         assert mod._DECODER.get() is not None and mod._SRC.name == name
-        assert native.library_path(mod._SRC).exists()
+        assert native.library_path(mod._SRC, libs=mod._DECODER.libs).exists()
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():
