@@ -269,7 +269,16 @@ Run from the root of a checkout. Phases, each fatal on failure:
      premultiplied RGBA, YCbCr 4:2:0, orientation 6, a codec cv2 has no
      decoder for, a queued codec), and the two frames of (f) as LZW strips
      with the predictor, Deflate tiles and 16-bit files (TIFF_VARIANTS)
-     decode to their PNGs' bits, timed on one thread.
+     decode to their PNGs' bits, timed on one thread. (i) The CCITT and
+     JPEG-in-TIFF codecs: probes of RLE, RLE/W, Group 3 1-D and 2-D, Group
+     4, a cut Group 4 strip and JPEG gray and YCbCr 2x2 tiles at cv2's
+     digests (TIFF_PROBES; ThunderScan the queued one); the gray frame of
+     (f) thresholded to bilevel as Group 4 (one strip) and Group 3 2-D
+     (64-row strips) TIFFs decodes to its PNG's bits, the RGB frame's own
+     baseline JPEG as a single-strip JPEG-in-TIFF to the JPEG's colour read,
+     the frame as a tiled one to its tiles' standalone decodes, each timed
+     on one thread; (g)'s runs once more with the tripod mask as a 1-bit
+     Group 4 TIFF named mask.tif, bit-equal to the PNG-mask run.
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -2627,13 +2636,16 @@ RASTER_PROBES = {
         {"color": None,
          "gray": None}),
 }
-# phase 16 (h): small TIFF files (written by tests/image_forge.py, 6 x 11
-# pixels, the orientation-6 one 11 x 11; the CCITT one by PIL), one per
-# kind, each with the SHA-256 of what cv2.imread gives for it in colour (RGB
-# order) and in gray, None where cv2 gives no image (the decoder must
-# refuse the read), "queued" where cv2 reads a codec the port does not yet
-# (the decoder must raise NotImplementedError naming ROADMAP.md);
-# tests/test_torch_image_tiff.py recomputes them with cv2
+# phase 16 (h) and (i): small TIFF files (written by tests/image_forge.py,
+# 6 x 11 pixels, the orientation-6 one 11 x 11, the CCITT and JPEG ones of
+# (i) 9 x 23; one CCITT Group 4 file by PIL), one per kind, each with the
+# SHA-256 of what cv2.imread gives for it in colour (RGB order) and in
+# gray, None where cv2 gives no image (the decoder must refuse the read),
+# "queued" where cv2 reads a codec the port does not yet (the decoder must
+# raise NotImplementedError naming ROADMAP.md); (i)'s RLE/W file reads as
+# libtiff reads it, some rows off their word boundary, and its cut Group 4
+# strip as libtiff leaves it; tests/test_torch_image_tiff.py recomputes
+# them with cv2
 TIFF_PROBES = {
     "LZW with predictor 2": (
         "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwADAAAAkgAAAAMBAwABAAAABQAAAAYBAwABAAAA"
@@ -2735,10 +2747,81 @@ TIFF_PROBES = {
         "sSo=",
         {"color": None,
          "gray": None}),
-    "queued codec (CCITT Group 4)": (
+    "CCITT RLE": (
+        "SUkqAAgAAAAKAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAAAQAAAAMBAwABAAAAAgAAAAYBAwABAAAA"
+        "AAAAABEBBAABAAAAhgAAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAAHgAAABwBAwABAAAAAQAAAAAA"
+        "AAA1QMA1HAuANSgfgDU7KYA1eM41/0I1QyA1Sdg1VRA=",
+        {"color": 'fe9c7c2efafe681a3e877e4327d9ec2db54af0ac78d59ea088a6b42bcaa7773d',
+         "gray": '8b52aa3336ad7e94de49be2ef05ba21275cd86d9f247732cbadfe7d5416f3569'}),
+    "CCITT RLE/W": (
+        "SUkqAAgAAAAKAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAAAQAAAAMBAwABAAAAA4AAAAYBAwABAAAA"
+        "AAAAABEBBAABAAAAhgAAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAAJAAAABwBAwABAAAAAQAAAAAA"
+        "AAA1QMAANRwLgDUoH4A1OymANXjOADX/QgA1QyAANUnYADVVEAA=",
+        {"color": '4992f1860f1b39b2be5e2e777a4e3abf2e42f6ae0135f383203f044eb93f970a',
+         "gray": 'fed1384975a3fd08dcb271c8b1ef74662f628de9acb1cb30fb56e62521ba2aab'}),
+    "CCITT Group 3 1-D": (
+        "SUkqAAgAAAAKAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAAAQAAAAMBAwABAAAAAwAAAAYBAwABAAAA"
+        "AAAAABEBBAABAAAAhgAAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAAMAAAABwBAwABAAAAAQAAAAAA"
+        "AAAAE1QMAE1HAuAAmpQPwATU7KYAJq8ZwATX/QgATVDIAE1SdgAmqqIAEAEAEAEAEAE=",
+        {"color": 'fe9c7c2efafe681a3e877e4327d9ec2db54af0ac78d59ea088a6b42bcaa7773d',
+         "gray": '8b52aa3336ad7e94de49be2ef05ba21275cd86d9f247732cbadfe7d5416f3569'}),
+    "CCITT Group 3 2-D, fill bits": (
+        "SUkqAAgAAAALAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAAAQAAAAMBAwABAAAAAwAAAAYBAwABAAAA"
+        "AAAAABEBBAABAAAAkgAAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAAMQAAABwBAwABAAAAAQAAACQB"
+        "BAABAAAABQAAAAAAAAAAAZqgYAFI4IuAAZqUD8ABVUABmrxnAAFChKABmqGQAAFqAAGaqogAYAMAGADABgAw",
+        {"color": 'fe9c7c2efafe681a3e877e4327d9ec2db54af0ac78d59ea088a6b42bcaa7773d',
+         "gray": '8b52aa3336ad7e94de49be2ef05ba21275cd86d9f247732cbadfe7d5416f3569'}),
+    "CCITT Group 4, FillOrder 2": (
+        "SUkqAAgAAAALAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAAAQAAAAMBAwABAAAABAAAAAYBAwABAAAA"
+        "AAAAAAoBAwABAAAAAgAAABEBBAABAAAAkgAAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAAEwAAABwB"
+        "AwABAAAAAQAAAAAAAABk1cRBdErQqhUaCmkhdB0KgAAI",
+        {"color": 'fe9c7c2efafe681a3e877e4327d9ec2db54af0ac78d59ea088a6b42bcaa7773d',
+         "gray": '8b52aa3336ad7e94de49be2ef05ba21275cd86d9f247732cbadfe7d5416f3569'}),
+    "CCITT Group 4 (PIL)": (
         "SUkqACAAAAAmqI+R8Eo0kggsIKwuNr1cY2CCUAEAEAAJAAABAwABAAAACwAAAAEBAwABAAAABgAAAAIBAwABAAAA"
         "AQAAAAMBAwABAAAABAAAAAYBAwABAAAAAQAAABEBBAABAAAACAAAABYBAwABAAAABgAAABcBBAABAAAAFwAAABwB"
         "AwABAAAAAQAAAAAAAAA=",
+        {"color": '2b0145dfde11f2674fba16f2b34bf2dbb173f6a89e5ffb26df353aef2cf4560c',
+         "gray": '831665a30afdf21d2d9f81377415146eda32ffa7fc26a917157d195806bf314f'}),
+    "CCITT Group 4, strip cut": (
+        "SUkqAAgAAAAKAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAAAQAAAAMBAwABAAAABAAAAAYBAwABAAAA"
+        "AAAAABEBBAABAAAAhgAAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAADAAAABwBAwABAAAAAQAAAAAA"
+        "AAAmqyOCLlILVahYUJY=",
+        {"color": '23d9054147f6d8b3668cfa4cd698a6e085fa59b63eaa87317e50dc5609f96f86',
+         "gray": 'f29ae151b78bc84013a085dc6aa8baaa07a685a8a52ac0c9cd3ab2e6e2f026e0'}),
+    "JPEG gray": (
+        "SUkqAAgAAAALAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwABAAAACAAAAAMBAwABAAAABwAAAAYBAwABAAAA"
+        "AQAAABEBBAABAAAAYAEAABUBAwABAAAAAQAAABYBBAABAAAACQAAABcBBAABAAAAbgAAABwBAwABAAAAAQAAAFsB"
+        "BwDNAAAAkgAAAAAAAAD/2P/bAIQACAYGBwYFCAcHBwkJCAoMFA0MCwsMGRITDxQdGh8eHRocHCAkLicgIiwjHBwo"
+        "NyksMDE0NDQfJzk9ODI8LjM0MgEJCQkMCwwYDQ0YMiEcITIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIy/8QAQQAAAwEAAAAAAAAAAAAAAAAABAUHBhAAAQIDBgILAAAAAAAAAAAAAQIEAAMR"
+        "BQYSITFxUcITNDVBYXOBg6Gxsv/ZAP/Y/8AACwgACQAXAQERAP/aAAgBAQAAPwAC8zie2clLROFCsOhqmnCm/wBd"
+        "wMKLAeOHDuWJq14SunSLXXP18aa7RWGNisHdnla5ZqdU4wMJrmDmOPyInlsaN/O5EwPdztP2OaNjI6u73P7Ef//Z",
+        {"color": '3d3c978942f0001e09368fc3409a851ee9416670c0ac013a5c1f5ea7a8b496ca',
+         "gray": 'b72a085948370ebc72a6fc73eeea9793505da31626b31c4f53dc1a0c72204269'}),
+    "JPEG YCbCr 2x2 tiles, JPEGTables": (
+        "SUkqAAgAAAANAAABBAABAAAAFwAAAAEBBAABAAAACQAAAAIBAwADAAAAqgAAAAMBAwABAAAABwAAAAYBAwABAAAA"
+        "BgAAABUBAwABAAAAAwAAABwBAwABAAAAAQAAAEIBBAABAAAAEAAAAEMBBAABAAAAEAAAAEQBBAACAAAAsAAAAEUB"
+        "BAACAAAAuAAAAFsBBwAdAQAAwAAAABICAwACAAAAAgACAAAAAAAIAAgACADeAQAAYQIAAIMAAAD7AAAA/9j/2wCE"
+        "AAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDIB"
+        "CQkJDAsMGA0NGDIhHCEyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMv/E"
+        "AJEAAAMBAAAAAAAAAAAAAAAAAAMFBgcBAQAAAAAAAAAAAAAAAAAAAAYCAQAAAAAAAAAAAAAAAAAAAAYQAAEDAwMD"
+        "BQAAAAAAAAAAAAIBBREDBDEAEiEGIlEzQWFywREAAQMFAAAAAAAAAAAAAAAAAQIDEQAEBhMxEgACAQUAAAAAAAAA"
+        "AAAAAAABAgMABAYTUf/ZAP/Y/8AAEQgAEAAQAwEiAAIRAQMRAf/aAAwDAQACEQMiAD8AfvjdYtO46JgKKPYQ4TiO"
+        "YVcxrMLzqV0tXBUId1AS2CoSKInuifGI8xxjUDV6ie6/qvDhU+90a/uhE8uhFuJyvFWZla5Z850AdyhDlzuCVATy"
+        "RQSyyxIJ9kqs68JFf//Z/9j/wAARCAAQABADASIAAhEBAxEB/8QAjAABAQEAAAAAAAAAAAAAAAAABAUHAQEAAAAA"
+        "AAAAAAAAAAAAAAAHAgEAAAAAAAAAAAAAAAAAAAAHEAACAQUAAgMAAAAAAAAAAAABAgMABAURIRJBBjFREQABAwUB"
+        "AAAAAAAAAAAAAAADAQUhAAIGEjEREgABBAMAAAAAAAAAAAAAAAADAQIFEQAGEv/aAAwDAQACEQMiAD8Al6af4jm2"
+        "nkV2WzuD0Dh8D7/dj1v6rE6e2dy7QyQtlb4xSAh0Nw/iwPCCN9oFGeSvoXcgrxD00TxeTPYoz2edDMHYUI+EalVn"
+        "/9k=",
+        {"color": '62f7297cba5344fa186cd57041b9956cf40e9668870a06c5fc08c10bd8221dbc',
+         "gray": '8a9f9a03d5aadb2cc94ee371171e2c635a0836a790f3acca9b15a48e4c7b0991'}),
+    "queued codec (ThunderScan)": (
+        "SUkqAAgAAAALAAABBAABAAAACwAAAAEBBAABAAAABgAAAAIBAwABAAAABAAAAAMBAwABAAAAKYAAAAYBAwABAAAA"
+        "AwAAABEBBAABAAAA8gAAABUBAwABAAAAAQAAABYBBAABAAAABgAAABcBBAABAAAAQgAAABwBAwABAAAAAQAAAEAB"
+        "AwAwAAAAkgAAAAAAAABHReyptvtsOlJeZHfs1J1tzxvb5JJSLQ5yxztdEhYz3/VtgNNtidHH9dswFvSAv8Ji5S7A"
+        "NIQpPVxks3pUGMf3V4fby83hG5fvyLrj8MDNB4d0R7Wy01Idr67eQmK67TXCw87FzsDGxsnKw83BxM/Iz8LIyszB"
+        "zMHKxsDFxs7IxsnNz8TOwcHCxsbEzsLPw8nOx8bCxszHyMfFycnCzMTNy8g=",
         {"color": 'queued',
          "gray": 'queued'}),
 }
@@ -2762,6 +2845,18 @@ TIFF_VARIANTS = {
                           "big_endian": True, "level": 1},
 }
 MASK_TIFF = {"compression": 5, "tile": (128, 128)}
+# phase 16 (i): frame GRAY_VARIANT_FRAME's gray plane thresholded to bilevel
+# (black below BILEVEL_THRESHOLD) as a PNG of 0 / 255 and as 1-bit
+# MinIsWhite TIFFs, CCITT Group 4 in one strip and Group 3 2-D (every
+# FAX_K-th row 1-D, fill bits) in strips of 64 rows; frame
+# RGB_VARIANT_FRAME's own baseline JPEG as a single-strip JPEG-in-TIFF (its
+# tables in JPEGTables) and the frame as a YCbCr 2x2 JPEG-in-TIFF in 256 x
+# 256 tiles; the tripod mask of (g) as a Group 4 TIFF named mask.tif
+BILEVEL_THRESHOLD, FAX_K = 128, 4
+FAX_VARIANTS = {"bilevel_g4.tif": {"compression": 4},
+                "bilevel_g3_2d.tif": {"compression": 3, "rows_per_strip": 64,
+                                      "fax": (FAX_K, True, True)}}
+JPEG_TIFF_TILE = (256, 256)
 
 # the MVS frames re-coded as progressive files from the coefficients that
 # their baseline files carry (phase 16 (b)) and as arithmetic-coded ones
@@ -2784,7 +2879,8 @@ def write_format_variants(root: str, i: int, rgb):
     progression) of the coefficients of its baseline JPEG, or its gray
     plane / RGB array as Paeth-filtered, Adam7 and 16-bit (v * 257) PNGs
     beside an 8-bit filter-0 RGB PNG, as BMP, PGM and Sun raster files and
-    as TIFF files (TIFF_VARIANTS), and its gray plane as a lossless JPEG."""
+    as TIFF files (TIFF_VARIANTS), its gray plane as a lossless JPEG, and
+    the bilevel and JPEG-in-TIFF files of phase 16 (i)."""
     import numpy as np
     import image_forge as forge
     if i < PROGRESSIVE_FRAMES:
@@ -2802,6 +2898,21 @@ def write_format_variants(root: str, i: int, rgb):
         with open(os.path.join(root, "lossless", f"{i:06d}.jpg"), "wb") as f:
             f.write(forge.lossless_bytes([plane], w, h, predictor=LOSSLESS_PREDICTOR,
                                          restart=(65535 // w) * w))
+    var = os.path.join(root, "png_variants")
+    if i == GRAY_VARIANT_FRAME:   # phase 16 (i): the bilevel files
+        black = rgb[..., 0] < BILEVEL_THRESHOLD
+        with open(os.path.join(var, "bilevel.png"), "wb") as f:
+            f.write(forge.png_bytes(np.where(black, 0, 255).astype(np.uint8), 0, 8, level=1))
+        for name, kw in FAX_VARIANTS.items():
+            with open(os.path.join(var, name), "wb") as f:
+                f.write(forge.tiff_bytes(black.astype(np.uint8), 0, 1, **kw))
+    if i == RGB_VARIANT_FRAME:    # phase 16 (i): the JPEG-in-TIFF files
+        with open(os.path.join(root, "color", f"{i:06d}.jpg"), "rb") as f:
+            jpg = f.read()
+        with open(os.path.join(var, "jpeg_strip.tif"), "wb") as f:
+            f.write(forge.jpeg_as_tiff(jpg))
+        with open(os.path.join(var, "jpeg_tiles.tif"), "wb") as f:
+            f.write(forge.jpeg_tiff_tiles(rgb, JPEG_TIFF_TILE)[0])
     for frame, kind, img in ((GRAY_VARIANT_FRAME, "gray", None), (RGB_VARIANT_FRAME, "rgb", rgb)):
         if i != frame:
             continue
@@ -2971,7 +3082,7 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
     byte); (e) the lossless JPEG of a gray frame decodes to its source plane
     exactly; (f) the raster probes, and the full-size BMP, PGM and Sun
     raster files decode to their PNGs' bits; (h) so do the TIFF probes and
-    the full-size TIFF files (TIFF_VARIANTS). Prints one-thread decode times
+    the full-size TIFF files (TIFF_VARIANTS); (i) run_tiff_codecs. Prints one-thread decode times
     of the full-size files beside the card line (nvidia-smi's name and power
     limit; the decoders run on the host)."""
     import numpy as np
@@ -3058,9 +3169,7 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
                 img, ms = _one_thread_ms(images.read_image, path, color)
                 want = ref
                 if kind == "rgb" and not color:   # imgcodecs' gray of the BGR pixels
-                    c = images.read_png(ref_path, True).astype(np.int32)
-                    want = ((1868 * c[..., 2] + 9617 * c[..., 1] + 4899 * c[..., 0] + 8192)
-                            >> 14).astype(np.uint8)
+                    want = _gray_of_rgb(images.read_png(ref_path, True))
                 same = np.array_equal(img, want)
                 log(f"one-thread decode ({card}; host CPU) of the {img.shape} {name} "
                     f"({os.path.getsize(path) / 2**20:.2f} MiB), "
@@ -3068,6 +3177,8 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
                     f"{'the PNG bits' if same else 'DIFFERS'}")
                 if not same:
                     fail(f"the full-size {name} does not decode to its PNG's bits")
+    # (i) the CCITT and JPEG-in-TIFF files
+    run_tiff_codecs(root, card)
     # (h) the same frames as TIFF files: the 16-bit ones through libtiff's
     # 16-to-8 rules (the high byte of a gray sample, (v + 128) / 257 of a
     # colour one), which give the 8-bit samples back
@@ -3075,9 +3186,7 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
         for color in (True, False):
             want = images.read_png(ref_path, color)
             if kind == "rgb" and not color:   # imgcodecs' gray of the RGB pixels
-                c = images.read_png(ref_path, True).astype(np.int32)
-                want = ((1868 * c[..., 2] + 9617 * c[..., 1] + 4899 * c[..., 0] + 8192)
-                        >> 14).astype(np.uint8)
+                want = _gray_of_rgb(images.read_png(ref_path, True))
             for name in TIFF_VARIANTS:
                 path = os.path.join(var, f"{kind}_{name}")
                 img, ms = _one_thread_ms(images.read_image, path, color)
@@ -3088,6 +3197,74 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
                     f"{'the PNG bits' if same else 'DIFFERS'}")
                 if not same:
                     fail(f"the full-size {kind} {name} does not decode to its PNG's bits")
+
+
+def _gray_of_rgb(rgb):
+    """imgcodecs' gray of RGB pixels (icvCvt_BGR2Gray): the gray read of a
+    24-bit BMP, or of a TIFF's RGBA raster."""
+    c = rgb.astype("int32")
+    return ((1868 * c[..., 2] + 9617 * c[..., 1] + 4899 * c[..., 0] + 8192) >> 14).astype("uint8")
+
+
+def run_tiff_codecs(root: str, card: str = "no card"):
+    """Phase 16 (i) (its probes are check_tiff_probes'): frame
+    GRAY_VARIANT_FRAME's bilevel plane as Group 4 in one strip and Group 3
+    2-D in strips (FAX_VARIANTS) decodes to its PNG's bits in both reads;
+    frame RGB_VARIANT_FRAME's own baseline JPEG as a single-strip
+    JPEG-in-TIFF gives the port's colour read of the JPEG, and imgcodecs'
+    gray of that in a gray read (libtiff asks libjpeg for RGB, cv2's TIFF
+    read converts the RGBA raster); the frame as a tiled JPEG-in-TIFF gives
+    in each tile the decode of the tile's stream spliced with JPEGTables
+    into a standalone JPEG, and the gray of its colour read. Prints the
+    one-thread decode time of each file beside the card line."""
+    import numpy as np
+    import image_forge as forge
+    from panovlm_tpu_torch.io import images
+    from panovlm_tpu_torch.io.jpeg import read_jpeg
+    from panovlm_tpu_torch.native import jpeg as native_jpeg
+
+    var = os.path.join(root, "png_variants")
+    times = {}
+
+    def timed(name, color, want):
+        path = os.path.join(var, name)
+        img, ms = _one_thread_ms(images.read_image, path, color)
+        times[f"{name} {'colour' if color else 'gray'}"] = ms
+        same = want is None or np.array_equal(img, want)
+        log(f"phase 16 (i): {name} ({os.path.getsize(path) / 2**20:.2f} MiB), "
+            f"{'colour' if color else 'gray'} read {img.shape}: {ms:.1f} ms one thread"
+            + ("" if want is None else f", {'the expected bits' if same else 'DIFFERS'}"))
+        if not same:
+            fail(f"the full-size {name} does not decode to the expected bits")
+        return img
+
+    for color in (True, False):
+        want = images.read_png(os.path.join(var, "bilevel.png"), color)
+        for name in FAX_VARIANTS:
+            timed(name, color, want)
+    color_ref = read_jpeg(os.path.join(root, "color", f"{RGB_VARIANT_FRAME:06d}.jpg"), True)
+    timed("jpeg_strip.tif", True, color_ref)
+    timed("jpeg_strip.tif", False, _gray_of_rgb(color_ref))
+    del color_ref
+    tiled = timed("jpeg_tiles.tif", True, None)
+    timed("jpeg_tiles.tif", False, _gray_of_rgb(tiled))
+    with open(os.path.join(var, "jpeg_tiles.tif"), "rb") as f:
+        data = f.read()
+    fields = forge.tiff_fields(data)
+    tw, th = fields[322][0], fields[323][0]
+    H, W = tiled.shape[:2]
+    origins = [(y, x) for y in range(0, H, th) for x in range(0, W, tw)]
+    bad = 0
+    for (y, x), off, count in zip(origins, fields[324], fields[325]):
+        part = native_jpeg.decode(forge.splice_tables(fields[347], data[off:off + count]), True)
+        h, w = min(th, H - y), min(tw, W - x)
+        bad += not np.array_equal(tiled[y:y + h, x:x + w], part[:h, :w])
+    log(f"phase 16 (i): {len(origins)} tiles of {tw} x {th} against their streams spliced "
+        f"with JPEGTables: {'each the standalone decode' if not bad else f'{bad} DIFFER'}")
+    if bad:
+        fail("a tile of the tiled JPEG-in-TIFF differs from its spliced standalone JPEG")
+    log(f"one-thread decode ({card}; host CPU) of the {H} x {W} phase 16 (i) TIFFs: "
+        + ", ".join(f"{k} {ms:.1f} ms" for k, ms in times.items()))
 
 
 def tripod_mask(h: int, w: int):
@@ -3116,9 +3293,10 @@ def _tree_bytes(root: str) -> dict:
 def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
     """Phase 16 (g): joint_mvs on the first MASK_FRAMES frames of phase 6's
     dataset with tripod_mask at half the working size (load_mask resizes
-    it), once as a PNG, once as an RLE8 BMP named mask.png and (phase 16
-    (h)) once as an LZW TIFF in tiles named mask.tif (MASK_TIFF). Checked:
-    load_mask gives the same booleans for all three, the resized mask's;
+    it), once as a PNG, once as an RLE8 BMP named mask.png, (phase 16 (h))
+    once as an LZW TIFF in tiles named mask.tif (MASK_TIFF) and (phase 16
+    (i)) once as a 1-bit MinIsWhite Group 4 TIFF named mask.tif. Checked:
+    load_mask gives the same booleans for all four, the resized mask's;
     every artifact of the runs bit-equal; fewer filtered depths in the masked
     pixels than the same frames without a mask have (a run resumed from
     the PNG run's pass artifacts; the mask clears the depths before the
@@ -3137,27 +3315,32 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
     H, W = d_gt[0].shape
     m = tripod_mask(H // 2, W // 2)
     os.makedirs(os.path.join(root, "masks", "bmp"))
+    os.makedirs(os.path.join(root, "masks", "g4"))
     paths = {"png": os.path.join(root, "masks", "mask.png"),
              "bmp": os.path.join(root, "masks", "bmp", "mask.png"),
-             "tif": os.path.join(root, "masks", "mask.tif")}
+             "tif": os.path.join(root, "masks", "mask.tif"),
+             "g4": os.path.join(root, "masks", "g4", "mask.tif")}
     images.write_png(paths["png"], m)
     with open(paths["bmp"], "wb") as f:
         f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
                                 rle=True))
     with open(paths["tif"], "wb") as f:
         f.write(forge.tiff_bytes(m, 1, **MASK_TIFF))
+    with open(paths["g4"], "wb") as f:   # 1-bit MinIsWhite: the masked pixels black
+        f.write(forge.tiff_bytes((m == 0).astype(np.uint8), 0, 1, compression=4))
     want = np.repeat(np.repeat(m > 0, 2, axis=0), 2, axis=1)
     loaded = {kind: images.load_mask(path, H, W) for kind, path in paths.items()}
     same = all(x is not None and np.array_equal(x, want) for x in loaded.values())
     log(f"tripod mask {m.shape} as PNG ({os.path.getsize(paths['png'])} bytes), RLE8 BMP "
-        f"named mask.png ({os.path.getsize(paths['bmp'])} bytes) and LZW TIFF in tiles "
-        f"({os.path.getsize(paths['tif'])} bytes): load_mask at {H} x {W} "
+        f"named mask.png ({os.path.getsize(paths['bmp'])} bytes), LZW TIFF in tiles "
+        f"({os.path.getsize(paths['tif'])} bytes) and 1-bit Group 4 TIFF "
+        f"({os.path.getsize(paths['g4'])} bytes): load_mask at {H} x {W} "
         f"{'the same booleans, the resized mask' if same else 'DIFFERS'}; "
         f"{(~want).mean():.3f} of the pixels masked")
     if not same:
-        fail("load_mask of the PNG, the BMP and the TIFF mask differ")
+        fail("load_mask of the PNG, the BMP and the TIFF masks differ")
     launches = {}
-    for kind in ("png", "bmp", "tif"):
+    for kind in ("png", "bmp", "tif", "g4"):
         cfg_path = _subset_config(os.path.join(root, kind), mvs_cfg_path, MASK_FRAMES,
                                   f"mask_path = {paths[kind]}\n")
         vs_mod.volscore.launches = 0
@@ -3170,8 +3353,8 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
             fail(f"joint_mvs with the {kind} mask exited {rc}")
         if launches[kind] <= 0 and device == "cuda":
             fail(f"the volscore kernel was not launched in the run with the {kind} mask")
-    trees = {kind: _tree_bytes(os.path.join(root, kind)) for kind in ("png", "bmp", "tif")}
-    for kind in ("bmp", "tif"):
+    trees = {kind: _tree_bytes(os.path.join(root, kind)) for kind in ("png", "bmp", "tif", "g4")}
+    for kind in ("bmp", "tif", "g4"):
         equal = trees["png"] == trees[kind]
         log(f"the PNG-mask and {kind.upper()}-mask runs: {len(trees['png'])} artifacts "
             f"{'bit-equal' if equal else 'DIFFER'}, volscore launches {launches['png']} and "

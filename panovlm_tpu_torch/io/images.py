@@ -32,10 +32,13 @@
     channel conversions, PFM's channel count; see each file's comment);
   * TIFF (native/tiff.cpp): classic and BigTIFF, strips and tiles, the
     codecs none, PackBits, LZW and Deflate with horizontal differencing,
-    through libtiff's RGBA conversions as cv2 5.0 reads them (palettes,
-    16-bit samples, CMYK, YCbCr, CIE L*a*b*, alpha, orientation). The TIFF
-    codecs cv2 reads and the port does not yet (CCITT, JPEG, ThunderScan,
-    SGILog) raise NotImplementedError naming ROADMAP.md.
+    CCITT RLE, RLE/W, Group 3 (1-D and 2-D) and Group 4 (libtiff's fax
+    decoders and their recovery from bad data), and JPEG (strips and tiles
+    through native/jpeg.cpp, with the JPEGTables stream's tables), through
+    libtiff's RGBA conversions as cv2 5.0 reads them (palettes, 16-bit
+    samples, CMYK, YCbCr, CIE L*a*b*, alpha, orientation). The TIFF codecs
+    cv2 reads and the port does not yet (ThunderScan, SGILog) raise
+    NotImplementedError naming ROADMAP.md.
 
 The decoder is chosen by the file's first bytes, as cv2's findDecoder
 chooses it, never by its name: `image_format` names the format of every
@@ -190,8 +193,8 @@ def read_image(path: str, color: bool | None = False) -> np.ndarray:
                          "(cv2.imread has no decoder for it)")
     raise NotImplementedError(f"{path}: a {kind} file; the port reads JPEG, PNG, BMP, "
                               "PxM / PAM, PFM, Sun raster and TIFF (none, PackBits, LZW, "
-                              "Deflate); ROADMAP.md queues WebP, GIF, HDR, JPEG 2000 and "
-                              "AVIF")
+                              "Deflate, CCITT RLE, RLE/W, Group 3 and Group 4, JPEG); "
+                              "ROADMAP.md queues WebP, GIF, HDR, JPEG 2000 and AVIF")
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:

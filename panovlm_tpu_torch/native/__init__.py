@@ -8,7 +8,9 @@ compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`),
 the JPEG and PNG decoders, the LK flow, the SIFT detector (`sift.cpp`,
 `native/sift.py`) and the decoders of BMP, PxM / PAM / PFM, Sun raster and
 TIFF (`HostDecoder`: `bmp.cpp`, `pxm.cpp`, `sunras.cpp`, `tiff.cpp`, the
-last linked with zlib) are built the same way and have no fallback.
+last built together with `jpeg.cpp`, whose decoder its JPEG strips go
+through, and linked with zlib) are built the same way and have no
+fallback.
 """
 
 from __future__ import annotations
@@ -34,22 +36,35 @@ _lib = None
 _tried = False
 
 
-def library_path(src: Path = _SRC, flags: tuple = (), libs: tuple = ()) -> Path:
-    """Where `src` built with the extra g++ `flags` and linked with `libs`
-    lives: named by a hash of the source, the local headers it includes,
-    the flags and the libraries."""
-    text = src.read_bytes()
-    for name in re.findall(rb'#include "([^"]+)"', text):
-        text += (src.parent / name.decode()).read_bytes()
+def _sources(paths) -> list[Path]:
+    """The files and every local header they include, at any depth, each
+    once, in the order first reached."""
+    seen, todo = [], list(paths)
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [p.parent / n.decode() for n in re.findall(rb'#include "([^"]+)"', p.read_bytes())]
+    return seen
+
+
+def library_path(src: Path = _SRC, flags: tuple = (), libs: tuple = (),
+                 extra: tuple = ()) -> Path:
+    """Where `src` built together with the `extra` sources (paths), with the
+    extra g++ `flags` and linked with `libs`, lives: named by a hash of
+    every source, every local header they include, the flags and the
+    libraries."""
+    text = b"".join(p.read_bytes() for p in _sources([src, *extra]))
     h = hashlib.sha256(text + " ".join(flags + libs).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
-def compile_library(src: Path, flags: tuple = (), libs: tuple = ()) -> Path:
-    """Compile `src` (with the extra g++ `flags`, linked with `libs` such as
-    "-lz") into build/native/ unless its hash is built already. Raises
-    when the compiler fails."""
-    out = library_path(src, flags, libs)
+def compile_library(src: Path, flags: tuple = (), libs: tuple = (), extra: tuple = ()) -> Path:
+    """Compile `src` and the `extra` sources into one library (with the
+    extra g++ `flags`, linked with `libs` such as "-lz") in build/native/
+    unless its hash is built already. Raises when the compiler fails."""
+    out = library_path(src, flags, libs, extra)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -59,7 +74,8 @@ def compile_library(src: Path, flags: tuple = (), libs: tuple = ()) -> Path:
         # no FMA contraction: the LSD, the LK flow and the SIFT reproduce
         # OpenCV's float arithmetic, each fused step written out
         subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                        "-ffp-contract=off", "-pthread", *flags, str(src), *libs, "-o", tmp],
+                        "-ffp-contract=off", "-pthread", *flags, str(src), *map(str, extra),
+                        *libs, "-o", tmp],
                        check=True, capture_output=True, timeout=240)
         os.replace(tmp, out)   # atomic: a concurrent loader never sees a partial file
         return out
@@ -87,8 +103,9 @@ MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
 
 class HostDecoder:
     """One of the host decoders with cv2.imread's bits that share
-    imgcodecs.h: `<name>.cpp` beside this file, built at first use (linked
-    with `libs`), its entry points pv_<name>_info and pv_<name>_decode
+    imgcodecs.h: `<name>.cpp` beside this file, built at first use together
+    with the `sources` beside it (linked with `libs`), its entry points
+    pv_<name>_info and pv_<name>_decode
     called through ctypes (which releases the GIL). Return codes 1 and 2
     (cv2 gives no image) raise Cv2Refuses and ValueError, 3 MemoryError,
     4 (a kind of file cv2 reads and the port does not yet) a plain
@@ -96,10 +113,11 @@ class HostDecoder:
 
     ERRORS = {1: Cv2Refuses, 2: ValueError, 3: MemoryError, 4: NotImplementedError}
 
-    def __init__(self, name: str, libs: tuple = ()):
+    def __init__(self, name: str, libs: tuple = (), sources: tuple = ()):
         self.name = name
         self.libs = libs
         self.src = Path(__file__).resolve().parent / f"{name}.cpp"
+        self.extra = tuple(self.src.parent / s for s in sources)
         self._lib = None
         self._lock = threading.Lock()
 
@@ -107,7 +125,7 @@ class HostDecoder:
         """The loaded library, built on first use. Raises when g++ fails."""
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(compile_library(self.src, libs=self.libs)))
+                lib = ctypes.CDLL(str(compile_library(self.src, libs=self.libs, extra=self.extra)))
                 pint = ctypes.POINTER(ctypes.c_int)
                 info = getattr(lib, f"pv_{self.name}_info")
                 info.restype = ctypes.c_int

@@ -66,7 +66,12 @@
 //     intervals that reset the DC predictors and the EOB run, tables
 //     redefined between segments and scans, quantisation tables latched at
 //     each component's first scan, the standard Huffman tables in slots 0
-//     and 1 where a file defines none (jstdhuff.c).
+//     and 1 where a sequential Huffman-coded file defines none (jstdhuff.c;
+//     a progressive or lossless frame needs its own), a Huffman table's
+//     code checked when a scan starts with it, a segment that the data's
+//     end cuts read through the source's fake EOI bytes (a table's counts
+//     or index from them fail), a frame header or DRI of the wrong length
+//     refused.
 // The EXIF Orientation tag of the first APP1 segment is returned to the
 // caller, which applies it as cv2's imread does.
 //
@@ -78,6 +83,11 @@
 // sampling ratios in a component the read upsamples (libjpeg refuses them;
 // a gray read of YCbCr needs Y only), a height set by a DNL marker, and the
 // lossless reads listed above.
+//
+// The TIFF decoder (tiff.cpp) decodes JPEG-in-TIFF strips and tiles with
+// this decoder through pvjpeg::Session (jpeg.h): tables that persist from
+// the JPEGTables stream and from strip to strip, libtiff's colour request
+// (YCbCr to RGB, or no conversion: RAW), rows written at its stride.
 //
 // C interface (ctypes): pv_jpeg_info(data, n, color, &h, &w, &ch,
 // &orientation, err, errlen), then pv_jpeg_decode(data, n, color, out, err,
@@ -93,16 +103,17 @@
 #include <string>
 #include <vector>
 
+#include "imgcodecs.h"
+#include "jpeg.h"
+
 namespace {
 
-enum { OK = 0, REFUSED = 1, CORRUPT = 2, NOMEM = 3 };
-
-struct Error {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void fail(int code, const std::string& msg) { throw Error{code, msg}; }
+using imgc::CORRUPT;
+using imgc::Error;
+using imgc::fail;
+using imgc::NOMEM;
+using imgc::OK;
+using imgc::REFUSED;
 
 const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -115,6 +126,7 @@ constexpr int kLookBits = 9;
 
 struct Huffman {
   bool defined = false;
+  bool bad = false;                   // not a Huffman code: an error once a scan uses it
   int maxval = 0;                     // the largest symbol (a DC table's is checked per scan)
   uint8_t look_len[1 << kLookBits];   // 0: code longer than kLookBits
   uint8_t look_sym[1 << kLookBits];
@@ -123,8 +135,12 @@ struct Huffman {
   uint8_t val[256];
 };
 
-// jpeg_make_d_derived_tbl (jdhuff.c)
+// jpeg_make_d_derived_tbl (jdhuff.c), made when the table is defined; its
+// check that the counts are a Huffman code fails when a scan uses it, as
+// libjpeg derives the tables a scan uses when it starts
 void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int nvals) {
+  t.defined = true;
+  t.bad = false;
   t.maxval = 0;
   for (int i = 0; i < nvals; i++) t.maxval = vals[i] > t.maxval ? vals[i] : t.maxval;
   int size[257], code[257];
@@ -136,7 +152,10 @@ void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int n
   p = 0;
   while (size[p]) {
     while (size[p] == si) code[p++] = c++;
-    if (c >= (1 << si)) fail(CORRUPT, "bad Huffman table");
+    if (c >= (1 << si)) {
+      t.bad = true;
+      return;
+    }
     c <<= 1;
     si++;
   }
@@ -164,7 +183,6 @@ void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* vals, int n
         t.look_sym[lookbits + k] = vals[p];
       }
     }
-  t.defined = true;
 }
 
 // jstdhuff.c: the tables of T.81 Annex K.3 (code counts per length 1..16)
@@ -514,7 +532,9 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
   }
 }
 
-enum ColourSpace { GRAY, YCC, RGB, CMYK, YCCK };
+// RAW: libjpeg's null conversion of JCS_UNKNOWN, the components as coded
+// (libtiff's request for every TIFF but contiguous YCbCr)
+enum ColourSpace { GRAY, YCC, RGB, CMYK, YCCK, RAW };
 
 struct Component {
   int id, h, v, tq;
@@ -622,7 +642,7 @@ struct Decoder {
     }
   }
 
-  void read_frame(bool prog, bool arith, bool lossl) {
+  void read_frame(bool prog, bool arith, bool lossl, size_t seg_len) {
     if (!comps.empty()) fail(CORRUPT, "two frame headers");
     progressive = prog;
     arithmetic = arith;
@@ -638,6 +658,7 @@ struct Decoder {
     // libjpeg's JPEG_MAX_DIMENSION, and cv2's limit of 2^30 pixels
     if (width > 65500 || height > 65500 || (int64_t)width * height > ((int64_t)1 << 30))
       fail(CORRUPT, "image larger than libjpeg or cv2 read");
+    if (seg_len != 6 + 3 * (size_t)nc) fail(CORRUPT, "bad frame header length");
     if (nc != 1 && nc != 3 && nc != 4)
       fail(REFUSED, std::to_string(nc) + " components");
     for (int i = 0; i < nc; i++) {
@@ -703,7 +724,7 @@ struct Decoder {
         }
         return true;
       case 0xDD:
-        if (seg_len < 2) fail(CORRUPT, "bad DRI segment");
+        if (seg_len != 2) fail(CORRUPT, "bad DRI segment");
         restart_interval = (seg[0] << 8) | seg[1];
         return true;
       case 0xDC:   // DNL: libjpeg skips it
@@ -739,7 +760,7 @@ struct Decoder {
         case 0xC3:
         case 0xC9:
         case 0xCA:
-          read_frame(m == 0xC2 || m == 0xCA, m >= 0xC9, m == 0xC3);
+          read_frame(m == 0xC2 || m == 0xCA, m >= 0xC9, m == 0xC3, seg_len);
           break;
         case 0xCB:
           fail(REFUSED, "lossless arithmetic-coded JPEG (SOF11)");
@@ -772,6 +793,47 @@ struct Decoder {
           break;
       }
       pos = next;
+    }
+  }
+
+  // The data's byte i, or past its end the source's fake EOI (FF D9 FF D9
+  // ...), which libjpeg's stdio source and libtiff's memory source supply
+  uint8_t at(size_t i) const { return i < n ? data[i] : (i - n) % 2 ? 0xD9 : 0xFF; }
+
+  // A marker segment (m, its length at pos) that the data's end cuts:
+  // libjpeg reads the fake EOI into the length and the body of a table
+  // segment (its checks then fail, or the table takes those bytes) and
+  // skips an APPn or COM; EOI follows. False where the segment is whole.
+  bool cut_segment(int m) {
+    int len = at(pos) << 8 | at(pos + 1);
+    if (pos + 2 <= n && (len < 2 || pos + len <= n)) return false;
+    if (len >= 2 && (m == 0xC4 || m == 0xCC || m == 0xDB || m == 0xDD)) {
+      std::vector<uint8_t> seg((size_t)len - 2);
+      for (size_t i = 0; i < seg.size(); i++) seg[i] = at(pos + 2 + i);
+      table_segment(m, seg.data(), seg.size());
+    }
+    return true;
+  }
+
+  // jpeg_read_header(FALSE) of a table-specification stream (a TIFF's
+  // JPEGTables): true where it ends, at EOI or where the data ends (the
+  // source's fake EOI), before any frame; false where libjpeg errs or finds
+  // a frame or scan
+  bool read_tables() {
+    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return false;
+    pos = 2;
+    for (;;) {
+      int m = next_marker_or_eoi();
+      if (m == 0xD9) return true;
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      if (m != 0xC4 && m != 0xCC && m != 0xDB && m != 0xDC && m != 0xDD &&
+          !(m >= 0xE0 && m <= 0xEF) && m != 0xFE)
+        return false;
+      if (cut_segment(m)) return true;
+      int len = u16();
+      if (len < 2) return false;
+      table_segment(m, data + pos, (size_t)len - 2);
+      pos += (size_t)len - 2;
     }
   }
 
@@ -810,7 +872,7 @@ struct Decoder {
     // jdcolor.c allows no lossy colour conversion in lossless mode: cv2's
     // colour read asks for BGR (CMYK of four components), its gray read for
     // gray (CMYK of four components)
-    if (lossless && !(space == CMYK || (color ? space == RGB : space == GRAY)))
+    if (lossless && !(space == CMYK || space == RAW || (color ? space == RGB : space == GRAY)))
       fail(REFUSED, std::string("a ") + (color ? "colour" : "gray") + " read of a lossless " +
                         (space == GRAY ? "gray" : space == RGB ? "RGB" : space == YCCK ? "YCCK"
                                                                                    : "YCbCr") +
@@ -824,8 +886,10 @@ struct Decoder {
   }
 
   // jstdhuff.c: the standard tables where the file defined none by the
-  // first scan
+  // first scan, which jdhuff.c's sequential decoder installs (the
+  // progressive and lossless ones do not: a table no stream defined fails)
   void default_tables() {
+    if (progressive || arithmetic || lossless) return;
     if (!dc[0].defined) build_huffman(dc[0], kDcLumaCounts, kDcVals, 12);
     if (!dc[1].defined) build_huffman(dc[1], kDcChromaCounts, kDcVals, 12);
     if (!ac[0].defined) build_huffman(ac[0], kAcLumaCounts, kAcLumaVals, 162);
@@ -835,7 +899,12 @@ struct Decoder {
   // a DC table's symbols are bit counts: at most 15 (lossless: 16)
   void dc_table_ok(int td, int maxval) {
     if (td > 3 || !dc[td].defined) fail(CORRUPT, "undefined Huffman table");
-    if (dc[td].maxval > maxval) fail(CORRUPT, "bad DC Huffman table");
+    if (dc[td].bad || dc[td].maxval > maxval) fail(CORRUPT, "bad DC Huffman table");
+  }
+
+  void ac_table_ok(int ta) {
+    if (ta > 3 || !ac[ta].defined) fail(CORRUPT, "undefined Huffman table");
+    if (ac[ta].bad) fail(CORRUPT, "bad AC Huffman table");
   }
 
   // A byte of a scan header. Past the end of a cut file, libjpeg's stdio
@@ -887,7 +956,7 @@ struct Decoder {
       if (!arithmetic)    // (an arithmetic table slot is any of 0-15)
         for (auto* c : sc) {
           dc_table_ok(c->td, 15);
-          if (c->ta > 3 || !ac[c->ta].defined) fail(CORRUPT, "undefined Huffman table");
+          ac_table_ok(c->ta);
         }
       return;
     }
@@ -900,7 +969,7 @@ struct Decoder {
     for (auto* c : sc) {
       if (!arithmetic) {
         if (!dc_band) {
-          if (c->ta > 3 || !ac[c->ta].defined) fail(CORRUPT, "undefined Huffman table");
+          ac_table_ok(c->ta);
         } else if (Ah == 0) {
           dc_table_ok(c->td, 15);
         }
@@ -1386,9 +1455,9 @@ struct Decoder {
         if (!(m == 0xC4 || m == 0xCC || (m >= 0xDB && m <= 0xDD) || (m >= 0xE0 && m <= 0xEF) ||
               m == 0xFE))
           fail(CORRUPT, "unknown marker");   // jdmarker.c read_markers, before any length
-        if (pos + 2 > n) return false;
+        if (cut_segment(m)) return false;
         int len = u16();
-        if (len < 2 || pos + len - 2 > n) return false;   // cut: as at EOI
+        if (len < 2) return false;
         table_segment(m, data + pos, (size_t)len - 2);
         pos += (size_t)len - 2;
       }
@@ -1658,9 +1727,9 @@ Decoder header(const uint8_t* data, size_t n, bool color) {
   return d;
 }
 
-// decodes into out (h x w x ch, ch = 3 for colour, else 1)
-void decode(const uint8_t* data, size_t n, bool color, uint8_t* out) {
-  Decoder d = header(data, n, color);
+// jpeg_start_decompress: the frame's scans into the planes of its needed
+// components (the whole file for a progressive or multi-scan frame)
+void decode_planes(Decoder& d) {
   d.default_tables();
   d.read_scan_header();
   const size_t rows_per_block = d.lossless ? 1 : 8;
@@ -1701,71 +1770,154 @@ void decode(const uint8_t* data, size_t n, bool color, uint8_t* out) {
     transform(d);
     for (auto& c : d.comps) std::vector<int16_t>().swap(c.coef);
   }
-  const int h = d.height, w = d.width, nc = (int)d.comps.size();
-  const size_t lw = (size_t)w + 32;   // upsampled rows reach 2 * dw >= w
-  std::vector<uint8_t> lines(4 * lw);
+}
+
+// Output row y (jpeg_read_scanlines): the components upsampled and
+// converted for the read, w * 3 bytes for a colour read, w for a gray one
+// (RAW: w * components, the components as coded); `lines` holds 4 * lw
+// bytes of upsampling room
+void output_row(const Decoder& d, int y, bool color, uint8_t* lines, size_t lw, uint8_t* o) {
   static const YccTables t;
   static const RgbYTables ty;
+  const int w = d.width, nc = (int)d.comps.size();
   const uint8_t* r[4];
-  for (int y = 0; y < h; y++) {
-    for (int k = 0; k < nc; k++)
-      if (d.comps[k].needed)
-        r[k] = upsample_row(d.comps[k], d.hmax, d.vmax, w, y, !d.lossless,
-                            lines.data() + k * lw);
-    uint8_t* o = out + (size_t)y * w * (color ? 3 : 1);
-    switch (d.space) {
-      case GRAY:
-      case YCC:
-        if (!color) {   // JCS_GRAYSCALE: the Y plane
-          memcpy(o, r[0], (size_t)w);
-        } else if (d.space == GRAY) {   // gray_rgb_convert
-          for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = r[0][x];
-        } else {   // ycc_rgb_convert
-          for (int x = 0; x < w; x++) {
-            int yy = r[0][x], cb = r[1][x], cr = r[2][x];
-            o[3 * x] = clamp255(yy + t.cr_r[cr]);
-            o[3 * x + 1] = clamp255(yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-            o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
-          }
-        }
-        break;
-      case RGB:
+  for (int k = 0; k < nc; k++)
+    if (d.comps[k].needed)
+      r[k] = upsample_row(d.comps[k], d.hmax, d.vmax, w, y, !d.lossless, lines + k * lw);
+  switch (d.space) {
+    case GRAY:
+    case YCC:
+      if (!color) {   // JCS_GRAYSCALE: the Y plane
+        memcpy(o, r[0], (size_t)w);
+      } else if (d.space == GRAY) {   // gray_rgb_convert
+        for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = r[0][x];
+      } else {   // ycc_rgb_convert
         for (int x = 0; x < w; x++) {
-          if (color) {   // rgb_rgb_convert
-            o[3 * x] = r[0][x], o[3 * x + 1] = r[1][x], o[3 * x + 2] = r[2][x];
-          } else {       // rgb_gray_convert
-            o[x] = (uint8_t)((ty.r[r[0][x]] + ty.g[r[1][x]] + ty.b[r[2][x]]) >> 16);
-          }
+          int yy = r[0][x], cb = r[1][x], cr = r[2][x];
+          o[3 * x] = clamp255(yy + t.cr_r[cr]);
+          o[3 * x + 1] = clamp255(yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+          o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
         }
-        break;
-      case CMYK:
-      case YCCK:
-        for (int x = 0; x < w; x++) {
-          int c0 = r[0][x], c1 = r[1][x], c2 = r[2][x], k = r[3][x];
-          if (d.space == YCCK) {   // ycck_cmyk_convert
-            int yy = c0, cb = c1, cr = c2;
-            c0 = clamp255(255 - (yy + t.cr_r[cr]));
-            c1 = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
-            c2 = clamp255(255 - (yy + t.cb_b[cb]));
-          }
-          int cc = cmyk_channel(c0, k), mm = cmyk_channel(c1, k), yc = cmyk_channel(c2, k);
-          if (color) {   // icvCvt_CMYK2BGR_8u_C4C3R, in RGB order
-            o[3 * x] = (uint8_t)cc, o[3 * x + 1] = (uint8_t)mm, o[3 * x + 2] = (uint8_t)yc;
-          } else {       // icvCvt_CMYK2Gray_8u_C4C1R
-            o[x] = (uint8_t)((yc * 1868 + mm * 9617 + cc * 4899 + (1 << 13)) >> 14);
-          }
+      }
+      break;
+    case RGB:
+      for (int x = 0; x < w; x++) {
+        if (color) {   // rgb_rgb_convert
+          o[3 * x] = r[0][x], o[3 * x + 1] = r[1][x], o[3 * x + 2] = r[2][x];
+        } else {       // rgb_gray_convert
+          o[x] = (uint8_t)((ty.r[r[0][x]] + ty.g[r[1][x]] + ty.b[r[2][x]]) >> 16);
         }
-        break;
-    }
+      }
+      break;
+    case CMYK:
+    case YCCK:
+      for (int x = 0; x < w; x++) {
+        int c0 = r[0][x], c1 = r[1][x], c2 = r[2][x], k = r[3][x];
+        if (d.space == YCCK) {   // ycck_cmyk_convert
+          int yy = c0, cb = c1, cr = c2;
+          c0 = clamp255(255 - (yy + t.cr_r[cr]));
+          c1 = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          c2 = clamp255(255 - (yy + t.cb_b[cb]));
+        }
+        int cc = cmyk_channel(c0, k), mm = cmyk_channel(c1, k), yc = cmyk_channel(c2, k);
+        if (color) {   // icvCvt_CMYK2BGR_8u_C4C3R, in RGB order
+          o[3 * x] = (uint8_t)cc, o[3 * x + 1] = (uint8_t)mm, o[3 * x + 2] = (uint8_t)yc;
+        } else {       // icvCvt_CMYK2Gray_8u_C4C1R
+          o[x] = (uint8_t)((yc * 1868 + mm * 9617 + cc * 4899 + (1 << 13)) >> 14);
+        }
+      }
+      break;
+    case RAW:   // null_convert
+      for (int x = 0; x < w; x++)
+        for (int k = 0; k < nc; k++) o[x * nc + k] = r[k][x];
+      break;
   }
 }
 
-int report(const Error& e, char* err, int errlen) {
-  snprintf(err, (size_t)errlen, "%s", e.msg.c_str());
-  return e.code;
+// decodes into out (h x w x ch, ch = 3 for colour, else 1)
+void decode(const uint8_t* data, size_t n, bool color, uint8_t* out) {
+  Decoder d = header(data, n, color);
+  decode_planes(d);
+  const size_t lw = (size_t)d.width + 32;   // upsampled rows reach 2 * dw >= w
+  std::vector<uint8_t> lines(4 * lw);
+  for (int y = 0; y < d.height; y++)
+    output_row(d, y, color, lines.data(), lw, out + (size_t)y * d.width * (color ? 3 : 1));
 }
 
 }  // namespace
+
+namespace pvjpeg {
+
+namespace {
+
+// the slots a stream's DQT and DHT segments fill, which libjpeg keeps in
+// the decompressor from one stream to the next
+void copy_tables(const Decoder& from, Decoder& to) {
+  memcpy(to.qt, from.qt, sizeof to.qt);
+  memcpy(to.qt_defined, from.qt_defined, sizeof to.qt_defined);
+  for (int k = 0; k < 4; k++) {
+    to.dc[k] = from.dc[k];
+    to.ac[k] = from.ac[k];
+  }
+}
+
+}  // namespace
+
+struct Session::State {
+  Decoder tables{nullptr, 0};
+  std::unique_ptr<Decoder> d;   // the strip or tile being read
+};
+
+Session::Session() : s_(new State) {}
+Session::~Session() = default;
+
+bool Session::tables(const uint8_t* data, size_t n) {
+  Decoder t(data, n);
+  try {
+    if (!t.read_tables()) return false;
+  } catch (const Error& e) {
+    if (e.code == NOMEM) throw;
+    return false;
+  }
+  copy_tables(t, s_->tables);
+  return true;
+}
+
+Frame Session::header(const uint8_t* data, size_t n) {
+  s_->d.reset(new Decoder(data, n));
+  Decoder& d = *s_->d;
+  copy_tables(s_->tables, d);
+  d.read_segments();
+  Frame f;
+  f.width = d.width;
+  f.height = d.height;
+  f.components = (int)d.comps.size();
+  f.precision = d.precision;
+  for (int k = 0; k < f.components && k < 4; k++) {
+    f.h[k] = d.comps[k].h;
+    f.v[k] = d.comps[k].v;
+  }
+  return f;
+}
+
+void Session::start(bool ycc) {
+  Decoder& d = *s_->d;
+  if (ycc && d.comps.size() != 3) fail(CORRUPT, "YCbCr of other than 3 components");
+  d.space = ycc ? YCC : RAW;
+  d.layout(true);
+  decode_planes(d);
+  copy_tables(d, s_->tables);
+}
+
+void Session::rows(uint8_t* out, size_t stride, int rows) {
+  const Decoder& d = *s_->d;
+  const size_t lw = (size_t)d.width + 32;
+  std::vector<uint8_t> lines(4 * lw);
+  for (int y = 0; y < rows; y++)
+    output_row(d, y, true, lines.data(), lw, out + (size_t)y * stride);
+}
+
+}  // namespace pvjpeg
 
 extern "C" {
 
@@ -1773,30 +1925,18 @@ extern "C" {
 // else 1) and the EXIF orientation (0 when absent).
 int pv_jpeg_info(const uint8_t* data, long n, int color, int* h, int* w, int* ch,
                  int* orientation, char* err, int errlen) {
-  try {
+  return imgc::guarded([&] {
     Decoder d = header(data, (size_t)n, color != 0);
     *h = d.height;
     *w = d.width;
     *ch = color ? 3 : 1;
     *orientation = d.orientation;
-    return OK;
-  } catch (const Error& e) {
-    return report(e, err, errlen);
-  } catch (const std::bad_alloc&) {
-    return report(Error{NOMEM, "out of memory"}, err, errlen);
-  }
+  }, err, errlen);
 }
 
 // Decodes into out, which holds the h * w * ch bytes that pv_jpeg_info gave.
 int pv_jpeg_decode(const uint8_t* data, long n, int color, uint8_t* out, char* err, int errlen) {
-  try {
-    decode(data, (size_t)n, color != 0, out);
-    return OK;
-  } catch (const Error& e) {
-    return report(e, err, errlen);
-  } catch (const std::bad_alloc&) {
-    return report(Error{NOMEM, "out of memory"}, err, errlen);
-  }
+  return imgc::guarded([&] { decode(data, (size_t)n, color != 0, out); }, err, errlen);
 }
 
 }  // extern "C"

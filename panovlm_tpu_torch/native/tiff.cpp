@@ -14,13 +14,47 @@
 //     Deflate (8 and 32946, through zlib's inflate as tif_zip.c calls
 //     it), with horizontal differencing (Predictor 2) for 8 to 64-bit
 //     samples; a compression number libtiff has no codec for decodes to
-//     zeros. A strip that fails to decode keeps what was decoded before
-//     the error (zeros after it; an LZW or PackBits strip that runs short
-//     is zero-filled, a failed differencing step is skipped), as
+//     zeros;
+//   * the CCITT codecs (tif_fax3.c, tif_fax3.h): RLE (2, rows byte-
+//     aligned), RLE/W (32771, rows word-aligned as libtiff aligns them: by
+//     the file offset it reads at, and not at all after a row whose bit
+//     accumulator holds 16 bits or more), Group 3 (3: an EOL before each
+//     row; T4Options' 2-D bit, a tag bit after each EOL; its fill-bit and
+//     uncompressed-mode bits change nothing in the decoder) and Group 4 (4:
+//     2-D against a white first reference row, EOFB ending the strip), the
+//     code tables built from T.4's code lists as libtiff's mkg3states builds
+//     its own, bits read LSB or MSB first by FillOrder. The decoders'
+//     recovery as libtiff runs it: a bad code ends the row, CLEANUP_RUNS
+//     evens a row's runs out to its width, the data's end fills the row
+//     being decoded and leaves the later ones 0, a run array overflow
+//     stops without filling it; a Group 3 strip whose data ends within an
+//     EOL is read again from its start without EOLs, and so are the later
+//     strips ("Try to decode (read) fax Group 3 data without EOL"). A fax
+//     file without PhotometricInterpretation gives no image (OpenCV's
+//     header check); BadFaxLines and CleanFaxData change nothing;
+//   * JPEG (7, tif_jpeg.c) through jpeg.cpp's decoder (jpeg.h), one
+//     decompressor per image: the JPEGTables stream read as a
+//     table-specification stream first, each strip or tile an abbreviated
+//     stream whose tables replace the slots they define for it and the
+//     strips after it; JPEGPreDecode's checks (the frame no wider or
+//     taller than its strip or tile, but for a taller last strip, its
+//     component count, precision and sampling factors against the file's)
+//     and libjpeg's errors before the first row give no image; YCbCr in
+//     one plane read as RGB from libjpeg (JPEGCOLORMODE_RGB: its fancy
+//     upsampling and YCbCr conversion, libtiff's YCbCr tables unused, the
+//     strip sizes those of RGB), every other photometric without a colour
+//     conversion; a missing YCbCrSubsampling taken from the first strip's
+//     SOF (JPEGFixupTagsSubsampling); FillOrder ignored. libtiff leaves
+//     libjpeg's defaults as cv2's JPEG read leaves them (islow IDCT, fancy
+//     upsampling), and its memory source ends a cut stream in a fake EOI
+//     as the stdio source does;
+//   * a strip that fails to decode keeps what was decoded before the
+//     error (zeros after it; an LZW or PackBits strip that runs short is
+//     zero-filled, a failed differencing step is skipped), as
 //     TIFFReadRGBA* with stop_on_error 0 does; a strip or tile that cannot
 //     be read at all (out of the file, a byte count of 0, an uncompressed
-//     tile of the wrong size, a predictor the codec refuses) gives no
-//     image;
+//     tile of the wrong size, a predictor the codec refuses, a JPEG stream
+//     JPEGPreDecode refuses) gives no image;
 //   * tif_getimage.c's conversions to RGBA: MinIsWhite / MinIsBlack at 1,
 //     2, 4, 8 and 16 bits (16 bits through the high byte), palettes at 1,
 //     2, 4 and 8 bits (a colormap whose entries are all below 256 read as
@@ -32,7 +66,8 @@
 //     extra samples ignored; the put routines' pointer arithmetic is
 //     replayed as written, its quirks on clipped edge tiles too;
 //   * OpenCV's steps: readHeader's bit-depth and sample-format checks,
-//     readData's tile-size asserts, the rows of each RGBA raster copied
+//     readData's tile-size asserts (the RGBA buffer of a strip or tile
+//     under 1 GB too), the rows of each RGBA raster copied
 //     bottom-up (icvCvt_BGRA2BGR, icvCvt_BGRA2Gray with the BGR weights of
 //     imgcodecs.h), bands placed mirrored for orientations 3, 4, 7 and 8,
 //     and orientations 5 to 8 transposed afterwards, which cv2.imread can
@@ -40,11 +75,11 @@
 // What cv2 gives no image for is refused (REFUSED): the codecs its libtiff
 // is built without (old JPEG, JBIG, PixarLog, LERC, LZMA, ZSTD, WebP),
 // float and 32-bit samples, broken IFDs, files cut before their data, NeXT
-// (its 2-bit samples fail OpenCV's header check). The codecs cv2 reads that
-// this file does not (CCITT 2, 3, 4 and 32771, JPEG 7, ThunderScan,
-// SGILog) return QUEUED (4), after the checks that make cv2 give no image
-// for them (the first strip unreadable, a bit depth their setup refuses,
-// a JPEG strip without its SOI marker).
+// (its 2-bit samples fail OpenCV's header check), CCITT coding of other
+// than one sample of 1 bit a pixel. The codecs cv2 reads that this file
+// does not (ThunderScan, SGILog) return QUEUED (4), after the checks that
+// make cv2 give no image for them (the first strip unreadable, a bit depth
+// or photometric their setup refuses).
 //
 // C interface (ctypes): pv_tiff_info(data, n, color, &h, &w, err, errlen)
 // reads the directory as cv2's readHeader does; pv_tiff_decode(data, n,
@@ -59,6 +94,7 @@
 #include <vector>
 
 #include "imgcodecs.h"
+#include "jpeg.h"
 
 namespace {
 
@@ -92,7 +128,8 @@ enum : uint16_t {
   TAG_COLORMAP = 320, TAG_TILEWIDTH = 322, TAG_TILELENGTH = 323, TAG_TILEOFFSETS = 324,
   TAG_TILEBYTECOUNTS = 325, TAG_INKSET = 332, TAG_EXTRASAMPLES = 338, TAG_SAMPLEFORMAT = 339,
   TAG_SMINSAMPLE = 340, TAG_SMAXSAMPLE = 341, TAG_YCBCRCOEF = 529, TAG_YCBCRSUB = 530,
-  TAG_REFBW = 532, TAG_WHITEPOINT = 318, TAG_DATATYPE = 32996, TAG_IMAGEDEPTH = 32997, TAG_TILEDEPTH = 32998
+  TAG_REFBW = 532, TAG_WHITEPOINT = 318, TAG_DATATYPE = 32996, TAG_IMAGEDEPTH = 32997, TAG_TILEDEPTH = 32998,
+  TAG_T4OPTIONS = 292, TAG_T6OPTIONS = 293, TAG_JPEGTABLES = 347
 };
 
 // compression schemes
@@ -122,20 +159,18 @@ bool codec_configured(uint16_t c) {
 
 bool codec_queued(uint16_t c) {
   switch (c) {
-    case C_CCITTRLE: case C_CCITTRLEW: case C_FAX3: case C_FAX4: case C_JPEG: case C_THUNDER:
-    case C_NEXT: case C_SGILOG: case C_SGILOG24:
+    case C_THUNDER: case C_NEXT: case C_SGILOG: case C_SGILOG24:
       return true;
   }
   return false;
 }
 
+bool codec_fax(uint16_t c) {
+  return c == C_CCITTRLE || c == C_CCITTRLEW || c == C_FAX3 || c == C_FAX4;
+}
+
 const char* codec_name(uint16_t c) {
   switch (c) {
-    case C_CCITTRLE: return "CCITT RLE (2)";
-    case C_CCITTRLEW: return "CCITT RLE/W (32771)";
-    case C_FAX3: return "CCITT Group 3 (3)";
-    case C_FAX4: return "CCITT Group 4 (4)";
-    case C_JPEG: return "JPEG (7)";
     case C_THUNDER: return "ThunderScan (32809)";
     case C_NEXT: return "NeXT (32766)";
     case C_SGILOG: return "SGILog (34676)";
@@ -366,6 +401,10 @@ struct Dir {
   float whitepoint[2] = {96.4250f / (96.4250f + 100.0f + 82.4680f),
                          100.0f / (96.4250f + 100.0f + 82.4680f)};
   bool has_refbw = false;
+  bool has_ycbcrsub = false;     // set from the file (JPEGFixupTags reads it from the data if not)
+  bool upsampled = false;        // JPEG's YCbCr to RGB conversion (TIFF_UPSAMPLED)
+  uint32_t faxopts = 0;          // T4Options or T6Options
+  std::vector<uint8_t> jpegtables;
   uint32_t nstrips = 0, stripsperimage = 0;
   Entry offsets_entry{}, counts_entry{};
   std::vector<uint64_t> offsets, counts;
@@ -387,7 +426,11 @@ inline uint32_t mul32(uint32_t a, uint32_t b) {
   return a * b;
 }
 
-bool ycbcr_packed(const Dir& d) { return d.planar == 1 && d.photometric == P_YCBCR; }
+// YCbCr data units (libtiff's sizes of subsampled data), unless libjpeg
+// converts the data to RGB
+bool ycbcr_packed(const Dir& d) {
+  return d.planar == 1 && d.photometric == P_YCBCR && !d.upsampled;
+}
 
 bool sub_ok(uint16_t s) { return s == 1 || s == 2 || s == 4; }
 
@@ -395,7 +438,7 @@ bool sub_ok(uint16_t s) { return s == 1 || s == 2 || s == 4; }
 uint64_t scanline_size(const Dir& d) {
   uint64_t size;
   if (d.planar == 1) {
-    if (d.photometric == P_YCBCR && d.spp == 3) {
+    if (ycbcr_packed(d) && d.spp == 3) {
       if (!sub_ok(d.ycbcrsub[0]) || !sub_ok(d.ycbcrsub[1])) return 0;
       uint64_t block = (uint64_t)d.ycbcrsub[0] * d.ycbcrsub[1] + 2;
       uint64_t hor = howmany32(d.width, d.ycbcrsub[0]);
@@ -443,7 +486,7 @@ uint64_t tile_row_size(const Dir& d) {
 // TIFFVTileSize64
 uint64_t vtile_size(const Dir& d, uint32_t nrows) {
   if (d.tilelength == 0 || d.tilewidth == 0 || d.tiledepth == 0) return 0;
-  if (d.planar == 1 && d.photometric == P_YCBCR && d.spp == 3) {
+  if (ycbcr_packed(d) && d.spp == 3) {
     if (!sub_ok(d.ycbcrsub[0]) || !sub_ok(d.ycbcrsub[1])) return 0;
     uint64_t block = (uint64_t)d.ycbcrsub[0] * d.ycbcrsub[1] + 2;
     uint64_t hor = howmany32(d.tilewidth, d.ycbcrsub[0]);
@@ -582,7 +625,28 @@ bool fetch_normal(const File& f, Dir& d, const Entry& e) {
       if (read_uints(f, e, 16, UINT64_MAX, vals) != E_OK || vals.size() != 2) return false;
       d.ycbcrsub[0] = (uint16_t)vals[0];
       d.ycbcrsub[1] = (uint16_t)vals[1];
+      d.has_ycbcrsub = true;
       return true;
+    }
+    case TAG_T4OPTIONS: case TAG_T6OPTIONS:   // codec tags: Group 3's or Group 4's
+      if (d.compression != (e.tag == TAG_T4OPTIONS ? C_FAX3 : C_FAX4)) return true;
+      if (read_uint(f, e, 32, v) != E_OK) return false;
+      d.faxopts = (uint32_t)v;
+      return true;
+    case TAG_JPEGTABLES: {   // TIFFReadDirEntryByteArray; a count of 0 sets nothing
+      if (d.compression != C_JPEG || e.count == 0 || e.count > 0xFFFFFFFFu) return true;
+      std::vector<uint64_t> vals;
+      switch (e.type) {
+        case T_BYTE: case T_ASCII: case T_UNDEFINED: {
+          uint32_t count;
+          if (entry_bytes(f, e, UINT64_MAX, d.jpegtables, count) != E_OK) d.jpegtables.clear();
+          return true;
+        }
+        default:
+          if (read_uints(f, e, 8, UINT64_MAX, vals) != E_OK) return false;
+          d.jpegtables.assign(vals.begin(), vals.end());
+          return true;
+      }
     }
     case TAG_YCBCRCOEF: case TAG_REFBW: case TAG_WHITEPOINT: {
       uint64_t want = e.tag == TAG_REFBW ? 6 : e.tag == TAG_WHITEPOINT ? 2 : 3;
@@ -596,6 +660,86 @@ bool fetch_normal(const File& f, Dir& d, const Entry& e) {
     }
   }
   return true;
+}
+
+// JPEGFixupTagsSubsampling: a YCbCr JPEG file without YCbCrSubsampling
+// takes its sampling factors from the first SOF marker of the first strip
+// or tile (its byte count read through a 2 KiB buffer, a read past the
+// file's end ending the search), where the others are 1 x 1 and both are
+// 1, 2 or 4
+void jpeg_fixup_subsampling(const File& f, Dir& d) {
+  uint64_t off = d.offsets[0], left = d.counts[0];
+  if (off == 0) return;
+  std::vector<uint8_t> buf;
+  uint64_t at = 0;   // into buf
+  auto byte = [&](uint8_t& b) {
+    if (at == buf.size()) {
+      if (left == 0) return false;
+      uint64_t m = std::min<uint64_t>(2048, left);
+      if (!f.in(off, m)) return false;
+      buf.assign(f.d + off, f.d + off + m);
+      at = 0;
+      off += m;
+      left -= m;
+    }
+    b = buf[at++];
+    return true;
+  };
+  auto word = [&](uint16_t& w) {
+    uint8_t a, b;
+    if (!byte(a) || !byte(b)) return false;
+    w = (uint16_t)(a << 8 | b);
+    return true;
+  };
+  auto skip = [&](uint64_t n) {
+    if (n <= buf.size() - at) {
+      at += n;
+      return;
+    }
+    uint64_t m = n - (buf.size() - at);
+    at = buf.size();
+    if (m <= left) {
+      off += m;
+      left -= m;
+    } else {
+      left = 0;
+    }
+  };
+  for (;;) {
+    uint8_t m;
+    do {
+      if (!byte(m)) return;
+    } while (m != 0xFF);
+    do {
+      if (!byte(m)) return;
+    } while (m == 0xFF);
+    if (m == 0xD8) continue;
+    if (m == 0xFE || (m >= 0xE0 && m <= 0xEF) || m == 0xDB || m == 0xDA || m == 0xC4 ||
+        m == 0xDD) {
+      uint16_t n;
+      if (!word(n) || n < 2) return;
+      skip((uint16_t)(n - 2));
+      continue;
+    }
+    if (!(m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA)) return;
+    uint16_t n;
+    uint8_t p;
+    if (!word(n) || n != 8 + d.spp * 3) return;
+    skip(7);
+    if (!byte(p)) return;
+    uint8_t ph = p >> 4, pv = p & 15;
+    skip(1);
+    for (int o = 1; o < d.spp; o++) {
+      skip(1);
+      if (!byte(p)) return;
+      if (p != 0x11) return;
+      skip(1);
+    }
+    if (!sub_ok(ph) || !sub_ok(pv)) return;
+    d.ycbcrsub[0] = ph;
+    d.ycbcrsub[1] = pv;
+    return;
+  }
 }
 
 // TIFFFetchDirectory and TIFFReadDirectory of the first IFD
@@ -881,6 +1025,9 @@ Dir read_directory(const File& f0, File& f) {
              d.counts[0] != d.counts[1] && d.counts[0] != 0 && d.counts[1] != 0) {
     estimate();
   }
+  if (d.compression == C_JPEG && d.photometric == P_YCBCR && d.planar == 1 && d.spp == 3 &&
+      !d.has_ycbcrsub)
+    jpeg_fixup_subsampling(f, d);
   if (scanline_size(d) == 0 || scanline_size(d) > (uint64_t)INT64_MAX) bad("zero scanline size");
   if (d.tiled) {
     if (tile_size(d) == 0) bad("zero tile size");
@@ -1190,6 +1337,518 @@ int zip_decode(const uint8_t* src, int64_t cc, uint8_t* op, int64_t occ) {
 }
 
 // ----------------------------------------------------------------------------
+// CCITT fax coding (tif_fax3.c, tif_fax3.h)
+// ----------------------------------------------------------------------------
+
+// the decoder's states: a code word's meaning
+enum : uint8_t {
+  S_NULL, S_PASS, S_HORIZ, S_V0, S_VR, S_VL, S_EXT, S_TERMW, S_TERMB, S_MAKEUPW, S_MAKEUPB,
+  S_MAKEUP, S_EOL
+};
+
+struct FaxEnt {
+  uint8_t state = S_NULL, width = 0;   // S_NULL, width 0: not a code word
+  uint32_t param = 0;                  // run length, or a vertical mode's offset
+};
+
+// T.4's code words (MSB first, as written in the recommendation)
+const char* const kWhiteTerm[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111", "10011", "10100",
+    "00111", "01000", "001000", "000011", "110100", "110101", "101010", "101011", "0100111",
+    "0001100", "0001000", "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011", "00010010",
+    "00010011", "00010100", "00010101", "00010110", "00010111", "00101000", "00101001",
+    "00101010", "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
+    "00001011", "01010010", "01010011", "01010100", "01010101", "00100100", "00100101",
+    "01011000", "01011001", "01011010", "01011011", "01001010", "01001011", "00110010",
+    "00110011", "00110100"};
+const char* const kBlackTerm[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101", "000100",
+    "0000100", "0000101", "0000111", "00000100", "00000111", "000011000", "0000010111",
+    "0000011000", "0000001000", "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010", "000011001011",
+    "000011001100", "000011001101", "000001101000", "000001101001", "000001101010",
+    "000001101011", "000011010010", "000011010011", "000011010100", "000011010101",
+    "000011010110", "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110", "000001010111",
+    "000001100100", "000001100101", "000001010010", "000001010011", "000000100100",
+    "000000110111", "000000111000", "000000100111", "000000101000", "000001011000",
+    "000001011001", "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+// make-up codes of 64, 128, ..., 1728
+const char* const kWhiteMakeUp[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100", "01100101",
+    "01101000", "01100111", "011001100", "011001101", "011010010", "011010011", "011010100",
+    "011010101", "011010110", "011010111", "011011000", "011011001", "011011010", "011011011",
+    "010011000", "010011001", "010011010", "011000", "010011011"};
+const char* const kBlackMakeUp[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
+    "000000110100", "000000110101", "0000001101100", "0000001101101", "0000001001010",
+    "0000001001011", "0000001001100", "0000001001101", "0000001110010", "0000001110011",
+    "0000001110100", "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010", "0000001011011",
+    "0000001100100", "0000001100101"};
+// the make-up codes of 1792, 1856, ..., 2560 that both colours share
+const char* const kMakeUp[13] = {
+    "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
+    "000000010100", "000000010101", "000000010110", "000000010111", "000000011100",
+    "000000011101", "000000011110", "000000011111"};
+
+// The decoder's lookup tables (those of libtiff's mkg3states), indexed by
+// the next `bits` bits of the data, the first bit the lowest: each code
+// word fills every entry whose low bits it is, later lists over earlier
+// ones (only the EOL, 7 or 11 zero bits, overlaps another code)
+struct FaxTables {
+  FaxEnt main[128], white[4096], black[8192];
+  static void fill(FaxEnt* t, int bits, const char* code, uint8_t state, uint32_t param) {
+    int len = (int)std::strlen(code), lsb = 0;
+    for (int i = 0; i < len; i++) lsb |= (code[i] - '0') << i;
+    for (int i = lsb; i < 1 << bits; i += 1 << len) t[i] = {state, (uint8_t)len, param};
+  }
+  FaxTables() {
+    fill(main, 7, "0001", S_PASS, 0);
+    fill(main, 7, "001", S_HORIZ, 0);
+    fill(main, 7, "1", S_V0, 0);
+    fill(main, 7, "011", S_VR, 1);
+    fill(main, 7, "000011", S_VR, 2);
+    fill(main, 7, "0000011", S_VR, 3);
+    fill(main, 7, "010", S_VL, 1);
+    fill(main, 7, "000010", S_VL, 2);
+    fill(main, 7, "0000010", S_VL, 3);
+    fill(main, 7, "0000001", S_EXT, 0);
+    fill(main, 7, "0000000", S_EOL, 0);
+    for (int k = 0; k < 27; k++) fill(white, 12, kWhiteMakeUp[k], S_MAKEUPW, 64 * (k + 1));
+    for (int k = 0; k < 13; k++) fill(white, 12, kMakeUp[k], S_MAKEUP, 1792 + 64 * k);
+    for (int k = 0; k < 64; k++) fill(white, 12, kWhiteTerm[k], S_TERMW, k);
+    fill(white, 12, "00000000000", S_EOL, 0);
+    for (int k = 0; k < 27; k++) fill(black, 13, kBlackMakeUp[k], S_MAKEUPB, 64 * (k + 1));
+    for (int k = 0; k < 13; k++) fill(black, 13, kMakeUp[k], S_MAKEUP, 1792 + 64 * k);
+    for (int k = 0; k < 64; k++) fill(black, 13, kBlackTerm[k], S_TERMB, k);
+    fill(black, 13, "00000000000", S_EOL, 0);
+  }
+};
+
+const FaxTables& fax_tables() {
+  static const FaxTables t;
+  return t;
+}
+
+// each byte as it is (FillOrder 1) and with its bits reversed (FillOrder 2)
+struct BitOrder {
+  uint8_t identity[256], reversed[256];
+  BitOrder() {
+    for (int i = 0; i < 256; i++) {
+      identity[i] = (uint8_t)i;
+      reversed[i] = (uint8_t)((i * 0x0202020202ULL & 0x010884422010ULL) % 1023);
+    }
+  }
+};
+
+const BitOrder& bit_order() {
+  static const BitOrder t;
+  return t;
+}
+
+// One image's fax decoder (Fax3SetupState, Fax3PreDecode and the four
+// decoders), replayed with the macros' arithmetic and error recovery: a
+// bad code word ends the row (the rest of it white), a row whose runs do
+// not add up to its width has its last runs cut or a white run added
+// (CLEANUP_RUNS), the data's end fills the row being decoded and ends the
+// strip (its later rows stay 0), a run array overflow ("Buffer overflow at
+// line", SETVALUE's and EXPAND2D's bound, thrown as Overflow) ends it
+// without filling the row. The run arrays persist from strip to strip, so that
+// what a corrupt row reads past its reference line's runs is libtiff's.
+struct Fax {
+  enum Mode { RLE, RLEW, G3_1D, G3_2D, G4 };
+  Mode mode;
+  int32_t lastx = 0;         // rowpixels
+  int64_t rowbytes = 0;
+  uint32_t nruns = 0;
+  bool refline = false;
+  std::vector<uint32_t> runs;
+  uint32_t *curruns = nullptr, *refruns = nullptr;
+  // the decoding state (DECLARE_STATE_2D)
+  const FaxTables& T = fax_tables();
+  const uint8_t* bitmap = nullptr;
+  const uint8_t *cp = nullptr, *ep = nullptr, *base = nullptr;   // base: the file's first byte
+  uint32_t acc = 0;
+  int avail = 0, eolcnt = 0;
+  int32_t a0 = 0, run_length = 0, b1 = 0;
+  uint32_t *pa = nullptr, *thisrun = nullptr, *pb = nullptr;
+  const FaxEnt* ent = nullptr;
+  bool noeol = false;   // FAXMODE_NOEOL: set by a retry, kept for the later strips
+  struct Overflow {};   // the decoder's `return -1` past the run array's end
+
+  // Fax3SetupState: false where libtiff's setup fails
+  bool setup(Mode m, uint32_t rowpixels, int64_t row_bytes) {
+    mode = m;
+    if (row_bytes < ((int64_t)rowpixels + 7) / 8) return false;
+    lastx = (int32_t)rowpixels;
+    rowbytes = row_bytes;
+    refline = m == G3_2D || m == G4;
+    uint32_t n = howmany32(rowpixels + 1, 32) * 32;   // TIFFroundup_32(rowpixels + 1, 32)
+    if (refline) n = mul32(n, 2);
+    if (n == 0 || mul32(n, 2) == 0) return false;
+    nruns = n;
+    // libtiff's 2 * nruns, and the 0 that fill_row pads a full array with
+    runs.assign((size_t)2 * n + 1, 0);
+    return true;
+  }
+
+  // ---- the bit reader (NeedBits8 / NeedBits16 / GetBits / ClrBits): past
+  //      the data's end a partial code is padded with zero bits; false
+  //      where no bit is left
+  bool need8(int n) {
+    if (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = n;
+      } else {
+        acc |= (uint32_t)bitmap[*cp++] << avail;
+        avail += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int n) {
+    if (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = n;
+      } else {
+        acc |= (uint32_t)bitmap[*cp++] << avail;
+        if ((avail += 8) < n) {
+          if (cp >= ep) {
+            avail = n;
+          } else {
+            acc |= (uint32_t)bitmap[*cp++] << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t get(int n) const { return acc & ((1u << n) - 1); }
+  void clr(int n) {
+    avail -= n;
+    acc >>= n;
+  }
+  bool lookup8(int wid, const FaxEnt* tab) {
+    if (!need8(wid)) return false;
+    ent = tab + get(wid);
+    clr(ent->width);
+    return true;
+  }
+  bool lookup16(int wid, const FaxEnt* tab) {
+    if (!need16(wid)) return false;
+    ent = tab + get(wid);
+    clr(ent->width);
+    return true;
+  }
+
+  // a run read from the array (a corrupt reference line can step before it)
+  uint32_t at(const uint32_t* p) const { return p >= runs.data() ? *p : 0u; }
+  // SETVALUE
+  void setvalue(uint32_t x) {
+    if (pa >= thisrun + nruns) throw Overflow{};
+    *pa++ = (uint32_t)run_length + x;
+    a0 = (int32_t)((uint32_t)a0 + x);
+    run_length = 0;
+  }
+  // CLEANUP_RUNS
+  void cleanup() {
+    if (run_length) setvalue(0);
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > thisrun) a0 = (int32_t)((uint32_t)a0 - *--pa);
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if ((pa - thisrun) & 1) setvalue(0);
+        setvalue((uint32_t)(lastx - a0));
+      } else if (a0 > lastx) {
+        setvalue((uint32_t)lastx);
+        setvalue(0);
+      }
+    }
+  }
+  enum { DONE, AT_EOF, BAD, RETRY };
+
+  // SYNC_EOL: on past the next EOL (DONE); AT_EOF where the data ends
+  // before 11 zero bits, RETRY where it ends within the zeros that should
+  // end in the EOL's 1 (libtiff then reads the data as Group 3 without
+  // EOLs)
+  int sync_eol() {
+    if (eolcnt == 0)
+      for (;;) {
+        if (!need16(11)) return AT_EOF;
+        if (get(11) == 0) break;
+        clr(1);
+      }
+    for (;;) {
+      if (!need8(8)) return RETRY;
+      if (get(8)) break;
+      clr(8);
+    }
+    while (get(1) == 0) clr(1);
+    clr(1);
+    eolcnt = 0;
+    return DONE;
+  }
+
+  // one colour's run: make-up codes, then a terminating one; DONE, AT_EOF
+  // or BAD (not a code word of the colour: the caller's `unexpected`)
+  int run(bool black) {
+    for (;;) {
+      if (!(black ? lookup16(13, T.black) : lookup16(12, T.white))) return AT_EOF;
+      uint8_t st = ent->state;
+      if (st == (black ? S_TERMB : S_TERMW)) {
+        setvalue(ent->param);
+        return DONE;
+      }
+      if (st == (black ? S_MAKEUPB : S_MAKEUPW) || st == S_MAKEUP) {
+        a0 = (int32_t)((uint32_t)a0 + ent->param);
+        run_length = (int32_t)((uint32_t)run_length + ent->param);
+        continue;
+      }
+      return BAD;
+    }
+  }
+
+  // EXPAND1D: DONE or AT_EOF, the row cleaned up either way
+  int expand1d() {
+    for (;;) {
+      for (int colour = 0; colour < 2; colour++) {
+        for (;;) {
+          if (!(colour ? lookup16(13, T.black) : lookup16(12, T.white))) {
+            cleanup();
+            return AT_EOF;
+          }
+          uint8_t st = ent->state;
+          if (st == S_EOL) {
+            eolcnt = 1;
+            cleanup();
+            return DONE;
+          }
+          if (st == (colour ? S_TERMB : S_TERMW)) {
+            setvalue(ent->param);
+            break;
+          }
+          if (st == (colour ? S_MAKEUPB : S_MAKEUPW) || st == S_MAKEUP) {
+            a0 = (int32_t)((uint32_t)a0 + ent->param);
+            run_length = (int32_t)((uint32_t)run_length + ent->param);
+            continue;
+          }
+          cleanup();   // unexpected
+          return DONE;
+        }
+        if (a0 >= lastx) {
+          cleanup();
+          return DONE;
+        }
+      }
+      if (pa[-1] == 0 && pa[-2] == 0) pa -= 2;
+    }
+  }
+
+  // CHECK_b1: b1 on to the reference line's next change past a0 of the
+  // colour to come
+  void check_b1() {
+    if (pa != thisrun)
+      while (b1 <= a0 && b1 < lastx) {
+        if (pb + 1 >= refruns + nruns) throw Overflow{};
+        b1 = (int32_t)((uint32_t)b1 + at(pb) + at(pb + 1));
+        pb += 2;
+      }
+  }
+
+  // EXPAND2D: DONE or AT_EOF, the row cleaned up either way
+  int expand2d() {
+    while (a0 < lastx) {
+      if (pa >= thisrun + nruns) throw Overflow{};
+      if (!lookup8(7, T.main)) goto eof;
+      switch (ent->state) {
+        case S_PASS:
+          check_b1();
+          if (pb + 1 >= refruns + nruns) throw Overflow{};
+          b1 = (int32_t)((uint32_t)b1 + at(pb++));
+          run_length += b1 - a0;
+          a0 = b1;
+          b1 = (int32_t)((uint32_t)b1 + at(pb++));
+          break;
+        case S_HORIZ: {
+          bool black_first = (pa - thisrun) & 1;
+          for (int k = 0; k < 2; k++) {
+            int r = run(black_first != (k == 1));
+            if (r == AT_EOF) goto eof;
+            if (r != DONE) goto eol;   // a bad code
+          }
+          check_b1();
+          break;
+        }
+        case S_V0: case S_VR:
+          check_b1();
+          setvalue((uint32_t)(b1 - a0) + (ent->state == S_VR ? ent->param : 0));
+          if (pb >= refruns + nruns) throw Overflow{};
+          b1 = (int32_t)((uint32_t)b1 + at(pb++));
+          break;
+        case S_VL:
+          check_b1();
+          if (b1 < (int32_t)((uint32_t)a0 + ent->param)) goto eol;
+          setvalue((uint32_t)(b1 - a0) - ent->param);
+          --pb;
+          b1 = (int32_t)((uint32_t)b1 - at(pb));
+          break;
+        case S_EXT:   // uncompressed mode, which libtiff does not decode
+          *pa++ = (uint32_t)(lastx - a0);
+          goto eol;
+        case S_EOL:
+          *pa++ = (uint32_t)(lastx - a0);
+          if (!need8(4)) goto eof;
+          clr(4);
+          eolcnt = 1;
+          goto eol;
+        default:
+          goto eol;
+      }
+    }
+    if (run_length) {
+      if (run_length + a0 < lastx) {   // a final V0 expected
+        if (!need8(1)) goto eof;
+        if (!get(1)) goto eol;
+        clr(1);
+      }
+      setvalue(0);
+    }
+  eol:
+    cleanup();
+    return DONE;
+  eof:
+    cleanup();
+    return AT_EOF;
+  }
+
+  // _TIFFFax3fillruns: the row's black runs set in buf (which holds 0),
+  // every run clamped to the row as libtiff clamps it in the array
+  void fill_row(uint8_t* buf, uint32_t* r, uint32_t* erun) const {
+    if ((erun - r) & 1) *erun++ = 0;
+    uint32_t x = 0, ux = (uint32_t)lastx;
+    for (; r < erun; r += 2) {
+      uint32_t n = r[0];
+      if (x + n > ux || n > ux) n = r[0] = ux - x;
+      x += n;
+      n = r[1];
+      if (x + n > ux || n > ux) n = r[1] = ux - x;
+      for (uint32_t k = x; k < x + n; k++) buf[k >> 3] |= (uint8_t)(0x80 >> (k & 7));
+      x += n;
+    }
+  }
+  void fill(uint8_t* buf) { fill_row(buf, thisrun, pa); }
+
+  // Fax3PreDecode and the codec's decoder on one strip or tile (data[0, cc)
+  // at base + off in the file, whose alignment RLE/W's word alignment
+  // follows: libtiff reads the mapped file in place)
+  void decode(const uint8_t* file, const uint8_t* data, int64_t cc, bool lsb_first, uint8_t* buf,
+              int64_t occ) {
+    try {
+      decode_rows(file, data, cc, lsb_first, buf, occ);
+    } catch (const Overflow&) {
+    }
+  }
+  void decode_rows(const uint8_t* file, const uint8_t* data, int64_t cc, bool lsb_first,
+                   uint8_t* buf, int64_t occ) {
+    base = file;
+    bitmap = lsb_first ? bit_order().identity : bit_order().reversed;
+    avail = 0;
+    acc = 0;
+    eolcnt = 0;
+    curruns = runs.data();
+    if (refline) {
+      refruns = runs.data() + nruns;
+      refruns[0] = (uint32_t)lastx;
+      refruns[1] = 0;
+    }
+    cp = data;
+    ep = data + cc;
+    if (occ % rowbytes) return;   // "Fractional scanlines cannot be read"
+    switch (mode) {
+      case RLE: case RLEW:
+        thisrun = curruns;
+        while (occ > 0) {
+          a0 = run_length = 0;
+          pa = thisrun;
+          int r = expand1d();
+          fill(buf);
+          if (r == AT_EOF) return;
+          if (mode == RLE) {
+            clr(avail - (avail & ~7));
+          } else {
+            clr(avail - (avail & ~15));
+            if (avail == 0 && ((cp - base) & 1)) cp++;
+          }
+          buf += rowbytes;
+          occ -= rowbytes;
+        }
+        return;
+      case G3_1D: case G3_2D:
+        while (occ > 0) {
+          a0 = run_length = 0;
+          pa = thisrun = curruns;
+          int sync = noeol ? DONE : sync_eol();
+          if (sync == RETRY) {   // "Try to decode (read) fax Group 3 data without EOL":
+            noeol = true;        // this row again, the strip's state as the call began
+            cp = data;
+            acc = 0;
+            avail = 0;
+            eolcnt = 0;
+            continue;
+          }
+          if (sync == AT_EOF || (mode == G3_2D && !need8(1))) {
+            cleanup();
+            fill(buf);
+            return;
+          }
+          bool is1d = mode == G3_1D || get(1);
+          if (mode == G3_2D) {
+            clr(1);
+            pb = refruns;
+            b1 = (int32_t)*pb++;
+          }
+          int r = is1d ? expand1d() : expand2d();
+          fill(buf);
+          if (r == AT_EOF) return;
+          if (mode == G3_2D) {
+            if (pa < thisrun + nruns) setvalue(0);   // an imaginary change for the reference
+            std::swap(curruns, refruns);
+          }
+          buf += rowbytes;
+          occ -= rowbytes;
+        }
+        return;
+      case G4:
+        while (occ > 0) {
+          a0 = run_length = 0;
+          pa = thisrun = curruns;
+          pb = refruns;
+          b1 = (int32_t)*pb++;
+          int r = expand2d();
+          if (r == AT_EOF || eolcnt) {   // EOFB, or the data's end
+            need16(13);
+            clr(13);
+            fill(buf);
+            return;
+          }
+          fill(buf);
+          setvalue(0);
+          std::swap(curruns, refruns);
+          buf += rowbytes;
+          occ -= rowbytes;
+        }
+        return;
+    }
+  }
+};
+
+// ----------------------------------------------------------------------------
 // reading strips and tiles (tif_read.c, tif_predict.c)
 // ----------------------------------------------------------------------------
 
@@ -1200,6 +1859,9 @@ struct Reader {
   int lzw_mode = -1;   // -1 undecided, 0 new-style, 1 compat: the first strip read decides
   uint64_t rawdatasize = 0;   // tif_rawdatasize: the chunk in the map, or the copy's buffer
   Lzw lzw;
+  Fax fax;
+  pvjpeg::Session jpeg;
+  pvjpeg::Frame frame;        // of the JPEG strip or tile being read
   std::vector<uint8_t> rev;
   Reader(const File& f_, const Dir& d_) : f(f_), d(d_) {}
 
@@ -1208,7 +1870,15 @@ struct Reader {
            d.compression == C_ADOBE_DEFLATE;
   }
 
-  // PredictorSetup (and the codecs' own setup): false where it fails
+  // the codecs that read FillOrder 2 data themselves (TIFF_NOBITREV): the
+  // fax decoders reverse the bits as they read, JPEG ignores the tag
+  bool nobitrev() const { return codec_fax(d.compression) || d.compression == C_JPEG; }
+
+  // the bytes of one row of a strip or tile as decoded
+  int64_t row_size() const { return (int64_t)(d.tiled ? tile_row_size(d) : scanline_size(d)); }
+
+  // PredictorSetup and the codecs' own setup (Fax3SetupState,
+  // JPEGSetupDecode): false where it fails
   bool setup() {
     if (coder_setup) return true;
     // of the depths TIFFRGBAImage takes, differencing accepts 8 and 16 bits;
@@ -1216,12 +1886,67 @@ struct Reader {
     if (uses_predictor() && d.predictor != 1 &&
         !(d.predictor == 2 && (d.bits == 8 || d.bits == 16)))
       return false;
+    if (codec_fax(d.compression)) {
+      if (d.bits != 1 || (d.spp != 1 && d.planar == 1)) return false;
+      Fax::Mode m = d.compression == C_CCITTRLE ? Fax::RLE
+                    : d.compression == C_CCITTRLEW ? Fax::RLEW
+                    : d.compression == C_FAX4 ? Fax::G4
+                    : (d.faxopts & 1) ? Fax::G3_2D : Fax::G3_1D;
+      if (!fax.setup(m, d.tiled ? d.tilewidth : d.width, row_size())) return false;
+    }
+    if (d.compression == C_JPEG && !d.jpegtables.empty() &&
+        !jpeg.tables(d.jpegtables.data(), d.jpegtables.size()))
+      return false;
     coder_setup = true;
     return true;
   }
 
+  // JPEGPreDecode: the stream's header against the strip or tile, then
+  // jpeg_start_decompress (which reads every scan of a multi-scan frame);
+  // false where libjpeg or libtiff refuses it
+  bool jpeg_predecode(uint32_t idx, const uint8_t* raw, int64_t cc) {
+    try {
+      frame = jpeg.header(raw, (size_t)cc);
+      uint32_t plane = idx / d.stripsperimage;
+      uint32_t sw, sh;
+      if (d.tiled) {
+        sw = d.tilewidth;
+        sh = d.tilelength;
+      } else {
+        uint32_t row = (idx % d.stripsperimage) * d.rowsperstrip;
+        sw = d.width;
+        sh = std::min(d.length - row, d.rowsperstrip);
+      }
+      bool ycbcr = d.photometric == P_YCBCR;   // JPEGSetupDecode's sampling
+      uint32_t hs = ycbcr ? d.ycbcrsub[0] : 1, vs = ycbcr ? d.ycbcrsub[1] : 1;
+      if (d.planar == 2 && plane > 0) {
+        sw = howmany32(sw, hs);
+        sh = howmany32(sh, vs);
+      }
+      uint32_t fw = (uint32_t)frame.width, fh = (uint32_t)frame.height;
+      bool taller_last = !d.tiled && fw == sw && fh > sh &&
+                         (idx % d.stripsperimage) * d.rowsperstrip + sh == d.length;
+      if (!taller_last && (fw > sw || fh > sh)) return false;
+      if (frame.components != (d.planar == 1 ? d.spp : 1)) return false;
+      if (frame.precision != d.bits) return false;
+      if (d.planar == 1) {
+        if ((uint32_t)frame.h[0] != hs || (uint32_t)frame.v[0] != vs) return false;
+        for (int k = 1; k < frame.components; k++)
+          if (frame.h[k] != 1 || frame.v[k] != 1) return false;
+      } else if (frame.h[0] != 1 || frame.v[0] != 1) {
+        return false;
+      }
+      jpeg.start(d.upsampled);
+    } catch (const Error& e) {
+      if (e.code == NOMEM) throw;
+      return false;
+    }
+    return true;
+  }
+
   // TIFFFillStrip / TIFFFillTile and TIFFStartStrip: the chunk's raw bytes
-  // (bits reversed for FillOrder 2), or null where it cannot be read
+  // (bits reversed for FillOrder 2 where the codec does not read them so),
+  // or null where it cannot be read or the codec cannot start on it
   const uint8_t* fill(uint32_t idx, int64_t& cc, bool is_tile) {
     uint64_t bc = d.counts[idx], off = d.offsets[idx];
     if (bc == 0 || bc > (uint64_t)INT64_MAX) return nullptr;
@@ -1232,18 +1957,17 @@ struct Reader {
     if (bc > f.n || off > f.n - bc) return nullptr;
     if (!setup()) return nullptr;
     const uint8_t* raw = f.d + off;
-    if (d.fillorder != 2) rawdatasize = bc;   // read in place
+    bool reverse = d.fillorder == 2 && !nobitrev();
+    if (!reverse) rawdatasize = bc;   // read in place
     else if (bc > rawdatasize) rawdatasize = (bc + 1023) / 1024 * 1024;   // a copy, grown
-    if (d.fillorder == 2) {
+    cc = (int64_t)bc;
+    if (d.compression == C_JPEG && !jpeg_predecode(idx, raw, cc)) return nullptr;
+    if (reverse) {
       rev.resize(bc);
-      for (uint64_t i = 0; i < bc; i++) {
-        uint8_t b = raw[i];
-        b = (uint8_t)((b * 0x0202020202ULL & 0x010884422010ULL) % 1023);
-        rev[i] = b;
-      }
+      const uint8_t* reversed = bit_order().reversed;
+      for (uint64_t i = 0; i < bc; i++) rev[i] = reversed[raw[i]];
       raw = rev.data();
     }
-    cc = (int64_t)bc;
     if (d.compression == C_LZW && lzw_mode < 0)
       lzw_mode = (cc >= 2 && raw[0] == 0 && (raw[1] & 1)) ? 1 : 0;
     return raw;
@@ -1263,6 +1987,16 @@ struct Reader {
                              : lzw_decode(lzw, raw, cc, buf, size);
       case C_DEFLATE: case C_ADOBE_DEFLATE:
         return zip_decode(raw, cc, buf, size);
+      case C_CCITTRLE: case C_CCITTRLEW: case C_FAX3: case C_FAX4:
+        fax.decode(f.d, raw, cc, d.fillorder == 2, buf, size);
+        return 1;
+      case C_JPEG: {   // JPEGDecode: whole rows, at most the stream's height
+        int64_t bpl = row_size();
+        if (bpl == 0) return 0;
+        int64_t rows = std::min<int64_t>(size / bpl, frame.height);
+        if (rows > 0) jpeg.rows(buf, (size_t)bpl, (int)rows);
+        return 1;
+      }
     }
     return 0;   // a scheme libtiff has no codec for: nothing decoded
   }
@@ -1584,6 +2318,7 @@ struct Rgba {
         case 1: case 2: alpha = d.sampleinfo[0]; break;
       }
     }
+    if (d.upsampled) photometric = P_RGB;   // libjpeg gives RGB (JPEGCOLORMODE_RGB)
     if (d.extrasamples == 0 && spp == 4 && photometric == P_RGB) alpha = ALPHA_ASSOC;
     is_contig = !(d.planar == 2 && spp > 1);
     if (is_contig) pick_contig();
@@ -2065,19 +2800,15 @@ Parsed parse(const uint8_t* data, long n) {
   return p;
 }
 
-// the setup checks of the codecs cv2 reads and the port does not
-// the checks libtiff makes before such a codec decodes the first strip or
-// tile: the chunk is read (TIFFFillStrip), the codec set up (bit depths),
-// and libjpeg finds its SOI marker
+// the checks libtiff makes before a codec cv2 reads and the port does not
+// decodes the first strip or tile: the chunk is read (TIFFFillStrip), the
+// codec set up (bit depths, photometric)
 void queued(const File& f, const Dir& d) {
   uint16_t c = d.compression;
   Reader rd(f, d);
   int64_t cc;
   const uint8_t* raw = rd.fill(0, cc, d.tiled);
   if (!raw) bad("a strip that cannot be read");
-  if ((c == C_FAX3 || c == C_FAX4 || c == C_CCITTRLE || c == C_CCITTRLEW) && d.bits != 1)
-    bad("CCITT coding of samples other than 1-bit");
-  if (c == C_JPEG && !(cc >= 2 && raw[0] == 0xFF && raw[1] == 0xD8)) bad("not a JPEG stream");
   if (c == C_THUNDER && d.bits != 4) bad("ThunderScan coding of samples other than 4-bit");
   if (c == C_NEXT) bad("NeXT codes 2-bit samples only, which OpenCV refuses");
   if ((c == C_SGILOG || c == C_SGILOG24) && d.photometric != P_LOGL && d.photometric != P_LOGLUV)
@@ -2088,6 +2819,8 @@ void queued(const File& f, const Dir& d) {
 
 void decode(const uint8_t* data, long n, bool color, uint8_t* out) {
   Parsed p = parse(data, n);
+  // TIFFRGBAImageBegin asks libjpeg for RGB of contiguous YCbCr
+  p.d.upsampled = p.d.compression == C_JPEG && p.d.photometric == P_YCBCR && p.d.planar == 1;
   const Dir& d = p.d;
   // OpenCV's readData for an 8-bit read
   uint32_t tw0 = d.width, th0 = 0;
@@ -2105,6 +2838,8 @@ void decode(const uint8_t* data, long n, bool color, uint8_t* out) {
   if (d.bits > 64) bad("bit depth over 64 (OpenCV refuses)");
   if (!((uint64_t)tw0 * th0 * ncn * std::max(1, d.bits / 8) < (1ull << 30)))
     bad("a tile of 1 GB or more (OpenCV refuses)");
+  if (!((uint64_t)tw0 * th0 * 4 < (1ull << 30)))   // the RGBA buffer of an 8-bit read
+    bad("an RGBA tile buffer of 1 GB or more (OpenCV refuses)");
   Rgba::ok(d);
   if (codec_queued(d.compression)) queued(p.f, d);
   Rgba im(d);

@@ -999,6 +999,16 @@ def tiff_lzw(data: bytes, compat: bool = False) -> bytes:
     which writes the same codes."""
     if len(data) <= 1 << 16:
         return tiff_lzw_py(data, compat)
+    cap = 2 * len(data) + 64
+    out = np.empty(cap, np.uint8)
+    n = _forge_lib().pv_lzw_code(data, len(data), int(compat), out.ctypes.data, cap)
+    assert n >= 0
+    return out[:n].tobytes()
+
+
+def _forge_lib():
+    """tiff_forge.cpp beside this file, built with g++ at first use into
+    build/native/."""
     global _tiff_lib
     with _tiff_lock:
         if _tiff_lib is None:
@@ -1008,10 +1018,27 @@ def tiff_lzw(data: bytes, compat: bool = False) -> bytes:
             lib.pv_lzw_code.restype = ctypes.c_long
             lib.pv_lzw_code.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_long]
+            lib.pv_fax_code.restype = ctypes.c_long
+            lib.pv_fax_code.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_long]
             _tiff_lib = lib
-    cap = 2 * len(data) + 64
+    return _tiff_lib
+
+
+def fax_code(black, mode: int, k: int = 0, fill: bool = False, eol_end: bool = True) -> bytes:
+    """CCITT coding (tiff_forge.cpp) of (h, w) bilevel rows, True or nonzero
+    for black: mode 2 (RLE, rows padded to a byte), 32771 (RLE/W, to 16
+    bits), 3 (Group 3: an EOL before each row, `fill` bits ending it on a
+    byte boundary; k = 0 1-D, else a tag bit after each EOL and every k-th
+    row 1-D, the others 2-D) or 4 (Group 4); eol_end writes Group 3's RTC
+    or Group 4's EOFB."""
+    px = np.ascontiguousarray(np.asarray(black) != 0, np.uint8)
+    h, w = px.shape
+    cap = 2 * h * w + 64 * h + 64
     out = np.empty(cap, np.uint8)
-    n = _tiff_lib.pv_lzw_code(data, len(data), int(compat), out.ctypes.data, cap)
+    n = _forge_lib().pv_fax_code(px.ctypes.data, h, w, mode, k, int(fill), int(eol_end),
+                                 out.ctypes.data, cap)
     assert n >= 0
     return out[:n].tobytes()
 
@@ -1075,6 +1102,126 @@ def tiff_lzw_py(data: bytes, compat: bool = False) -> bytes:
     return bytes(out)
 
 
+def jpeg_units(data: bytes) -> list:
+    """A JPEG stream's parts after SOI, up to EOI: (marker, bytes) for each
+    marker segment, a scan's entropy-coded data (restart markers included)
+    riding with its SOS."""
+    units, pos = [], 2
+    while pos + 1 < len(data):
+        m = data[pos + 1]
+        if m == 0xD9:
+            break
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if m == 0xDA:
+            while end + 1 < len(data) and not (data[end] == 0xFF and data[end + 1] != 0
+                                                 and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        units.append((m, data[pos:end]))
+        pos = end
+    return units
+
+
+def tiff_jpeg_chunks(parts, photometric: int, subsampling=(1, 1), quality: int = 90,
+                     restart: int = 0, tables: str | None = "all", progressive: bool = False):
+    """JPEG-in-TIFF streams of strips or tiles (each (h, w, c) samples as
+    the TIFF's photometric codes them: YCbCr with `subsampling`, Y's factors
+    and 1 x 1 chroma; any other samples 1 x 1), and the JPEGTables stream:
+    tables "all" moves the quantisation tables of every stream and the
+    Huffman tables of the first one before its first scan there (the others
+    keep theirs, which override them), "dqt" the quantisation tables only,
+    None writes whole streams and no JPEGTables. Optimised Huffman tables,
+    restart intervals of `restart` MCUs, and with `progressive` the
+    spectral-selection script."""
+    streams = []
+    for part in parts:
+        h, w, c = part.shape
+        planes = [part[..., k].astype(np.float64) for k in range(c)]
+        sampling = [(1, 1)] * c
+        if photometric == 6 and c == 3:
+            sampling[0] = tuple(subsampling)
+        comps, q = plane_components(planes, sampling, quality)
+        scans = spectral_script(c) if progressive else [("seq", list(range(c)))]
+        streams.append(jpeg_bytes(comps, w, h, q, scans, restart=restart, jfif=False))
+    if tables is None:
+        return streams, None
+    head, out = [], []
+    for i, data in enumerate(streams):
+        units = jpeg_units(data)
+        first_sos = next(k for k, (m, _) in enumerate(units) if m == 0xDA)
+        keep = []
+        for k, (m, seg) in enumerate(units):
+            move = m == 0xDB or (tables == "all" and i == 0 and m == 0xC4 and k < first_sos)
+            if move and i == 0:
+                head.append(seg)
+            if not move:
+                keep.append(seg)
+        out.append(b"\xff\xd8" + b"".join(keep) + b"\xff\xd9")
+    return out, b"\xff\xd8" + b"".join(head) + b"\xff\xd9"
+
+
+def tiff_fields(data: bytes) -> dict:
+    """The first IFD of a classic TIFF (either byte order): tag -> its values,
+    bytes for BYTE, ASCII and UNDEFINED entries, else a list of integers."""
+    order = "<" if data[:2] == b"II" else ">"
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+    out = {}
+    for i in range(n):
+        tag, typ, count = struct.unpack(order + "HHI", data[ifd + 2 + 12 * i:ifd + 10 + 12 * i])
+        letter, size = TIFF_TYPES[typ]
+        at = ifd + 10 + 12 * i
+        if count * size > 4:
+            at = struct.unpack(order + "I", data[at:at + 4])[0]
+        raw = data[at:at + count * size]
+        out[tag] = raw if typ in (1, 2, 7) else list(struct.unpack(
+            order + letter * (count * size // struct.calcsize(letter)), raw))
+    return out
+
+
+def splice_tables(tables: bytes, stream: bytes) -> bytes:
+    """A standalone JPEG of a JPEG-in-TIFF strip or tile: the JPEGTables
+    stream's segments before the strip's own (SOI once, EOI once)."""
+    return tables[:-2] + stream[2:]
+
+
+def jpeg_as_tiff(jpg: bytes) -> bytes:
+    """A baseline JPEG file as a single-strip JPEG-in-TIFF: its DQT and DHT
+    segments in JPEGTables, its APPn and COM segments dropped; YCbCr with
+    the luma's sampling factors for three components, MinIsBlack for one."""
+    units = jpeg_units(jpg)
+    sof = next(seg for m, seg in units if m == 0xC0)
+    height, width, nc = struct.unpack(">HHB", sof[5:10])
+    tables = b"\xff\xd8" + b"".join(seg for m, seg in units if m in (0xC4, 0xDB)) + b"\xff\xd9"
+    strip = b"\xff\xd8" + b"".join(seg for m, seg in units
+                                   if m not in (0xC4, 0xDB, 0xFE) and not 0xE0 <= m <= 0xEF)
+    strip += b"\xff\xd9"
+    shape = (height, width, 3) if nc == 3 else (height, width)
+    return tiff_bytes(np.zeros(shape, np.uint8), 6 if nc == 3 else 1, compression=7,
+                      subsampling=(sof[11] >> 4, sof[11] & 15) if nc == 3 else None,
+                      chunks=[strip], tags={347: (UNDEFINED, tables)})
+
+
+def jpeg_tiff_tiles(rgb, tile, quality: int = 90):
+    """A YCbCr 2x2 JPEG-in-TIFF of an (h, w, 3) RGB array (JFIF's full-range
+    YCbCr) in tiles of tile = (width, height), its tables in JPEGTables.
+    Returns the file, each tile's stream by its (row, column) origin, and
+    the JPEGTables stream."""
+    c = np.asarray(rgb, np.float64)
+    r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    ycc = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                    128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                    128 + 0.5 * r - 0.418688 * g - 0.081312 * b], -1)
+    h, w = ycc.shape[:2]
+    tw, th = tile
+    origins = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+    parts = [np.pad(ycc[y:y + th, x:x + tw], ((0, th - min(th, h - y)), (0, tw - min(tw, w - x)),
+                                               (0, 0)), mode="edge") for y, x in origins]
+    streams, tables = tiff_jpeg_chunks(parts, 6, (2, 2), quality)
+    data = tiff_bytes(np.zeros((h, w, 3), np.uint8), 6, compression=7, subsampling=(2, 2),
+                      tile=tile, chunks=streams, tags={347: (UNDEFINED, tables)})
+    return data, dict(zip(origins, streams)), tables
+
+
 def _tiff_rows(s: np.ndarray, bits: int, big_endian: bool) -> bytes:
     """(n, m, c) samples -> rows of m * c samples, each row padded to a
     byte: 8 to 64-bit samples in the file's byte order, others MSB first."""
@@ -1109,14 +1256,19 @@ def tiff_bytes(samples, photometric: int | None = None, bits: int = 8, compressi
                colormap=None, orientation: int | None = None, fill_order: int = 1,
                sample_format: int | None = None, subsampling=None, ref_bw=None,
                lzw_compat: bool = False, tags=None, drop=(), level: int = 6,
-               ifd_first: bool = True, chunks=None) -> bytes:
+               ifd_first: bool = True, chunks=None, fax=(0, False, True),
+               jpeg=None) -> bytes:
     """A one-page TIFF (classic or BigTIFF, either byte order) of (h, w) or
     (h, w, spp) integer samples as stored: strips of rows_per_strip rows
     (one strip by default) or tiles (tile = (width, height), edge tiles
     padded with 0); PlanarConfiguration 1 or 2; compression 1 (none), 32773
     (PackBits), 5 (LZW; lzw_compat for the old bit-reversed codes), 8 or
-    32946 (Deflate, zlib `level`), any other number writing the data
-    uncompressed under it; predictor 2 (horizontal differencing of 8 to
+    32946 (Deflate, zlib `level`), 2, 32771, 3 and 4 on 1-bit samples
+    (CCITT RLE, RLE/W, Group 3 and Group 4 through `fax_code`; fax = (k,
+    fill, eol_end) as it takes them, Group 3's T4Options written from k and
+    fill), 7 (JPEG through `tiff_jpeg_chunks` with the options of the
+    `jpeg` dict), any other number writing the data uncompressed under it;
+    predictor 2 (horizontal differencing of 8 to
     64-bit samples) or any number written as given; fill_order 2 reverses
     the bits of every byte of the coded data. photometric defaults to
     MinIsBlack (1 or 2 samples) or RGB; colormap (2^bits, 3) 16-bit
@@ -1138,12 +1290,17 @@ def tiff_bytes(samples, photometric: int | None = None, bits: int = 8, compressi
         rps = h if rows_per_strip is None else rows_per_strip
         boxes = [(y, 0, rps, w) for y in range(0, h, max(rps, 1))]
     coded = []
-    for plane in planes:
+    for plane in planes if chunks is None else ():
         for y, x, bh, bw in boxes:
             part = plane[y:y + bh, x:x + bw]
             if tile is not None:
                 part = np.pad(part, ((0, bh - part.shape[0]), (0, bw - part.shape[1]), (0, 0)))
-            if subsampling is not None and planar == 1:
+            if compression == 7:   # JPEG: coded below, FillOrder ignored as libtiff ignores it
+                coded.append(part)
+                continue
+            if compression in (2, 3, 4, 32771) and bits == 1:
+                raw = fax_code(part[..., 0], compression, *fax)
+            elif subsampling is not None and planar == 1:
                 raw = _ycbcr_units(part, *subsampling)
             else:
                 if predictor == 2 and bits in (8, 16, 32, 64):
@@ -1161,6 +1318,13 @@ def tiff_bytes(samples, photometric: int | None = None, bits: int = 8, compressi
                 raw = np.unpackbits(np.frombuffer(raw, np.uint8)).reshape(-1, 8)[:, ::-1]
                 raw = np.packbits(raw).tobytes()
             coded.append(raw)
+    extra_tags = {}
+    if compression == 7 and chunks is None:
+        coded, tables = tiff_jpeg_chunks(coded, photometric, subsampling or (1, 1), **(jpeg or {}))
+        if tables is not None:
+            extra_tags[347] = (UNDEFINED, tables)
+    if compression == 3 and (fax[0] or fax[1]):
+        extra_tags[292] = (LONG, [(1 if fax[0] else 0) | (4 if fax[1] else 0)])
     if chunks is not None:
         coded = list(chunks)
     off_type = LONG8 if bigtiff else LONG
@@ -1190,6 +1354,7 @@ def tiff_bytes(samples, photometric: int | None = None, bits: int = 8, compressi
         entries[530] = (SHORT, list(subsampling))
     if ref_bw is not None:
         entries[532] = (RATIONAL, [v for r in ref_bw for v in (int(round(r * 1000)), 1000)])
+    entries.update(extra_tags)
     entries.update(tags or {})
     for t in drop:
         entries.pop(t, None)

@@ -16,8 +16,10 @@ layout, codec, predictor, byte order, tag) and on files PIL and cv2 write:
     without, 2-bit gray, 4-bit gray, float and 32-bit samples, more than 4
     samples, orientations 5 to 8 on a non-square image, a predictor the
     codec refuses, broken directories) raise native.Cv2Refuses, and the
-    codecs cv2 reads that the port does not yet (CCITT, JPEG, ThunderScan,
-    SGILog) a plain NotImplementedError naming ROADMAP.md;
+    codecs cv2 reads that the port does not yet (ThunderScan, SGILog) a
+    plain NotImplementedError naming ROADMAP.md, and the CCITT and JPEG
+    files that raised so before the port read them (tests/
+    test_torch_image_tiff_codecs.py holds those codecs) cv2's bits;
   * 20 files cut at every byte and 8 with seeded bit flips: an image with
     cv2's bits exactly where cv2 gives one, no image where it gives none,
     native.Cv2Raises where cv2.imread raises (a flip that turns the codec
@@ -53,7 +55,7 @@ Image = pytest.importorskip("PIL.Image")
 torch.set_num_threads(2)
 
 SIZES = ((1, 1), (7, 13), (37, 53), (129, 257))
-QUEUED = re.compile(r"(CCITT|JPEG \(7\)|ThunderScan|SGILog).*ROADMAP")
+QUEUED = re.compile(r"(ThunderScan|SGILog).*ROADMAP")
 
 
 def _cv2_read(path, color):
@@ -333,7 +335,7 @@ def test_refused_kinds_give_no_image_in_cv2(tmp_path, name):
             tiff.decode(data, color)
 
 
-def _queued():
+def _codec_files():
     r = np.random.default_rng(6)
     h, w = 13, 21
     bw = r.random((h, w)) < 0.5
@@ -354,6 +356,32 @@ def _queued():
         "SGILog (34676)": forge.tiff_bytes(L, 32844, 16, compression=34676, sample_format=2,
                                            chunks=[logl]),
     }
+
+
+def _queued():
+    return {k: v for k, v in _codec_files().items() if k.startswith(("ThunderScan", "SGILog"))}
+
+
+def _formerly_queued():
+    return {k: v for k, v in _codec_files().items() if k not in _queued()}
+
+
+@pytest.mark.parametrize("name", list(_formerly_queued()))
+def test_formerly_queued_kinds_read_like_cv2(tmp_path, name):
+    """The CCITT and JPEG files the port raised for before it read these
+    codecs: cv2's bits in both reads through read_image (the file named
+    mask.png), and the JAX package's load_mask (tests/
+    test_torch_image_tiff_codecs.py holds every variant)."""
+    data = _formerly_queued()[name]
+    path = str(tmp_path / "mask.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    for color in (False, True):
+        ref = _cv2_read(path, color)
+        assert isinstance(ref, np.ndarray), name
+        np.testing.assert_array_equal(images.read_image(path, color), ref)
+    np.testing.assert_array_equal(images.load_mask(path, 8, 16),
+                                  jpipe.load_mask(Config(mask_path=path), 8, 16))
 
 
 @pytest.mark.parametrize("name", list(_queued()))

@@ -79,7 +79,7 @@ def test_native_libraries_build_from_the_checkout():
     """The scan reader, the LSD, the JPEG decoder, the LK flow, the SIFT
     detector and the BMP, PxM / PAM / PFM, Sun raster and TIFF decoders
     compile with g++ into build/native/ at first use (the TIFF decoder
-    linked with zlib; the scan reader has a numpy fallback, the others
+    built together with the JPEG decoder and linked with zlib; the scan reader has a numpy fallback, the others
     none)."""
     import shutil
     if shutil.which("g++") is None:
@@ -95,7 +95,8 @@ def test_native_libraries_build_from_the_checkout():
     for mod, name in ((bmp, "bmp.cpp"), (pxm, "pxm.cpp"), (sunras, "sunras.cpp"),
                       (tiff, "tiff.cpp")):
         assert mod._DECODER.get() is not None and mod._SRC.name == name
-        assert native.library_path(mod._SRC, libs=mod._DECODER.libs).exists()
+        assert native.library_path(mod._SRC, libs=mod._DECODER.libs,
+                                   extra=mod._DECODER.extra).exists()
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():

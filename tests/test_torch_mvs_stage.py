@@ -24,7 +24,9 @@ With a mask (the `masked` fixture): both stages again on copies of their
 trees, resumed from their pass artifacts (the mask enters after the
 passes, main.cpp:610), with a tripod-style mask at half the panorama size
 as an RLE8 BMP named mask.png, which the JAX stage reads with cv2 and the
-port with native/bmp.cpp; the port also with the same mask as a PNG.
+port with native/bmp.cpp; the port also with the same mask as a PNG; both
+stages with it as a 1-bit MinIsWhite CCITT Group 4 TIFF named mask.tif
+(native/tiff.cpp in the port).
 """
 
 import glob
@@ -214,15 +216,20 @@ def masked(runs, tmp_path_factory):
     d = tmp_path_factory.mktemp("masks")
     m = _tripod(64, 128)
     os.makedirs(d / "bmp")
-    paths = {"bmp": str(d / "bmp" / "mask.png"), "png": str(d / "mask.png")}
+    paths = {"bmp": str(d / "bmp" / "mask.png"), "png": str(d / "mask.png"),
+             "g4": str(d / "mask.tif")}
     with open(paths["bmp"], "wb") as f:
         f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
                                 rle=True))
     images.write_png(paths["png"], m)
+    with open(paths["g4"], "wb") as f:   # the masked pixels black
+        f.write(forge.tiff_bytes((m == 0).astype(np.uint8), 0, 1, compression=4))
     cfg_j = load_config(_with_mask(runs["jax"][0], "jax_bmp_mask", paths["bmp"]))
     depths_j, _ = pipeline.joint_mvs(cfg_j)
     out = {"jax": (cfg_j, depths_j)}
-    for kind in ("bmp", "png"):
+    cfg_g = load_config(_with_mask(runs["jax"][0], "jax_g4_mask", paths["g4"]))
+    out["jax_g4"] = (cfg_g, pipeline.joint_mvs(cfg_g)[0])
+    for kind in ("bmp", "png", "g4"):
         path = _with_mask(runs["port"][0], f"port_{kind}_mask", paths[kind])
         assert torch_main(["joint_mvs", path, "--device", "cpu"]) == 0
         cfg_t = load_config(path)
@@ -267,3 +274,17 @@ def test_png_and_bmp_masks_give_the_same_bits(masked):
     assert len(tree_png) == 4 * 7 + 2 and "mvs_fused.pcd" in tree_png
     assert tree_png == tree_bmp
     np.testing.assert_array_equal(masked["png"][1], masked["bmp"][1])
+
+
+def test_group4_tiff_mask_gives_the_png_masks_bits(masked):
+    """The tripod mask as a 1-bit Group 4 TIFF: the port's load_mask and the
+    JAX package's give the PNG's booleans, the port's run writes the bytes
+    of its PNG-mask run in every artifact, and the JAX stage with it writes
+    the bytes of its BMP-mask run."""
+    path = masked["g4"][0].mask_path
+    np.testing.assert_array_equal(images.load_mask(path, 128, 256), masked["mask"])
+    np.testing.assert_array_equal(pipeline.load_mask(masked["jax_g4"][0], 128, 256),
+                                  masked["mask"])
+    assert _tree(masked["g4"][0]) == _tree(masked["png"][0])
+    np.testing.assert_array_equal(masked["g4"][1], masked["png"][1])
+    assert _tree(masked["jax_g4"][0]) == _tree(masked["jax"][0])
