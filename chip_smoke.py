@@ -278,7 +278,16 @@ Run from the root of a checkout. Phases, each fatal on failure:
      baseline JPEG as a single-strip JPEG-in-TIFF to the JPEG's colour read,
      the frame as a tiled one to its tiles' standalone decodes, each timed
      on one thread; (g)'s runs once more with the tripod mask as a 1-bit
-     Group 4 TIFF named mask.tif, bit-equal to the PNG-mask run.
+     Group 4 TIFF named mask.tif, bit-equal to the PNG-mask run. (j) GIF:
+     the decoder gives cv2's digests on embedded probes (GIF_PROBES: 256
+     colours, interlaced, local over global palette, no palette, an offset
+     frame with background and transparency, 87a, minimum code size 11, a
+     deferred clear, extensions and a second frame, short sub-blocks, and
+     files cv2 gives no image for); the gray frame of (f) as a plain and an
+     interlaced deferred-clear 8-bit GIF decodes to its PNG's bits, the RGB
+     frame quantised to the 3-3-2 palette to the lookup of its indices,
+     each timed on one thread; (g)'s runs once more with the tripod mask as
+     a 2-colour GIF named mask.gif, bit-equal to the PNG-mask run.
 --only-sfm runs phases 1-2, 8, 8 (b)-(d) and 9 alone (for iterating on the SfM
 slice); --only-floor runs phases 1-2 and 12 alone (~170 s on the card);
 --only-joint runs phases 1-2, 8, 10 and 13 alone. Prints the card line,
@@ -2826,6 +2835,215 @@ TIFF_PROBES = {
          "gray": 'queued'}),
 }
 
+# phase 16 (j): small GIF files (written by tests/image_forge.py, 9 x 23
+# pixels, the deferred-clear one 150 x 150 so that its LZW table fills),
+# one per kind, each with the SHA-256 of what cv2.imread gives for it in
+# colour (RGB order) and in gray, None where cv2 gives no image (the decoder
+# must refuse the read); tests/test_torch_image_gif.py recomputes them with
+# cv2
+GIF_PROBES = {
+    "256 colours": (
+        "R0lGODlhFwAJAPcAABzQAxPsckjXzQu6tD53mNDmu/x/zmSTsVl15YHHtoRsukps6stcTc+B5tAeGThNiYEmBL42"
+        "8FRt+8o1SeMN2KjwsZAaBpVzclrCLY6DRpDoYHCpbdUfzmm+OaTVV42KZG8VH+oktOiIKd7NkLvLEyt79eFtqHEC"
+        "j9hfb6xrpRzREAQLdPOJgD0dD/vv+Jvqq+L27gOWgOl4PdGA4otcesa2INdMck3ByfUi7JVQMwrO21jDUOtrkvQX"
+        "euijY7tTEjp+XsVtHO5Y8ufS6HbAfJX2bzGPSOW84W3BpobKHU3/tVUQMb6v3hYvvbFVhIZ0iqx918u/uWOq29JE"
+        "EAz7WGGNA3tJPJ5ufl8yaBvs1WrnqndWp6CqpN3ftQU0wM+Gn7t6EGQuo9kE5QKTjsZHsQI9hrO7TxVuydtZDQO9"
+        "AVqAGEBHC9r2xww+TEFnHsoadWWIDCEkMLZ0StfwdmTCTCnmn4ms5/aENE1N2WXW/7JiutVg1AdCkHHYcyeWItn3"
+        "hjdNR9g2POn0ibLmGSvdTrsa9o2f5JmrO64qRF4kusNTYtlqcUzrKne4Lm1jQSRSoljD7XXJwg7DgWkCMol6BhyW"
+        "0WdKNHSN/zgraEX9+ZArsCy6eQe4GA+zlJISthbzh2IZaGXwMWfkYuIemrp9bE2Liv7GoHTIM4rDtA9GbTmChWzx"
+        "DAjGGicNliH+Ddpot/j6L+XiJuP5819o/IM8Kxc9wif3I/cxLCqAy+JT3hiO7ttKCAOCM86VCq/4eFaQGKF8dCDt"
+        "xL6pJvT63n/2jG7lbqTpMrpmmI6NcyogYk9wos45/QaDyvsqsJ0e9ON78W3Q0HPGdPStkTckt+3THWF+UsJWRPpz"
+        "fTo23X9Nw4UMXUpojmhTQIIfWGv4CGxeV15W8Yi1sV+7h10L7ii2gAONt+QdmX0VkXjv2FvQzV5Z9XuxZu5Ta1Ko"
+        "9uqRm4F7145Rf1uOubtQZ7fpZ5bDqyvIQqy+n5yV/Qbsb16zZ9UquCpk93O3SBgkzXi8ue5hkywAAAAAFwAJAAAI"
+        "7ADjCNgSpZ8vDmQ48YnjgAeJMGoQkHuHpRuYBRuigdFFjIWAfUyirLLWSZKAUjSuwcqkYdIKPlIUQCkBxdaCfec6"
+        "gJOFDpA5JtlgnSoC45U3E68mCanALEUsCGmEQSMD71smHKwgZBPlBYsaKeJ44Ip0RYYPZIMIgDnXJcSwPzuS8fhH"
+        "YZYxIB/6VdKXr020GgW4HKhAxpW9MuakwZE0zgUEYbtUaHmSqkKPfgFIqNGhR8Wvbh9kucm2J0IDAKEg5OI3Kt8F"
+        "QPXYbcrz6wcvdwtsvFE0rU+nOGnoObo36NWJNGbuJJBm5tirPwEBADs=",
+        {"color": '261b19c5981ef468f14f07f10594c5aefd5a300f1d97f14ace7fb5f404e2c591',
+         "gray": '41f53ed44d2641bc44c19e654fb8ab603f6e9e8644864158caceff286590d889'}),
+    "interlaced, 9 rows": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "FwAJAEAEThBI8OpTWJVdjj/WdwzkQJxEoAZO61gTZTV0kymioZf8gPwITmFBXNSKCxSBpxQ4Ba6o5cGoMmJWRk2n"
+        "Eya+iWh2Imo+z+CElRebppXcCAA7",
+        {"color": '2845814af6f41de2fa6497ccc87b28f97f7cc0d4157eaf5f70bb5f1c91ab30a1',
+         "gray": 'a81b4f260a2f4b58c2bb40ceb8889a6a4786bb5a054e1560c8a10066c4382fa3'}),
+    "local palette over a global one": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "FwAJAIFRq3XaiPo5tk8CmMAETxBI8OpTWJVdjj+WIzrWw5zMBKBM4w5wDCM0whVLvriN4Ru3hDAxcrBUkxKvkVF8"
+        "Dr8nYUoQWK/WYQKlW1AJsi92JFOVtN/oJ0wNuANFSwQAOw==",
+        {"color": '1701f9af7c8f89b8798f28f84c6e73d152d1e483e66a9dea56eac590430ee9d8',
+         "gray": 'c09ebde9ab0a0a81394fd4e0f91ef0509bca0af0a8bd70f68f56637953fee13d'}),
+    "no palette": (
+        "R0lGODlhFwAJAHAAACwAAAAAFwAJAAADNwgK0yNQhBkWa9YNWhcnYCQKGlecBaiCnOEaFmct2ipaqoUWb+9Tu51o"
+        "11vcaI7eLmeM7DSZRgIAOw==",
+        {"color": '50205c065d3ca2d1504346eb5ca1233ac9cffa591e61275e72d40b55bc0aff0b',
+         "gray": '3baac67e8dd480383dd3f5f03e640f41a4c74a43e594ccb12c3b8857ffe897fb'}),
+    "offset frame, background, transparency": (
+        "R0lGODlhFwAJAPMFAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCH5BAEA"
+        "AA8ALAMAAgARAAYAAAQvcEiJKiq4rL1MLkmYOKTDnAzwrE/jNkqsHDRN3ISg77qYLDjCZBDkDQBIFcsXjAAAOw==",
+        {"color": '319586b16a34ff7a7a10c8f3a12131722d22c7a00db8a51b836c559d34ba10c6',
+         "gray": '341ac01586c3d61f45078aaecc7452334f8c69c62d1d50eb7970124b49ab85d2'}),
+    "transparent index the background": (
+        "R0lGODlhFwAJAPMDAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCH5BAEA"
+        "AAMALAAAAAAXAAkAAARPEEjw6lNYlV2OP5YjOtbDnMwEoEzjDnAMIzTCFUu+uI3hG7eEMDFysFSTEq+RUXwOvydh"
+        "ShBYr9ZhAqVbUAmyL3YkU5W03+gnTA24A0VLBAA7",
+        {"color": '2845814af6f41de2fa6497ccc87b28f97f7cc0d4157eaf5f70bb5f1c91ab30a1',
+         "gray": 'a81b4f260a2f4b58c2bb40ceb8889a6a4786bb5a054e1560c8a10066c4382fa3'}),
+    "87a, 2 colours": (
+        "R0lGODdhFwAJAPAAAP///wAAACwAAAAAFwAJAAACIIQRGYfqyhyb59loZc20m7xsiRh6H3SOpJmWzUWBmJoWADs=",
+        {"color": '9003d44477df995636ae3866b8ee084237cbb75f8cd66c4f666a16d3521e23b0',
+         "gray": 'e95f24ae8526d0bf46ee69a45169c7de60f80646b3f114db05ae3661975655d7'}),
+    "minimum code size 11": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "FwAJAAALlQAIAAIIAA9QgA+gAAioAAWwgAVwAA54AAboABLoAAb4AAxwgQwwgACAgQzQAB44ACAYgiCIACSIAAxY"
+        "AAuQggvggQ1gAC5oACeYADKYABPoAByogQNYgSzYAAmoAA94AC/4gwQwhAQgAEZ4hEY4gwmAgSq4AERIACL4hEg4"
+        "gSKogRWohE8YhA8YhUQYAF4YADVogAEIADs=",
+        {"color": '2845814af6f41de2fa6497ccc87b28f97f7cc0d4157eaf5f70bb5f1c91ab30a1',
+         "gray": 'a81b4f260a2f4b58c2bb40ceb8889a6a4786bb5a054e1560c8a10066c4382fa3'}),
+    "deferred clear": (
+        "R0lGODlhlgCWAPEAAAKYwDm2T9qI+lGrdSwAAAAAlgCWAAAC/9QwMQJhAZUQAQHAlrtpeOpMF5VAx9WgHaVSJIeE"
+        "R9VdFePITyNqiDEz/GQhRMJYxJAYRhsPoqTFGsfKr3TwRGyMieJkYEFzGM6CpcVoccAbbCKSVF0PiaUJmSyc2bxT"
+        "yAay8GHXJdYgNUY0gzTmoXbgJYJR4dZl5MURJgJSxqIWt1ECktMnGcLkMFhJqXBDAxeWxxSjYPZ4NGV0VhLl42J7"
+        "Mxhp20TasZrxQ5eg90N1Wpmx45WWNZhhZZYprXHksYfbLMo54npG9zAzOruBwtLzNZStrMepCsl8hQT4PTQ+gg+O"
+        "NWP0BHtn4lkQRsLkrHiY6kEdExKzVSLDo1mYPf8kwMUig4wiEzRWGKUYRgmRlUuxRnJBpunLBhfXEJa5VkKOsgi8"
+        "nkCzcM2Eq0YRJQiNNDJPBG1A4CAUM6MYCSu2XDih4Y4SODmu6gxRtaGSFlZAfGhdamElJD8funwjc0npI09dSwmJ"
+        "8HFspD0BVUFVkiGXYJca4GBZUWvL0oSdfJm80fSFKz/P4H350AIoVlBBuOSwutLbllSQUqSFU8gtlWbgailUAfgi"
+        "uhjiLlL5wxOaLIxuUWuEKMNczlPHUmR6cUWxVaDYqgFS2kkPrk5QlGFCNs5QyXAahJmZTLsqFGhkeUr0KCRFeb6e"
+        "UIQQKo9WmJS8cIzfwUF22t9FMMr/UaMKe0A1FYw9qEhh2lyglKFVD+u4l5Flw6nHyBmwlfIGDzhUZt8jOqFXTYD5"
+        "YNZcFzItVccw5yDlRl2s7UHOhh76Mxd2OWHBUxZlHEQHWavtMAgiGrX0CkWUiRUZUKb55JQ9dNxB1X2zCCKKGqZt"
+        "qMwJ6AT3yghpQAGOheIBosQyP2KXzpQqyShLcsVU8aY8DulT2G0S1hNYH3CykQU3+e0IoFyarNKdXWOlZKA3zMGQ"
+        "1ldVdLdOQxIENl9Zv+1X3Rpg2FHfEsuUZFQudwjxiCSemeOOarX0aWccKfFQJh4dzQWEMWOMkCI0YT6jQiJUSQcW"
+        "fOr1OlVCJyBSK4y3/2G1wkU9IBKDQaxB5tUXtTKB2EzYaKbNONJseJBW4qin3RZv0BPtjbGsAWCYF+XRnaufCENd"
+        "VDU4eRays1FVai+1ylTWFU55CK1HexFCk7XLmNjuTTaEY6SzWxwsyV4Sz/UeoQWF2GgnYLyhg32TtgSMEkeokwM+"
+        "0Ya1yzyQnkqflpL8SwVYuIoHQ4XITOWLNpPC9MEagdXc7MGsPdxkel76bFqVUy20LsrFgjmaX1ty9JR0UdFLRGnn"
+        "zIxrDbRh89DH7S5xhkyvIvFODd5uQpMXn+k4TYdbp52qDtvwhbIpmNmAYn9jGWWUlyrs3Ngrna4zx31LqHOXgeoI"
+        "Zlx7N/8/+zht+TXVqzSTGftZRhpydLKnsgxuXxsPV6USZE60YsmAcmtJ0Hb9vEuJ1hjhylIwSWRICNltKu2giaAZ"
+        "4pWWJjNWSIGXWdlca7lwnjvhhZ6OAiQ67qi1ibL1qEn2kUApEVaZtNuMLj54YyHGsI40lldnz0QDNrCY5eWxQy9X"
+        "BzxpFdgKwD2IbSCAClKM46/LAIIU1gqSOKoBJ9rNSCrnkQIxxnc8HZgPC9lLlay2AblN+C4KdmjHeNpTKA4apCsa"
+        "olKzMpUeZ4CJQTfbSjUq85J08aUtgHuPO6rUpQ6YwBvSISHKfIKsWSArgJsIB/l6A66JBXBbJPzMmz4RBU7/9Klb"
+        "C/pFhX6SQV5wsIfS09fphAaGC8Kjb5FTHWAwIRZ2GdA3QWpC0fABEsNhkYfKM8ckTBamu2ylL4WhyOs4RSoEEqNF"
+        "rGDKblhVnStKAxQbgRV0GBgHZ/wpJye6ggOXZAFSvKQ2McyXbt5XJid+Bku/KpM9trURsKDmW68rICc7M8kglQsN"
+        "k3BGXIxkmDSkshxrEwqWMtM+m9msCnBkhaZy1Mj0RQt2BcQElCyXs4G5pEHa+4aKqDWsJrSCI05xiF5EBz9W1SZo"
+        "qBCkMn/WSCB6gi+iCBBFDFY3P06ThuOzU5hG4ZQn8C0UsCnHgUjSpVcQz0Ji8Et1Znmy0Fjw/301GVBmEgJIuKxG"
+        "PwrjxmVwQcntwfAFPQoYNW5CtmIsxl9PwNYfKlOIPtRvOHLaEU9K8R5ssQcx1rGSJksXtJq9QwyWOiV4zjEUxRVG"
+        "huTYC0lHFwW2ncAoEcFkC+WiEUcMS09IeIutBBGPqQwEejUbzy/sIzCVhDId/EhbnYIVSpC0CWv2ehopKGU9YrQU"
+        "nK4rI0oWxRJvJgh1fjGMkOzJso70cDLEbOLDDjeq6IwPb4zVnRta2jN53ItwruFdHOOasDUGyjuF0eXiDDO31oRN"
+        "NbsqCUpDwp+YKYQNUY1YVbHIyyx571Dpg1cumOLZgZQKGEvY4DACyRR/PQlrd/8BmIi21RXG3TV9zVUQg8zysVzm"
+        "amve45wPwrISbKFtWb0Q4IlCdZMiwggq86Eu/yI3hWyYgzkw8UsrLDOJfZ0kKOmhlZU86aWKtEsYvRjiWWv5npol"
+        "aSuF2kZbMZGlkvQDOamAF1VLlxhSyYJPUnjODH9pC3qerIO8uhYa4MQ2m2RkW+w6mc78ucR0GbZYk4XQ9taXttBK"
+        "RketWaCIdmESpCyEVvhTEXK7AppjUas7EWKcQwCEL2kuxorIot5BCDFlvSxVemDoEO9W4dorc+eygporZMTSVY2s"
+        "JRgG04p6qKbat5iLdLgL0bHuAOWKCdOBULSvO7wVjjYIsYjH4A3/B2Ua1N1UJ4nsRWhYlHW6jE3poYLoLY1owR3h"
+        "ToFli9Tfs6gyIFiIJbxBaZCOEOSbR+cJBomAG4mO2bRkuAUvjNLcdzbLhVj6VBv7GOtPfKfAJ+TGRVwRG2gPtgtj"
+        "3QNY4jpJpmQjj/g2ZR2FvlIvXJy6INTPlkJUW/9uMVVgvKtPuTXIhncMGJLwAhUXZB865HOv/wZLvNRK2FXA1dxl"
+        "8E2oRTlHfnIS0k3o0XzVq5OgC2hua3KELTJgyFIvl73bBOTUB54WpGqgmMQIczXrLZQF6xdejK6PYWlcoVOhhWkW"
+        "3Wog9xRSukRhCvDEBscpYyxiQxwiy6ikT21hiThD/2RWhVUZ5bSTK0Nf7rDgTKNt9Kto4e7r2SgpCjqHIdMkFj0w"
+        "fskMYv1CCxZe8CiD0ObgEZfKZaqi6xkKxsVrpR/RTA2dVhFEURBWemsaqHKEq3OrCTJv/WpBVLm1iTHsHc1vl5lJ"
+        "i3LvUwCibyNCYy9YiW56TQvQKd4SqUV0SJ6fcuiwqiufevDrZve88l12hAsrTsQ53PthIlV2P73kCLZKHtXh9ApE"
+        "lY9zL5uOHCsMN9ytwDnHTOqIjIZSI+PUk1iVmwkDHW7h9eYGYfDqPFFrWVSAvegSbYGYI1dnb0MRcwrWXbfbBdGo"
+        "+qwsyQS0hCbzTIv//YdPGRl39Gul/P+Z5IOSnErvHdzlHUAmLblzRg7zQMkyIw/DSd9SRlWxKc5nG+82Q0oyL0pB"
+        "dKVhDagAeP6BQAQkHZIROidiQ7yHVkwTNnWUX+LUPMASNNeAWtynLWIWXRFiLkchM9kEC8thRjCnROWUUoewG10V"
+        "cZl0KxriGaAmXI/UFqCSEllREVOCHQnWYrnTeQh0euSHGm0jWPiwA03VNgEBSP/UT+7hI5bECdzXSxa0EU0yauqH"
+        "Kvi1Ez/zDPeBKytmJ6HhR3bBb89FOisTVfyQSXXUhBSSSQ3lZwCBNNqyOmblHNSAQWkTcTp0JajiHl0ocAxWehPn"
+        "Q7dBTvkzTXBhgQYTR6X/VQScMykQdi+VJEawIWR3MlJYARJOhm6BQiD/BGzwkD5k40np9HdgcjR96Ed3RoS9I16N"
+        "0g4gxWpMFh2p9mpfkYWKYHkQAkFRYw+vkgRO4134ZygRxUImMxCFtoam0ywsiBxJVCIKWH+7YSpn+EawsXucyIQs"
+        "9BF1EQ8Mwm674mYpU4htpVDXCHLM1jJUImHhCHYqJnhdMh+JMQ8xMlrtMRFdYicm839cOA3OAm9c9VmJoDmpUBOq"
+        "5ETZQF3FMFQfU5HG6HZrYYWXFXwnYUtNAmbQgmQVuHrfiGEnlDIo+RJLwRryYTW0SGDRJmX1Mj5Phxc8ExWpZHvf"
+        "KCNCg1ZX/whk+8AshcRrz2MVp9Z4oyZLwIBxTkVwu3IcXKAbJyRSl0UhYehLihBQWYRcKwYZ1CZIe0KMpTJF1tQt"
+        "3iR9byRnbEIgDFMkeMmUEzcELRUkWCc3NLhALQAWJHILr0SCtOQHarhwXxNf6+ZiZag72KJEO6eP9BF/1sEnxzEL"
+        "AFFAsId2n+IhJaQFpWYcYKUkg9lAwpElnLhG/kUGCtN9SGUV4oUUM2N0UZlfEPQmLIl32qcO89R1Z2ct4GGK9iNx"
+        "CIGabAAwS+JUQcBA+fOB2lNN3TIN7yZALukpQhWcwieNwyF6IAh8H7UixjMzERQqW3R3ngA3suFEMeOCA0WeXf9W"
+        "nREldlTjUlUGL09jQv1nhFv0Dzd4m7HCPwJRXA5FLZ9zXduTha2zCi53f8QVFvBTTkP1ShxHTgChf9ZgQ5i2ne8A"
+        "R040JFdnQ2BZCBQScg2TRRskQlrEhoy1k6FkP4MpREb0mb9BVB6hEAUCFT4Umd+1gejnE0I6B59iCCKmbSRqMRVG"
+        "b55yI40gbOQRNCS1m4PRGe+mV4bpEbDYpWM4K4jBIAu2RR8hds62OYYhQ7roDwG5aEuIPLn2BtmxKXJ2ac8BJMZw"
+        "mlfXDljUVHKRKhEhTP4GhtmhnUeiOhoWS1nYEqWySoiZUyexMr51QIE3dqIkYeY4ON13KYMSpFP/ZTBPmhzBo4c2"
+        "KjozdQ+XozWdKjJYyWupMzfRViB352tEU5sbQTeJMqsqc5dZoSAicV2taSoEWEKJxKqB4QZ4g5LEhRlJJTuq9STQ"
+        "Q3mzNDnbRVtM5jj5AV7yVDTX5EBWA17hASP0dBSxlIv4ZwzZ8y+/hxcWpiSrwo4KwWUt4iHfOE0k9a5IYmOf86Xe"
+        "WCmLViajl52+5GIfU2AvN2/Kqntcg2mEB2p4xEnk12P65qQ0kqPbFpEIEWjQYgYZIrGYyW7XSBo7GRpL5zOptz4J"
+        "8WhRkUgUtjSEkQab53Qg+0zpRh73RRNRxaaMATj44av0eC0oNW1qZBax15w7h6Eu/zebdZWcDUUo5RpQPVgQ8ch0"
+        "A6qT8YdNDARexkOUooZq/ylEv1q1AyuZG7I5IMVnHBcKSMag1GEpHBQgmMEN1uV2AIWvHpeYPxIIA3Vih0ONqWkI"
+        "nGkr+gKhqXSUozIKlEpCC/FouDmEDRI3v6erfVNgYvSYyqo2dYgXckqJ88lhlbinallqBal/8AmRLpdRdtAoZyNx"
+        "PUETRPYcSzOWgBMheaKeqbQZ+3IY5yo210JdepKhcuGoYkcM64m8hNAx+oJI4OZNzyOkMZGt1UNmfQeiKEJ6EklZ"
+        "3VaH5loxM5UbFcau7jI5PzQKKkJ+gHJTY2K+IIkSo7GOOPGEGeYsaP8imgyGemUhLNeKsRLIjF+HfOvmvtYKIcJB"
+        "MDLDhKgBdolUOrTEcv3kPfToOq8TQFQHVOPRi8EVgZfLGSwzqYtZihkaULTwWTiqJenJcyAIiipUlG4mNIkFEjyC"
+        "jTn0P1v2s8vkSuBrNkX1IlUWB4FUMfcgUeB2GmczK6EoMv8VPqYoFFYKNOQ6RNthUQTyIXUrJ++yfOW1V39GdNW3"
+        "mZPLffAJQWUFChljhB3EKd2mJjXCEKdnItTGc/fyIiP3FQSLuZv2EsMDMtZSLOKmjEqZiOzSeHg2HynDpbQDLA33"
+        "UVBaEDuEIWApKzXhOYDCK/t7CfGlbyE2RhSnSOIbUQb/qFyj5rGNVC1ABh8QBTsZcwhohFiDxVz2RcLn4zG+ZCb2"
+        "lTtd9kP/EZnplheeiDGxQLvk9lvzIrWWJj4wIaErNHbdgFAlu4TxIcSQrFrR8i9uIbh95KNHZWxzNxleOYOiMzpN"
+        "lA4M9ZUA2H32OKq+gohug1wp8sP+RMXZ0U0To6kYiB4FhyVjFUmMq8lYNjuTIpIDAnALt14W+iOrqSjnk0TKd2db"
+        "oxNQdiapJ26vpJUzOzEAxE6UC9EeK2VKBikaFF9yuHT6Q5YaOGhHw2ahIFnpgQ9us2LH46xf2HJw0VwuIWrO4Q/H"
+        "IHA2erq78CxB8TZS9gfulpDtqAlLqkWP/zs0oYIgA9tGI7NIc6hYNDlUiGI7iwR2w1UahJbHsod6vVYE24esvcTG"
+        "AjVLzKFpOjkyikHQMDJDMahWwWMgocMIadoHtivH3JqmympJ4UbCO0klPVBVOIU0xBXGHsWoTaYLLIcz5dM6cAN8"
+        "XKnSIWRFYrl07QqpiBvTQ+GNFdUbGLea7HdAuuCL5ViDGMXHc9aTOTgoCKQ3IqlmEsEr4SQi9fBmcPPXYV21RKCu"
+        "N8ki1GSEqxfJZh08K5CEOtkyB7Rt0PEfeL0YHQxVbv2sk6RvPefHUWIeISRGvFlYrxsrKaUt8edvQsM9MjIoPBS3"
+        "p6hL+pvIVJUEaCsSzPRDAv+EHk+2SuEFeKlJzm3QUWrhHvrTF6AxYKa3mmiWYoH3ntEWETk7FOdxVslwasVZSUxH"
+        "GjIxzRbF25gZordQc7vJf+fTcOyjHDEammTEkcJJX6ktJ/TXN1pHSe+syYW8pOxKjeqDu9c2sPyVkPaEn5xzV0Is"
+        "ajZlRih5GBJZm1FMDmwjKD1ROQZY2WIitoF2Nwv4R2qDMKtyaoaHi0UYh+QiMLDnauviz4mSQtMCi1tMqchqyMTW"
+        "DdaZvbQGkf+ZLAQWEhZ2iUdTkUuIeg1nIBDNWe3UfeXTHP+QryUnPiH9i3y8lPny0Q+5YZX4J625rOUUgC4+JK8Z"
+        "nPs33iilLev/ReNMFbtjs9SybB6OcHe0kgnJhyMseGHfIVXT2YQBC+d60hnrAiW9xYk4MkSrgzDW7KI+CJQP9CiW"
+        "h3xMUcX67SrAxauG9OeiggYgC2HQ86Gl6EE4TbvMEg3Kg9I891pCcku/Amj+uxl0oZkMpiDxsJORomYa9Asu7Hkx"
+        "oQMYFMQsGhBrdEKVNqzGBMxDR4Xh9k1rrhr/SBTOwGMouyvs3MeLcXoH0VGmcBqbCrzg7nCoxbokyt5I9A3MUCRI"
+        "OG4j9sRnCHBYQiKUob+F7RluNSMJg6gIr3Q+g3bMQ28Nl16kKU2tw9mEHd9KkWD2xSKLe+bh9ro8oiy9vibG44lJ"
+        "/7hwTdjUGXZdgwtc8V05W6QYP1k++kgqgfRaqXkd4kjNSZxLTZ45wsGzrI2e/G2tdMMPIMdpJKzzKIfWYfPdOm8s"
+        "B+0ZzxeLss2wIGmFBP8rYBIPrCNfvP0V1lQWkhFMBQk+CmZMheUHqjG5qcu67iKXvpXirh1YMQY6qzUhuCvY3YrQ"
+        "5wFau/7PcYRkkOibltvE6Vka4RFgn5iiYUYz+bOs3AF4ie1MIpSiGXaauZZ5m4dCSFyItd749Bxgv8is5eqjZWXR"
+        "mqI5WbnexziQIKYyvrFE5bVKDtLaC24hAPtjX2ObBXNrmOms5bBj+o1se6b1cJ+aLaxGO0Ge0ubf0/80VdvGDOdr"
+        "L1LSQUODWYZcjcTUlv9Zpt6FEmiKZHU3uDvrx8Rxy4M0s4RcIwjXBqmuflS2T6ARmi3S9PjW5JnSgg+iiFpV0688"
+        "ewCuOrZxiVrDkt99uzFzCEvsOdIEnUL1oLZac4l5D6gu5RMBxwCNhX/UilQIr0sl3lGpFvWtV7xnJoOpaGynYd74"
+        "UP+jNGR8TQQ1XxyiYAyu/zG5QzAZYvVnXMXSNlr52K6khWuCyX4Nd0pPJuo3HfABKuqGNc50ILpAzZxLs9U5e+61"
+        "21qGFrh4Vzx9IKLxkseCS1Upka/XqQ1BzfvMY8/a+3gOhtVItDyOHFz3u+b2dTY1gaH/0G615YBZSgQjk1sIfaf4"
+        "q8Azm4x7pIHFSPK+GCtm22/JDxfUxyoDamJDUxv0DB72G5amAsGLSl/6WWtN7C9aFmIdVqr8gnf0pJSh+V0ytCjb"
+        "r1YhVu9WGRdDtjP/liMuiUSV1A//tKe+9AkCnHqQdcV1yhZJtyI4oVHtGhkgcoCihPcPQm6mJkMLdPW81Tp7VaX7"
+        "Oc4K/q6z4jIaIoX/tPoqhU7dTLeeNOLtQEC3HDajsVGMCYWxq0JsjN0Ftm2l9YQXtKy393hipdbMtrLtbuTfrETJ"
+        "BNCcmGxAeahVLW/VV4KodDicfdduRR4G24I386ONr7PG+098+WY8nWcP/yUkkIO3zkVxo/mxP5avHOdsb8yL+Fvb"
+        "UPZR3neU+TXpUin3mxUncqm69qiRyDEhcf3vs1GVSSh5Rk8f4PcPXFhwej2X8SLVgrYwstrS071KODE9meuTkjTO"
+        "DWTnDjuHQ4ZUR7Em7voQ4lJdQARvaXzcHiw3GiiTDLg6n7igPLnqSEVGbZ7qgHKb/fMlQGg+BZtQ4G6tczZji91o"
+        "k3Ri9vT5Q6RuO4eT9KqKAAreUS2366O4L37ZpKKPlfU3/bMIvX52rvGsAy0gvNXH/xYXwwVsbGE60KZTotFr/y3F"
+        "dTlE0eHyAN2C+2mq2BuhhgSJpo+5MeSeePsiSHI+3BwKvzq9yEBnbcanSUPr7SfWEq2Cf8QVPgqiWo3U5GSROm5i"
+        "R7+0LJsqtqCpwayzbzyGZz8rKjlWJ7fWngUAADs=",
+        {"color": '316be13460eb8f89f9aa27e2714dd704246e8896b9d00a7eb720433e274fb3d5',
+         "gray": '90d6f05d4c7ac45831217e3c2c7e642815f12ae3c8fad064f59bce65153558b1'}),
+    "extensions and a second frame": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCH/C05F"
+        "VFNDQVBFMi4wAwEAAAAh/gVwcm9iZQAhAQwAAAAAAAAAAAAAAAAEdGV4dAAsAAAAABcACQAABE8QSPDqU1iVXY4/"
+        "liM61sOczASgTOMOcAwjNMIVS764jeEbt4QwMXKwVJMSr5FRfA6/J2FKEFiv1mECpVtQCbIvdiRTlbTf6CdMDbgD"
+        "RUsEACH5BBwAAAAALAEAAQAFAAQAgAkIBwYFBAIHhBOAyrhZAAA7",
+        {"color": '2845814af6f41de2fa6497ccc87b28f97f7cc0d4157eaf5f70bb5f1c91ab30a1',
+         "gray": 'a81b4f260a2f4b58c2bb40ceb8889a6a4786bb5a054e1560c8a10066c4382fa3'}),
+    "sub-blocks of 7 bytes": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "FwAJAAAEBxBI8OpTWJUHXY4/liM61gfDnMwEoEzjBw5wDCM0whUHS764jeEbtweEMDFysFSTBxKvkVF8Dr8HJ2FK"
+        "EFiv1gdhAqVbUAmyBy92JFOVtN8H6CdMDbgDRQJLBAA7",
+        {"color": '2845814af6f41de2fa6497ccc87b28f97f7cc0d4157eaf5f70bb5f1c91ab30a1',
+         "gray": 'a81b4f260a2f4b58c2bb40ceb8889a6a4786bb5a054e1560c8a10066c4382fa3'}),
+    "a string past the frame": (
+        "R0lGODlhAwABAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "AwABAAACBDAIGQEAOw==",
+        {"color": None, "gray": None}),
+    "a code past the table": (
+        "R0lGODlhAwABAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "AwABAAACBDBMEQEAOw==",
+        {"color": None, "gray": None}),
+    "no trailer": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCwAAAAA"
+        "FwAJAAAETxBI8OpTWJVdjj+WIzrWw5zMBKBM4w5wDCM0whVLvriN4Ru3hDAxcrBUkxKvkVF8Dr8nYUoQWK/WYQKl"
+        "W1AJsi92JFOVtN/oJ0wNuANFSwQA",
+        {"color": None, "gray": None}),
+    "disposal method 4": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCH5BBAA"
+        "AAAALAAAAAAXAAkAAARPEEjw6lNYlV2OP5YjOtbDnMwEoEzjDnAMIzTCFUu+uI3hG7eEMDFysFSTEq+RUXwOvydh"
+        "ShBYr9ZhAqVbUAmyL3YkU5W03+gnTA24A0VLBAA7",
+        {"color": None, "gray": None}),
+    "background index past the palette": (
+        "R0lGODlhFwAJAPIIAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1SwAAAAAFwAJAAAETxBI8OpTWJVdjj+WIzrWw5zM"
+        "BKBM4w5wDCM0whVLvriN4Ru3hDAxcrBUkxKvkVF8Dr8nYUoQWK/WYQKlW1AJsi92JFOVtN/oJ0wNuANFSwQAOw==",
+        {"color": None, "gray": None}),
+    "an application extension's 3-byte sub-block": (
+        "R0lGODlhFwAJAPMAAAKYwDm2T9qI+lGrdfbpsLaIZ7ybZl/u1V+8jWxI09g6FX5qHsShxYerzvtBsZk4SCH/C1hN"
+        "UCBEYXRhWE1QAwEAAAAsAAAAABcACQAABE8QSPDqU1iVXY4/liM61sOczASgTOMOcAwjNMIVS764jeEbt4QwMXKw"
+        "VJMSr5FRfA6/J2FKEFiv1mECpVtQCbIvdiRTlbTf6CdMDbgDRUsEADs=",
+        {"color": None, "gray": None}),
+}
+
 # phase 16 (f): the full-size files of frames GRAY_VARIANT_FRAME (8-bit
 # BMP with a gray palette, P5, 8-bit Sun raster with an equal map) and
 # RGB_VARIANT_FRAME (24-bit BMP) that the render workers write, timed on one
@@ -2857,6 +3075,14 @@ FAX_VARIANTS = {"bilevel_g4.tif": {"compression": 4},
                 "bilevel_g3_2d.tif": {"compression": 3, "rows_per_strip": 64,
                                       "fax": (FAX_K, True, True)}}
 JPEG_TIFF_TILE = (256, 256)
+# phase 16 (j): frame GRAY_VARIANT_FRAME's gray plane as 8-bit GIFs through
+# the identity gray palette, one plain (a clear code whenever the LZW table
+# is full) and one interlaced with a deferred clear (the table stops
+# growing when full), and frame RGB_VARIANT_FRAME quantised to the 3-3-2
+# palette (image_forge.gif_332); the tripod mask of (g) as a GIF with a
+# 2-entry palette named mask.gif
+GIF_VARIANTS = {"gray_plain.gif": {}, "gray_interlaced.gif": {"interlace": True, "deferred": True}}
+GIF_332 = "rgb_332.gif"
 
 # the MVS frames re-coded as progressive files from the coefficients that
 # their baseline files carry (phase 16 (b)) and as arithmetic-coded ones
@@ -2879,8 +3105,9 @@ def write_format_variants(root: str, i: int, rgb):
     progression) of the coefficients of its baseline JPEG, or its gray
     plane / RGB array as Paeth-filtered, Adam7 and 16-bit (v * 257) PNGs
     beside an 8-bit filter-0 RGB PNG, as BMP, PGM and Sun raster files and
-    as TIFF files (TIFF_VARIANTS), its gray plane as a lossless JPEG, and
-    the bilevel and JPEG-in-TIFF files of phase 16 (i)."""
+    as TIFF files (TIFF_VARIANTS), its gray plane as a lossless JPEG, the
+    bilevel and JPEG-in-TIFF files of phase 16 (i) and the GIF files of
+    phase 16 (j)."""
     import numpy as np
     import image_forge as forge
     if i < PROGRESSIVE_FRAMES:
@@ -2906,6 +3133,14 @@ def write_format_variants(root: str, i: int, rgb):
         for name, kw in FAX_VARIANTS.items():
             with open(os.path.join(var, name), "wb") as f:
                 f.write(forge.tiff_bytes(black.astype(np.uint8), 0, 1, **kw))
+    if i == GRAY_VARIANT_FRAME:   # phase 16 (j): the gray GIFs
+        gray_ramp = np.repeat(np.arange(256)[:, None], 3, axis=1)
+        for name, kw in GIF_VARIANTS.items():
+            with open(os.path.join(var, name), "wb") as f:
+                f.write(forge.gif_bytes(rgb[..., 0], gray_ramp, **kw))
+    if i == RGB_VARIANT_FRAME:    # phase 16 (j): the 3-3-2 GIF
+        with open(os.path.join(var, GIF_332), "wb") as f:
+            f.write(forge.gif_bytes(*forge.gif_332(rgb)))
     if i == RGB_VARIANT_FRAME:    # phase 16 (i): the JPEG-in-TIFF files
         with open(os.path.join(root, "color", f"{i:06d}.jpg"), "rb") as f:
             jpg = f.read()
@@ -3017,6 +3252,28 @@ def check_tiff_probes(names=None):
             fail(f"the TIFF decoder built here does not give cv2's bits on the {name} probe")
 
 
+def check_gif_probes(names=None):
+    """Phase 16 (j): the port's GIF decoder on this machine gives cv2's
+    digests on every embedded probe, in colour and in gray, and refuses the
+    reads cv2 gives no image for."""
+    import base64
+    import hashlib
+    from panovlm_tpu_torch.native import Cv2Refuses, gif
+
+    for name in names or GIF_PROBES:
+        b64, want = GIF_PROBES[name]
+        data = base64.b64decode(b64)
+        got = {}
+        for kind in ("color", "gray"):
+            try:
+                got[kind] = hashlib.sha256(gif.decode(data, kind == "color").tobytes()).hexdigest()
+            except (Cv2Refuses, ValueError):   # a read cv2 gives no image for
+                got[kind] = None
+        log(f"GIF probe {name}: {'cv2 bits' if got == want else f'DIFFERS {got}'}")
+        if got != want:
+            fail(f"the GIF decoder built here does not give cv2's bits on the {name} probe")
+
+
 def _one_thread_ms(read, path, color, reps: int = 2):
     best = float("inf")
     for _ in range(reps):
@@ -3082,7 +3339,8 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
     byte); (e) the lossless JPEG of a gray frame decodes to its source plane
     exactly; (f) the raster probes, and the full-size BMP, PGM and Sun
     raster files decode to their PNGs' bits; (h) so do the TIFF probes and
-    the full-size TIFF files (TIFF_VARIANTS); (i) run_tiff_codecs. Prints one-thread decode times
+    the full-size TIFF files (TIFF_VARIANTS); (i) run_tiff_codecs; (j) the
+    GIF probes and run_gif_files. Prints one-thread decode times
     of the full-size files beside the card line (nvidia-smi's name and power
     limit; the decoders run on the host)."""
     import numpy as np
@@ -3093,6 +3351,7 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
     check_format_probes()
     check_raster_probes()
     check_tiff_probes()
+    check_gif_probes()
     # (b) progressive and (d) arithmetic-coded frames, against the baseline
     # files of the same frames
     color_dir = os.path.join(root, "color")
@@ -3197,6 +3456,8 @@ def run_formats_phase(torch, mvs_cfg_path, phase11_pcd: bytes, device: str = "cu
                     f"{'the PNG bits' if same else 'DIFFERS'}")
                 if not same:
                     fail(f"the full-size {kind} {name} does not decode to its PNG's bits")
+    # (j) the GIF files
+    run_gif_files(root, card)
 
 
 def _gray_of_rgb(rgb):
@@ -3267,6 +3528,48 @@ def run_tiff_codecs(root: str, card: str = "no card"):
         + ", ".join(f"{k} {ms:.1f} ms" for k, ms in times.items()))
 
 
+def _cvt_gray(rgb):
+    """cvtColor's COLOR_RGB2GRAY of uint8 pixels, the gray read of a GIF:
+    (9798 R + 19235 G + 3735 B + 16384) >> 15."""
+    c = rgb.astype("int32")
+    return ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + 16384) >> 15).astype("uint8")
+
+
+def run_gif_files(root: str, card: str = "no card"):
+    """Phase 16 (j) (its probes are check_gif_probes'): frame
+    GRAY_VARIANT_FRAME's gray GIFs (GIF_VARIANTS) decode to its PNG's bits
+    in both reads (the gray of (v, v, v) is v), frame RGB_VARIANT_FRAME's
+    3-3-2 GIF to numpy's lookup of its indices in its palette (and to
+    cvtColor's gray of that in a gray read). Prints the one-thread decode
+    time of each file beside the card line."""
+    import numpy as np
+    import image_forge as forge
+    from panovlm_tpu_torch.io import images
+
+    var = os.path.join(root, "png_variants")
+    gray_png = os.path.join(root, "images", f"{GRAY_VARIANT_FRAME:06d}.png")
+    wants = {name: (lambda color: images.read_png(gray_png, color)) for name in GIF_VARIANTS}
+    idx, pal = forge.gif_332(images.read_png(os.path.join(var, "rgb_filter0.png"), True))
+    look = pal[idx]
+    del idx
+    wants[GIF_332] = lambda color: look if color else _cvt_gray(look)
+    times = {}
+    for name, want in wants.items():
+        path = os.path.join(var, name)
+        for color in (True, False):
+            img, ms = _one_thread_ms(images.read_image, path, color)
+            times[f"{name} {'colour' if color else 'gray'}"] = ms
+            same = np.array_equal(img, want(color))
+            log(f"phase 16 (j): {name} ({os.path.getsize(path) / 2**20:.2f} MiB), "
+                f"{'colour' if color else 'gray'} read {img.shape}: {ms:.1f} ms one thread, "
+                f"{'the expected bits' if same else 'DIFFERS'}")
+            if not same:
+                fail(f"the full-size {name} does not decode to the expected bits")
+            del img
+    log(f"one-thread decode ({card}; host CPU) of the {look.shape[0]} x {look.shape[1]} "
+        f"phase 16 (j) GIFs: " + ", ".join(f"{k} {ms:.1f} ms" for k, ms in times.items()))
+
+
 def tripod_mask(h: int, w: int):
     """A tripod-style mask, 255 where a pixel is usable: the bottom eighth
     of the rows (the tripod) and a pole, a band of w / 32 columns from the
@@ -3294,9 +3597,10 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
     """Phase 16 (g): joint_mvs on the first MASK_FRAMES frames of phase 6's
     dataset with tripod_mask at half the working size (load_mask resizes
     it), once as a PNG, once as an RLE8 BMP named mask.png, (phase 16 (h))
-    once as an LZW TIFF in tiles named mask.tif (MASK_TIFF) and (phase 16
-    (i)) once as a 1-bit MinIsWhite Group 4 TIFF named mask.tif. Checked:
-    load_mask gives the same booleans for all four, the resized mask's;
+    once as an LZW TIFF in tiles named mask.tif (MASK_TIFF), (phase 16 (i))
+    once as a 1-bit MinIsWhite Group 4 TIFF named mask.tif and (phase 16
+    (j)) once as a GIF with a 2-entry palette named mask.gif. Checked:
+    load_mask gives the same booleans for all five, the resized mask's;
     every artifact of the runs bit-equal; fewer filtered depths in the masked
     pixels than the same frames without a mask have (a run resumed from
     the PNG run's pass artifacts; the mask clears the depths before the
@@ -3319,7 +3623,8 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
     paths = {"png": os.path.join(root, "masks", "mask.png"),
              "bmp": os.path.join(root, "masks", "bmp", "mask.png"),
              "tif": os.path.join(root, "masks", "mask.tif"),
-             "g4": os.path.join(root, "masks", "g4", "mask.tif")}
+             "g4": os.path.join(root, "masks", "g4", "mask.tif"),
+             "gif": os.path.join(root, "masks", "mask.gif")}
     images.write_png(paths["png"], m)
     with open(paths["bmp"], "wb") as f:
         f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
@@ -3328,19 +3633,22 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
         f.write(forge.tiff_bytes(m, 1, **MASK_TIFF))
     with open(paths["g4"], "wb") as f:   # 1-bit MinIsWhite: the masked pixels black
         f.write(forge.tiff_bytes((m == 0).astype(np.uint8), 0, 1, compression=4))
+    with open(paths["gif"], "wb") as f:
+        f.write(forge.gif_bytes((m > 0).astype(np.uint8), [[0, 0, 0], [255, 255, 255]]))
     want = np.repeat(np.repeat(m > 0, 2, axis=0), 2, axis=1)
     loaded = {kind: images.load_mask(path, H, W) for kind, path in paths.items()}
     same = all(x is not None and np.array_equal(x, want) for x in loaded.values())
     log(f"tripod mask {m.shape} as PNG ({os.path.getsize(paths['png'])} bytes), RLE8 BMP "
         f"named mask.png ({os.path.getsize(paths['bmp'])} bytes), LZW TIFF in tiles "
-        f"({os.path.getsize(paths['tif'])} bytes) and 1-bit Group 4 TIFF "
-        f"({os.path.getsize(paths['g4'])} bytes): load_mask at {H} x {W} "
+        f"({os.path.getsize(paths['tif'])} bytes), 1-bit Group 4 TIFF "
+        f"({os.path.getsize(paths['g4'])} bytes) and 2-colour GIF "
+        f"({os.path.getsize(paths['gif'])} bytes): load_mask at {H} x {W} "
         f"{'the same booleans, the resized mask' if same else 'DIFFERS'}; "
         f"{(~want).mean():.3f} of the pixels masked")
     if not same:
-        fail("load_mask of the PNG, the BMP and the TIFF masks differ")
+        fail("load_mask of the PNG, the BMP, the TIFF and the GIF masks differ")
     launches = {}
-    for kind in ("png", "bmp", "tif", "g4"):
+    for kind in ("png", "bmp", "tif", "g4", "gif"):
         cfg_path = _subset_config(os.path.join(root, kind), mvs_cfg_path, MASK_FRAMES,
                                   f"mask_path = {paths[kind]}\n")
         vs_mod.volscore.launches = 0
@@ -3353,8 +3661,9 @@ def run_mask_phase(torch, vs_mod, mvs_cfg_path, d_gt, device: str = "cuda"):
             fail(f"joint_mvs with the {kind} mask exited {rc}")
         if launches[kind] <= 0 and device == "cuda":
             fail(f"the volscore kernel was not launched in the run with the {kind} mask")
-    trees = {kind: _tree_bytes(os.path.join(root, kind)) for kind in ("png", "bmp", "tif", "g4")}
-    for kind in ("bmp", "tif", "g4"):
+    trees = {kind: _tree_bytes(os.path.join(root, kind))
+             for kind in ("png", "bmp", "tif", "g4", "gif")}
+    for kind in ("bmp", "tif", "g4", "gif"):
         equal = trees["png"] == trees[kind]
         log(f"the PNG-mask and {kind.upper()}-mask runs: {len(trees['png'])} artifacts "
             f"{'bit-equal' if equal else 'DIFFER'}, volscore launches {launches['png']} and "

@@ -38,12 +38,17 @@
     libtiff's RGBA conversions as cv2 5.0 reads them (palettes, 16-bit
     samples, CMYK, YCbCr, CIE L*a*b*, alpha, orientation). The TIFF codecs
     cv2 reads and the port does not yet (ThunderScan, SGILog) raise
-    NotImplementedError naming ROADMAP.md.
+    NotImplementedError naming ROADMAP.md;
+  * GIF (native/gif.cpp): OpenCV's own GIF decoder replayed, the first
+    frame on the logical screen (background colour, offset, transparency,
+    interlace, LZW with deferred clear), its walk of the whole file to the
+    trailer and its rules on cut and corrupt data; the gray read is
+    cvtColor's 15-bit BGRA2GRAY.
 
 The decoder is chosen by the file's first bytes, as cv2's findDecoder
 chooses it, never by its name: `image_format` names the format of every
 signature cv2 5.0 here has a decoder for. JPEG, PNG, BMP, PxM / PAM, PFM,
-Sun raster and TIFF are read; the other formats (WebP, HDR, GIF, JPEG
+Sun raster, TIFF and GIF are read; the other formats (WebP, HDR, JPEG
 2000, AVIF) raise NotImplementedError naming ROADMAP.md; bytes that are no
 format's signature raise ValueError, as cv2.imread gives no image for them.
 A file whose size cv2.imread raises for (a side over 2^20 pixels, ...)
@@ -179,9 +184,9 @@ def read_image(path: str, color: bool | None = False) -> np.ndarray:
         return read_jpeg(path, color is not False)
     if kind == "PNG":
         return read_png(path, color)
-    if kind in ("BMP", "PxM", "PAM", "PFM", "Sun raster", "TIFF"):
-        from ..native import Cv2Raises, bmp, pxm, sunras, tiff
-        decoder = {"BMP": bmp, "Sun raster": sunras, "TIFF": tiff}.get(kind, pxm)
+    if kind in ("BMP", "PxM", "PAM", "PFM", "Sun raster", "TIFF", "GIF"):
+        from ..native import Cv2Raises, bmp, gif, pxm, sunras, tiff
+        decoder = {"BMP": bmp, "Sun raster": sunras, "TIFF": tiff, "GIF": gif}.get(kind, pxm)
         with open(path, "rb") as f:
             data = f.read()
         try:
@@ -192,9 +197,9 @@ def read_image(path: str, color: bool | None = False) -> np.ndarray:
         raise ValueError(f"{path}: no image format's signature in its first bytes "
                          "(cv2.imread has no decoder for it)")
     raise NotImplementedError(f"{path}: a {kind} file; the port reads JPEG, PNG, BMP, "
-                              "PxM / PAM, PFM, Sun raster and TIFF (none, PackBits, LZW, "
-                              "Deflate, CCITT RLE, RLE/W, Group 3 and Group 4, JPEG); "
-                              "ROADMAP.md queues WebP, GIF, HDR, JPEG 2000 and AVIF")
+                              "PxM / PAM, PFM, Sun raster, TIFF (none, PackBits, LZW, "
+                              "Deflate, CCITT RLE, RLE/W, Group 3 and Group 4, JPEG) and GIF; "
+                              "ROADMAP.md queues WebP, HDR, JPEG 2000 and AVIF")
 
 
 def _planes(img: np.ndarray) -> torch.Tensor:

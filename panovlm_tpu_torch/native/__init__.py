@@ -6,11 +6,11 @@ hash of the source, and loaded with ctypes. Every entry point has a numpy
 fallback (io/pointcloud.py), so the port still reads scans where no
 compiler is available. The LSD line detector (`lsd.cpp`, `native/lsd.py`),
 the JPEG and PNG decoders, the LK flow, the SIFT detector (`sift.cpp`,
-`native/sift.py`) and the decoders of BMP, PxM / PAM / PFM, Sun raster and
-TIFF (`HostDecoder`: `bmp.cpp`, `pxm.cpp`, `sunras.cpp`, `tiff.cpp`, the
-last built together with `jpeg.cpp`, whose decoder its JPEG strips go
-through, and linked with zlib) are built the same way and have no
-fallback.
+`native/sift.py`) and the decoders of BMP, PxM / PAM / PFM, Sun raster,
+TIFF and GIF (`HostDecoder`: `bmp.cpp`, `pxm.cpp`, `sunras.cpp`,
+`tiff.cpp`, built together with `jpeg.cpp`, whose decoder its JPEG strips
+go through, and linked with zlib, and `gif.cpp`) are built the same way
+and have no fallback.
 """
 
 from __future__ import annotations
@@ -103,10 +103,11 @@ MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
 
 class HostDecoder:
     """One of the host decoders with cv2.imread's bits that share
-    imgcodecs.h: `<name>.cpp` beside this file, built at first use together
-    with the `sources` beside it (linked with `libs`), its entry points
-    pv_<name>_info and pv_<name>_decode
-    called through ctypes (which releases the GIL). Return codes 1 and 2
+    imgcodecs.h (BMP, PxM / PAM / PFM, Sun raster, TIFF, GIF):
+    `<name>.cpp` beside this file, built at first use together with the
+    `sources` beside it (linked with `libs`), its entry points
+    pv_<name>_info and pv_<name>_decode called through ctypes (which
+    releases the GIL). Return codes 1 and 2
     (cv2 gives no image) raise Cv2Refuses and ValueError, 3 MemoryError,
     4 (a kind of file cv2 reads and the port does not yet) a plain
     NotImplementedError."""

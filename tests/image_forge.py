@@ -27,6 +27,14 @@ runs, deltas over index-0 pixels, end of line and of bitmap), top-down
 rows. PxM (`pnm_bytes`: P1-P6, ASCII or binary, any maxval, comments),
 PAM (`pam_bytes`), PFM (`pfm_bytes`) and Sun raster (`sun_bytes`: any
 type, map type and depth, RT_BYTE_ENCODED's 0x80 escapes).
+
+GIF (`gif_bytes`, built from `gif_screen`, `gif_gce`, `gif_extension` and
+`gif_image`): 87a or 89a, global and local palettes of 2 to 256 entries or
+none, a background index, frames at offsets, interlaced rows, graphic
+control extensions (transparency, disposal), any extension, several
+frames; LZW (`gif_lzw`) with any minimum code size, a clear code when the
+table is full or a deferred clear, or any list of codes (`gif_pack`, each
+as wide as the decoder's table makes it), in sub-blocks of any size.
 """
 
 from __future__ import annotations
@@ -1018,6 +1026,9 @@ def _forge_lib():
             lib.pv_lzw_code.restype = ctypes.c_long
             lib.pv_lzw_code.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_long]
+            lib.pv_gif_lzw.restype = ctypes.c_long
+            lib.pv_gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_long]
             lib.pv_fax_code.restype = ctypes.c_long
             lib.pv_fax_code.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
                                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -1408,3 +1419,168 @@ def tiff_bytes(samples, photometric: int | None = None, bits: int = 8, compressi
     if ifd_first:
         return hdr + bytes(ifd) + bytes(ool) + data
     return hdr + data + b"\0" * (data_size % 2) + bytes(ifd) + bytes(ool)
+
+
+# ----------------------------------------------------------------------------
+# GIF
+# ----------------------------------------------------------------------------
+
+GIF_INTERLACE = ((0, 8), (4, 8), (2, 4), (1, 2))   # (first row, step) of each pass
+
+
+def gif_codes(data: bytes, min_code: int, deferred: bool = False) -> list:
+    """GIF's LZW codes of data (indices below 2^min_code): a clear code
+    first, a clear code when the next free entry reaches 4096 (with
+    deferred none: the table stops growing there), the end-of-information
+    code."""
+    clear = 1 << min_code
+    codes = [clear]
+    fresh = {bytes([i]): i for i in range(256)}
+    table, nxt, w = dict(fresh), clear + 2, b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        codes.append(table[w])
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+        w = bytes([c])
+        if nxt == 4096 and not deferred:
+            codes.append(clear)
+            table, nxt = dict(fresh), clear + 2
+    if w:
+        codes.append(table[w])
+    return codes + [clear + 1]
+
+
+def gif_pack(codes, min_code: int) -> bytes:
+    """The codes LSB first, each as wide as a decoder's table makes it:
+    min_code + 1 bits after a clear or end-of-information code, one bit
+    more when the next free entry (clear + 1 after a reset, one more for
+    each other code while below 4096) reaches 2^bits, up to 12."""
+    clear = 1 << min_code
+    bits, nxt, acc, nacc, out = min_code + 1, clear + 1, 0, 0, bytearray()
+    for code in map(int, codes):
+        acc |= code << nacc
+        nacc += bits
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+        if code in (clear, clear + 1):
+            bits, nxt = min_code + 1, clear + 1
+            continue
+        nxt = min(nxt + 1, 4096)
+        if nxt == 1 << bits and bits < 12:
+            bits += 1
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_lzw(data: bytes, min_code: int, deferred: bool = False) -> bytes:
+    """gif_pack of gif_codes; inputs over 64 KiB through tiff_forge.cpp
+    beside this file (pv_gif_lzw, built with g++ at first use into
+    build/native/), which writes the same codes."""
+    if len(data) <= 1 << 16:
+        return gif_pack(gif_codes(data, min_code, deferred), min_code)
+    cap = 2 * len(data) + 64
+    out = np.empty(cap, np.uint8)
+    n = _forge_lib().pv_gif_lzw(data, len(data), min_code, int(deferred), out.ctypes.data, cap)
+    assert n >= 0
+    return out[:n].tobytes()
+
+
+def gif_sub_blocks(data: bytes, size: int = 255) -> bytes:
+    """data in sub-blocks of `size` bytes (the last shorter), then the block
+    terminator."""
+    return b"".join(bytes([len(data[i:i + size])]) + data[i:i + size]
+                    for i in range(0, len(data), size)) + b"\0"
+
+
+def _gif_palette(palette):
+    """(size field, bytes) of an (n, 3) RGB palette, padded with black to
+    the next power of two from 2 to 256."""
+    p = np.asarray(palette, np.uint8).reshape(-1, 3)
+    k = max(0, (len(p) - 1).bit_length() - 1)
+    return k, p.tobytes() + bytes(3 * ((2 << k) - len(p)))
+
+
+def gif_screen(width: int, height: int, palette=None, bg: int = 0,
+               version: bytes = b"89a") -> bytes:
+    """The header, the logical screen descriptor (8-bit colour resolution)
+    and the global palette (none when palette is None)."""
+    flags, table = 0x70, b""
+    if palette is not None:
+        k, table = _gif_palette(palette)
+        flags |= 0x80 | k
+    return b"GIF" + version + struct.pack("<HHBBB", width, height, flags, bg, 0) + table
+
+
+def gif_extension(label: int, blocks) -> bytes:
+    """An extension: 0x21, its label, each of blocks as a sub-block, the
+    terminator."""
+    return bytes([0x21, label]) + b"".join(bytes([len(b)]) + b for b in blocks) + b"\0"
+
+
+def gif_gce(transparent: int | None = None, disposal: int = 0, delay: int = 0) -> bytes:
+    """A graphic control extension."""
+    flags = (disposal & 7) << 2 | (transparent is not None)
+    return gif_extension(0xF9, [struct.pack("<BHB", flags, delay, transparent or 0)])
+
+
+def gif_image(indices, left: int = 0, top: int = 0, palette=None, interlace: bool = False,
+              min_code: int | None = None, deferred: bool = False, data: bytes | None = None,
+              block: int = 255) -> bytes:
+    """An image descriptor, its local palette (none when palette is None),
+    the minimum code size and the LZW data of the (h, w) indices, rows in
+    interlace order with interlace, in sub-blocks of `block` bytes. min_code
+    defaults to the bits of the largest index, at least 2; `data` replaces
+    the coded indices."""
+    idx = np.asarray(indices, np.uint8)
+    h, w = idx.shape
+    flags, table = 0x40 * bool(interlace), b""
+    if palette is not None:
+        k, table = _gif_palette(palette)
+        flags |= 0x80 | k
+    if min_code is None:
+        min_code = max(2, int(idx.max(initial=0)).bit_length())
+    if data is None:
+        rows = np.concatenate([idx[a::s] for a, s in GIF_INTERLACE]) if interlace else idx
+        data = gif_lzw(np.ascontiguousarray(rows).tobytes(), min_code, deferred)
+    return (b"\x2c" + struct.pack("<HHHHB", left, top, w, h, flags) + table + bytes([min_code])
+            + gif_sub_blocks(data, block))
+
+
+def gif_bytes(indices, palette=None, local=None, screen=None, offset=(0, 0), bg: int = 0,
+              transparent: int | None = None, disposal: int | None = None, interlace: bool = False,
+              min_code: int | None = None, deferred: bool = False, version: bytes = b"89a",
+              before: bytes = b"", after: bytes = b"", **image) -> bytes:
+    """A GIF of one frame of (h, w) palette indices: the global `palette`
+    (RGB rows) or none, the frame's `local` palette or none, a logical
+    screen of `screen` = (width, height) (the frame's size by default) with
+    the frame at `offset` = (left, top), a graphic control extension when
+    transparent or disposal is given, `before` (extensions) ahead of it and
+    `after` (more frames, extensions) after the frame, then the trailer."""
+    idx = np.asarray(indices, np.uint8)
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    gce = gif_gce(transparent, disposal or 0) if transparent is not None or disposal is not None \
+        else b""
+    return (gif_screen(sw, sh, palette, bg, version) + before + gce
+            + gif_image(idx, offset[0], offset[1], local, interlace, min_code, deferred, **image)
+            + after + b"\x3b")
+
+
+def gif_332(rgb):
+    """(h, w, 3) uint8 RGB quantised to the 3-3-2 palette: indices
+    (r >> 5) << 5 | (g >> 5) << 2 | b >> 6 and the (256, 3) palette of
+    their levels (each 3-bit level v as v * 255 // 7, each 2-bit one as
+    v * 85)."""
+    c = np.asarray(rgb, np.uint8)
+    idx = (c[..., 0] & 0xE0) | (c[..., 1] & 0xE0) >> 3 | c[..., 2] >> 6
+    i = np.arange(256)
+    pal = np.stack([(i >> 5) * 255 // 7, (i >> 2 & 7) * 255 // 7, (i & 3) * 85], axis=1)
+    return idx.astype(np.uint8), pal.astype(np.uint8)

@@ -12,10 +12,13 @@ cv2.imread-based `load_images` / `load_mask` (panovlm_tpu/pipeline.py):
   * the decoder follows the file's first bytes, as cv2's findDecoder does:
     a PNG named .jpg and a JPEG named .png load as in the JAX package, as
     frames (gray and colour, scale 0 and -1) and as masks;
-  * a BMP, PxM, PAM, PFM, Sun raster or TIFF file that cv2 writes, named
-    mask.png, reads with cv2's bits as a frame and as a mask (a PFM mask is
-    None: cv2 gives no gray image for a three-channel PFM);
-  * a file of another format cv2 reads (HDR, WebP, AVIF, GIF, JPEG 2000)
+  * a BMP, PxM, PAM, PFM, Sun raster, TIFF or GIF file that cv2 writes,
+    named mask.png, reads with cv2's bits as a frame and as a mask (a PFM
+    mask is None: cv2 gives no gray image for a three-channel PFM);
+  * GIF frames named .png (an interlaced one, one on a larger screen with a
+    background colour, one with a transparent index, one cv2 writes) load
+    as in the JAX package, gray and colour, scale 0 and -1;
+  * a file of another format cv2 reads (HDR, WebP, AVIF, JPEG 2000)
     raises NotImplementedError naming the format and ROADMAP.md, as a mask
     too: only "cv2 gives no image" reads as no mask.
 """
@@ -211,10 +214,11 @@ def _cv2_enc(ext):
 RASTER_FORMATS = {
     "BMP": _cv2_enc(".bmp"), "PxM": _cv2_enc(".ppm"), "PAM": _cv2_enc(".pam"),
     "PFM": _cv2_enc(".pfm"), "Sun raster": _cv2_enc(".sr"), "TIFF": _cv2_enc(".tiff"),
+    "GIF": _cv2_enc(".gif"),
 }
 OTHER_FORMATS = {
     "HDR": _cv2_enc(".hdr"), "WebP": _cv2_enc(".webp"), "AVIF": _cv2_enc(".avif"),
-    "GIF": _cv2_enc(".gif"), "JPEG 2000": _pil("JPEG2000"),
+    "JPEG 2000": _pil("JPEG2000"),
 }
 
 
@@ -238,6 +242,32 @@ def test_raster_formats_read_like_cv2(tmp_path, fmt):
     _same_mask(path, 24, 32)
     _same_mask(path, 48, 64)
     assert (images.load_mask(path, 24, 32) is None) == (fmt == "PFM")
+
+
+@pytest.mark.parametrize("color,scale", [(False, 0), (False, -1), (True, 0), (True, -1)])
+def test_gif_frames_match_jax_package(tmp_path, color, scale):
+    """GIF bytes in .png files (cv2 decodes by signature): a 256-colour
+    frame, the same interlaced, a smaller frame at an offset on a screen
+    with a background colour and a transparent index, and the file cv2
+    writes of a frame. The JAX package's load_images reads them with cv2,
+    the port's with native/gif.cpp: the same arrays."""
+    rng = np.random.default_rng(21)
+    h, w = 37, 75
+    idx = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    pal = rng.integers(0, 256, (256, 3))
+    files = [forge.gif_bytes(idx, pal), forge.gif_bytes(idx, pal, interlace=True),
+             forge.gif_bytes(idx[3:30, 5:60], pal, screen=(w, h), offset=(5, 3), bg=17,
+                             transparent=int(idx[10, 10])),
+             _cv2_enc(".gif")(_frame(h, w, 8))]
+    d = tmp_path / "images"
+    d.mkdir()
+    for i, data in enumerate(files):
+        _write(d / f"{i:06d}.png", data)
+    ref, names = jpipe.load_images(Config(image_path=str(d), scale=scale), color=color)
+    out, names_t = images.load_images(str(d), scale, color=color)
+    assert names_t == names and len(out) == len(files)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("fmt", list(OTHER_FORMATS))

@@ -26,7 +26,8 @@ passes, main.cpp:610), with a tripod-style mask at half the panorama size
 as an RLE8 BMP named mask.png, which the JAX stage reads with cv2 and the
 port with native/bmp.cpp; the port also with the same mask as a PNG; both
 stages with it as a 1-bit MinIsWhite CCITT Group 4 TIFF named mask.tif
-(native/tiff.cpp in the port).
+(native/tiff.cpp in the port) and as a GIF with a 2-entry palette named
+mask.gif (native/gif.cpp in the port).
 """
 
 import glob
@@ -217,19 +218,23 @@ def masked(runs, tmp_path_factory):
     m = _tripod(64, 128)
     os.makedirs(d / "bmp")
     paths = {"bmp": str(d / "bmp" / "mask.png"), "png": str(d / "mask.png"),
-             "g4": str(d / "mask.tif")}
+             "g4": str(d / "mask.tif"), "gif": str(d / "mask.gif")}
     with open(paths["bmp"], "wb") as f:
         f.write(forge.bmp_bytes((m > 0).astype(np.uint8), 8, [[0, 0, 0], [255, 255, 255]],
                                 rle=True))
     images.write_png(paths["png"], m)
     with open(paths["g4"], "wb") as f:   # the masked pixels black
         f.write(forge.tiff_bytes((m == 0).astype(np.uint8), 0, 1, compression=4))
+    with open(paths["gif"], "wb") as f:
+        f.write(forge.gif_bytes((m > 0).astype(np.uint8), [[0, 0, 0], [255, 255, 255]]))
     cfg_j = load_config(_with_mask(runs["jax"][0], "jax_bmp_mask", paths["bmp"]))
     depths_j, _ = pipeline.joint_mvs(cfg_j)
     out = {"jax": (cfg_j, depths_j)}
     cfg_g = load_config(_with_mask(runs["jax"][0], "jax_g4_mask", paths["g4"]))
     out["jax_g4"] = (cfg_g, pipeline.joint_mvs(cfg_g)[0])
-    for kind in ("bmp", "png", "g4"):
+    cfg_f = load_config(_with_mask(runs["jax"][0], "jax_gif_mask", paths["gif"]))
+    out["jax_gif"] = (cfg_f, pipeline.joint_mvs(cfg_f)[0])
+    for kind in ("bmp", "png", "g4", "gif"):
         path = _with_mask(runs["port"][0], f"port_{kind}_mask", paths[kind])
         assert torch_main(["joint_mvs", path, "--device", "cpu"]) == 0
         cfg_t = load_config(path)
@@ -288,3 +293,17 @@ def test_group4_tiff_mask_gives_the_png_masks_bits(masked):
     assert _tree(masked["g4"][0]) == _tree(masked["png"][0])
     np.testing.assert_array_equal(masked["g4"][1], masked["png"][1])
     assert _tree(masked["jax_g4"][0]) == _tree(masked["jax"][0])
+
+
+def test_gif_mask_gives_the_png_masks_bits(masked):
+    """The tripod mask as a GIF with a 2-entry palette named mask.gif: the
+    port's load_mask and the JAX package's give the PNG's booleans, the
+    port's run writes the bytes of its PNG-mask run in every artifact, and
+    the JAX stage with it writes the bytes of its BMP-mask run."""
+    path = masked["gif"][0].mask_path
+    np.testing.assert_array_equal(images.load_mask(path, 128, 256), masked["mask"])
+    np.testing.assert_array_equal(pipeline.load_mask(masked["jax_gif"][0], 128, 256),
+                                  masked["mask"])
+    assert _tree(masked["gif"][0]) == _tree(masked["png"][0])
+    np.testing.assert_array_equal(masked["gif"][1], masked["png"][1])
+    assert _tree(masked["jax_gif"][0]) == _tree(masked["jax"][0])

@@ -1,11 +1,14 @@
-// TIFF coders for tests/image_forge.py's tiff_bytes, sharing nothing with
-// the port's decoders:
+// TIFF and GIF coders for tests/image_forge.py's tiff_bytes and gif_bytes,
+// sharing nothing with the port's decoders:
 //   * LZW on large inputs (the full-size frames of chip_smoke.py phase 16
 //     (h)): the same codes as image_forge.tiff_lzw writes in Python, a
 //     clear code first, codes of 9 to 12 bits whose width follows the
 //     decoder's table (libtiff's new-style codes, MSB first, or with compat
 //     the old bit-reversed ones, LSB first), a clear code when the table is
-//     full, the end-of-information code;
+//     full, the end-of-information code; GIF's LZW is the LSB-first coder
+//     with another minimum code size (2 to 11 bits: the literals below
+//     2^min, codes from min + 1 bits), a clear code when 4096 entries are
+//     taken, or none (a deferred clear);
 //   * CCITT fax coding of bilevel rows (T.4 and T.6, written MSB first):
 //     Modified Huffman rows padded to a byte (CCITT RLE) or to 16 bits
 //     (RLE/W); Group 3 rows each after an EOL (with fill bits that end the
@@ -14,7 +17,8 @@
 //     against the row above (white above the first), an EOFB at the end.
 //     Runs of 2560 or more repeat the 2560 make-up code.
 //
-// C interface (ctypes): pv_lzw_code(src, n, compat, out, cap) and
+// C interface (ctypes): pv_lzw_code(src, n, compat, out, cap),
+// pv_gif_lzw(src, n, min_bits, deferred, out, cap) and
 // pv_fax_code(px, h, w, mode, k, fill, eol_end, out, cap) (px: h * w bytes,
 // nonzero for black; mode 2 RLE, 32771 RLE/W, 3 Group 3, 4 Group 4; k: the
 // 2-D rows per 1-D one plus one, 0 for 1-D Group 3; eol_end: the RTC or
@@ -185,6 +189,65 @@ void code_2d(FaxBits& o, const std::vector<long>& cur, const std::vector<long>& 
 
 }  // namespace
 
+// The LZW coder of pv_lzw_code and pv_gif_lzw: literals below
+// clear = 2^min_bits, a clear code first, codes of min_bits + 1 to 12 bits
+// whose width follows the decoder's table (the first free entry clear + 2),
+// a clear code when the next free entry reaches full_at (never with 0: the
+// table then stops growing at 4096 entries, a deferred clear), the
+// end-of-information code.
+static long lzw_code(const uint8_t* src, long n, bool compat, int min_bits, int full_at,
+                     uint8_t* out, long cap) {
+  Bits bits{out, cap};
+  bits.compat = compat;
+  const int clear = 1 << min_bits, first_free = clear + 2;
+  int nbits = min_bits + 1;
+  long codes = 0;
+  // the table: child[code * 256 + byte] -> code, 0 for none
+  std::vector<uint16_t> child(4096 * 256, 0);
+  std::vector<size_t> used;
+  auto emit = [&](int code) {
+    bits.put(code, nbits);
+    codes++;
+    long free = first_free + codes - 1;   // entries the decoder holds after this code
+    while (nbits < 12 && free > (1L << nbits) - (compat ? 1 : 2)) nbits++;
+  };
+  auto reset = [&]() {
+    for (size_t k : used) child[k] = 0;
+    used.clear();
+  };
+  bits.put(clear, nbits);
+  int next = first_free, w = -1;
+  for (long i = 0; i < n; i++) {
+    int c = src[i];
+    if (w < 0) {
+      w = c;
+      continue;
+    }
+    uint16_t k = child[(size_t)w * 256 + c];
+    if (k) {
+      w = k;
+      continue;
+    }
+    emit(w);
+    if (next < 4096) {
+      child[(size_t)w * 256 + c] = (uint16_t)next++;
+      used.push_back((size_t)w * 256 + c);
+    }
+    w = c;
+    if (next == full_at) {
+      bits.put(clear, nbits);
+      nbits = min_bits + 1;
+      codes = 0;
+      reset();
+      next = first_free;
+    }
+  }
+  if (w >= 0) emit(w);
+  bits.put(clear + 1, nbits);
+  if (bits.nacc) bits.byte((uint8_t)((compat ? bits.acc : bits.acc << (8 - bits.nacc)) & 255));
+  return bits.full ? -1 : bits.len;
+}
+
 extern "C" {
 
 long pv_fax_code(const uint8_t* px, long h, long w, int mode, int k, int fill, int eol_end,
@@ -217,52 +280,11 @@ long pv_fax_code(const uint8_t* px, long h, long w, int mode, int k, int fill, i
 }
 
 long pv_lzw_code(const uint8_t* src, long n, int compat, uint8_t* out, long cap) {
-  Bits bits{out, cap};
-  bits.compat = compat != 0;
-  int nbits = 9;
-  long codes = 0;
-  // the table: child[code * 256 + byte] -> code, 0 for none
-  std::vector<uint16_t> child(4096 * 256, 0);
-  std::vector<size_t> used;
-  auto emit = [&](int code) {
-    bits.put(code, nbits);
-    codes++;
-    long free = 258 + codes - 1;   // entries the decoder holds after this code
-    while (nbits < 12 && free > (1L << nbits) - (compat ? 1 : 2)) nbits++;
-  };
-  auto reset = [&]() {
-    for (size_t k : used) child[k] = 0;
-    used.clear();
-  };
-  bits.put(256, nbits);
-  int next = 258, w = -1;
-  for (long i = 0; i < n; i++) {
-    int c = src[i];
-    if (w < 0) {
-      w = c;
-      continue;
-    }
-    uint16_t k = child[(size_t)w * 256 + c];
-    if (k) {
-      w = k;
-      continue;
-    }
-    emit(w);
-    child[(size_t)w * 256 + c] = (uint16_t)next++;
-    used.push_back((size_t)w * 256 + c);
-    w = c;
-    if (next == 4094) {
-      bits.put(256, nbits);
-      nbits = 9;
-      codes = 0;
-      reset();
-      next = 258;
-    }
-  }
-  if (w >= 0) emit(w);
-  bits.put(257, nbits);
-  if (bits.nacc) bits.byte((uint8_t)((compat ? bits.acc : bits.acc << (8 - bits.nacc)) & 255));
-  return bits.full ? -1 : bits.len;
+  return lzw_code(src, n, compat != 0, 8, 4094, out, cap);
+}
+
+long pv_gif_lzw(const uint8_t* src, long n, int min_bits, int deferred, uint8_t* out, long cap) {
+  return lzw_code(src, n, true, min_bits, deferred ? 0 : 4096, out, cap);
 }
 
 }  // extern "C"
